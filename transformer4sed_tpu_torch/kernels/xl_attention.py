@@ -20,7 +20,7 @@ Forward only: the backward kernels come with the training slice.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +35,6 @@ from transformer4sed_tpu_torch.kernels.flash_attention import (
 
 _NEG_INF = -1e30
 _FN = None
-_BAND_CACHE: Dict[tuple, torch.Tensor] = {}
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -83,13 +82,10 @@ def _kernel():
 def _band_tensor(band_widths, num_heads: int, device) -> Optional[torch.Tensor]:
     if band_widths is None:
         return None
-    widths = tuple(int(w) for w in band_widths)
+    widths = [int(w) for w in band_widths]
     if len(widths) != num_heads:
         raise ValueError(f"{len(widths)} band widths for {num_heads} heads")
-    key = (widths, str(device))
-    if key not in _BAND_CACHE:
-        _BAND_CACHE[key] = torch.tensor(widths, dtype=torch.int32, device=device)
-    return _BAND_CACHE[key]
+    return torch.tensor(widths, dtype=torch.int32, device=device)
 
 
 def flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float,
