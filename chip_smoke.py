@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                              # every phase, one card
+    python3 chip_smoke.py --phases build,kernels,train # the short call after a kernel edit
 
 Phases, in order; any failure exits non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
-     of the serving path from ``transformer4sed_tpu_torch/csrc`` (one nvcc
-     per source, in parallel);
+     from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
+     parallel): the serving forwards and the training LSE forwards and
+     backwards;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and on small ragged cases, and show that the same
-     check rejects planted faults (a dropped key tile, a dropped bias, a
-     rel-shift off by one, a band one key wider);
+     main paths' shapes and on small ragged and banded cases, and show that
+     the same check rejects planted faults (a dropped key tile, a dropped
+     bias, a rel-shift off by one, a band one key wider; for the backwards
+     an LSE shifted by log 2, a zeroed O, P rolled by one row, pos_bias_v
+     dropped);
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
      flagship (PaSST 768/12/12 tapped at layer 10, 3-layer Transformer-XL
      at T=1000, AT adapter, 10 DESED classes), seeded random weights, bf16
      compute; check shapes, finiteness, events and that the kernels ran
-     12 and 3 times per batch;
+     12 and 3 times per batch (and no training kernel ran);
   4. the same weights on 2 clips on the CPU in f32 (plain versions) and on
      the card (kernels): strong, weak and at_out must agree to the JAX
      package's own bf16-vs-f32 bound;
-  5. time each kernel, its plain version and the one-call library
-     equivalent (SDPA for the flash kernel) with CUDA events, beside the
-     least time the card could take; time served clips/s at B=8 over
-     three windows of 160 batches each;
-  6. profile two served batches (torch.profiler): device time by kernel
-     and the device's busy share of the unprofiled batch time.
+  5. train: mean-teacher steps of the same flagship at B=24 (strong 8 |
+     weak 8 | unlabeled 8) on seeded synthetic clips and labels, default
+     augmentation (fmin/fmax draw, frame shift, mixup p=0.5, two filt_aug
+     views), clip 20, AdamW 1e-4, EMA 0.999; finite losses, and per step
+     the teacher's forward kernels 12 and 3 times, the LSE forwards and
+     backwards 12 (flash) and 3 (XL) times each;
+  6. train parity: the same weights, 3 steps at B=3 (1|1|1) with
+     augmentation off on the CPU in f32 and on the card in bf16: loss
+     trajectories and the gradient at the CPU's end state held to the JAX
+     package's bf16-vs-f32 bounds (tests/test_precision.py:86-138);
+  7. time each kernel, its plain version and the one-call library
+     equivalent (SDPA forward, SDPA backward through autograd) with CUDA
+     events, beside the least time the card could take; time served
+     clips/s at B=8 over three windows of 160 batches; time train steps/s
+     and clips/s at B=24 over three windows, and the peak device memory;
+  8. profile two served batches and one train step (torch.profiler):
+     device time by kernel and the device's busy share.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
@@ -42,7 +57,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "timing", "profile")
+PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "timing", "profile")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -61,10 +76,35 @@ KERNEL_SLACK = 1.05
 # by rounding the exact result to bf16 once, mean|bf16(ref) - ref|; a term
 # dropped or shifted lifts it far above.
 KERNEL_MEAN_FACTOR = 4.0
+# The backwards round to bf16 once before each product (P before dV = P^T dO,
+# dS before dK, dQ and, in XL, dQv and dP) and round dq/dk/dv/dP once at the
+# end; dS itself, the recomputed scores and P are f32 on exact bf16 products,
+# as in the plain version, which runs in f32 on the same bf16 inputs (q stays
+# bf16 in the XL one, so q+u and q+v round as in the kernel). Rounding one
+# operand of a product perturbs each term by at most u times the term, so,
+# element by element, |grad - ref| <= u * (|ref| + the same product taken on
+# absolute values), e.g. P^T|dO| for dv and scale * |dS|^T |Q| for dk, which
+# the plain formulas give when run on |dS| and |operands| (bwd_bound_terms).
+# dS = P (dP - delta) is f32 on both sides, but dP - delta can cancel (a
+# band-1 row has dS = 0 exactly): the f32 error of each 64-term dot,
+# gamma_64 = 64 * 2^-24 times the sum of |terms| (Higham), is added to |dS|
+# in units of u, as F32_DOT * P * (|dO| |V|^T + rowsum |dO| |O|).
+F32_DOT = 64 * 2.0 ** -24 / BF16_U
+# The log-sum-exp has no bf16 rounding: the kernel and the plain version
+# differ by f32 sums in another order and exp2 for exp, a few ulps of the
+# 1190 scores it sums; LSE_RTOL bounds that relative to 1 + |lse|.
+LSE_RTOL = 2.0 ** -14
 # card bf16 vs CPU f32 on probabilities: the JAX package's own bound for
 # the same-params eval forward in the two compute dtypes
 # (tests/test_precision.py, docs/PRECISION.md)
 DTYPE_MAX_ABS = 5e-2
+# card bf16 vs CPU f32 training: the JAX package's own bounds for the same
+# comparison (tests/test_precision.py:86-138): relative loss delta over the
+# trajectory (mean, max) and the gradient at the f32 end state (cosine,
+# norm ratio)
+TRAIN_LOSS_REL_MEAN, TRAIN_LOSS_REL_MAX = 0.03, 0.10
+TRAIN_GRAD_COS = 0.995
+TRAIN_GRAD_RATIO = (0.9, 1.1)
 MEDIAN_WINDOW = [5, 20, 5, 5, 5, 20, 20, 20, 5, 20]  # config/mat-sed/finetune1.yaml
 FLAGSHIP = dict(
     class_num=10, embed_dim=768, decoder_dim=768, backbone_depth=12, backbone_num_heads=12,
@@ -111,14 +151,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def held(what, out, ref, ref_abs_v):
-    """Log the kernel's error against its bound (KERNEL_SLACK,
-    KERNEL_MEAN_FACTOR); return (within both limits, max abs error)."""
+def held(what, out, ref, abs_term):
+    """Log the kernel's error against its bound, KERNEL_SLACK * u * (|ref| +
+    abs_term) with abs_term the product on absolute values (A|v| for the
+    forwards), and against KERNEL_MEAN_FACTOR; return (within both limits,
+    max abs error)."""
     import torch
 
     err = (out.float() - ref).abs()
-    tol = KERNEL_SLACK * BF16_U * (ref.abs() + ref_abs_v)
-    worst = float((err / tol).max())
+    tol = KERNEL_SLACK * BF16_U * (ref.abs() + abs_term)
+    worst = float(torch.where(err == 0, 0.0, err / tol).max())
     mean = float(err.mean())
     floor = float((ref.to(torch.bfloat16).float() - ref).abs().mean())
     ok = worst <= 1.0 and mean <= KERNEL_MEAN_FACTOR * floor
@@ -126,6 +168,47 @@ def held(what, out, ref, ref_abs_v):
         f"mean {mean:.3e} = {mean / floor:.2f}x the bf16 rounding floor {floor:.3e} "
         f"(limit {KERNEL_MEAN_FACTOR}): {'within' if ok else 'OUTSIDE'}")
     return ok, float(err.max())
+
+
+def lse_held(what, lse, ref):
+    """Log the log-sum-exp's error against its f32 bound (LSE_RTOL);
+    return (within, max abs error)."""
+    err = (lse - ref).abs()
+    worst = float((err / (LSE_RTOL * (1.0 + ref.abs()))).max())
+    ok = worst <= 1.0
+    log(f"{what}: lse max_abs_err {float(err.max()):.3e}, max err/bound {worst:.3f} (limit 1, "
+        f"bound {LSE_RTOL:.2e} * (1 + |lse|)): {'within' if ok else 'OUTSIDE'}")
+    return ok, float(err.max())
+
+
+def held_all(what, names, outs, refs, extras):
+    """held() for each result of a backward; (all within, max abs error)."""
+    oks, worst = [], 0.0
+    for name, out, ref, extra in zip(names, outs, refs, extras):
+        ok, mx = held(f"{what} {name}", out, ref, extra)
+        oks.append(ok)
+        worst = max(worst, mx)
+    return all(oks), worst
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from transformer4sed_tpu_torch.kernels import flash_attention as fa
+    from transformer4sed_tpu_torch.kernels import xl_attention as xa
+
+    fns = (fa.flash_attention_nhd, xa.flash_xl_attention_nhd, fa.flash_attention_nhd_lse,
+           fa.flash_attention_nhd_backward, xa.flash_xl_attention_nhd_lse,
+           xa.flash_xl_attention_nhd_backward)
+    return {f.__name__: f for f in fns}
+
+
+def reset_launches():
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_launches():
+    return {name: f.launches for name, f in kernel_wrappers().items()}
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -214,8 +297,167 @@ def check_kernels(results):
             out = flash_xl_attention_nhd(q, k, v, bu, bv, p, h, scale, wider)
             rejected.append(held("planted fault: band one key wider each side", out, ref,
                                  ref_abs_v)[0])
+    check_train_kernels(results, rejected)
     check(not any(rejected), "the kernel check let a planted fault through")
     log(f"all {len(rejected)} planted faults fall outside the bound")
+
+
+def flash_bwd_terms(q, k, v, o, lse, do, h):
+    """The backward's products on absolute values (the bound above):
+    scale |dS| |K| for dq, scale |dS|^T |Q| for dk, P^T |dO| for dv."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _merge_heads,
+        _split_heads,
+        row_delta,
+    )
+
+    scale = (q.shape[-1] // h) ** -0.5
+    qh, kh, vh, doh = (_split_heads(x.float(), h) for x in (q, k, v, do))
+    pr = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse[..., None])
+    ads = (pr * (torch.matmul(doh, vh.transpose(-1, -2)) - row_delta(o, do, h)[..., None])).abs()
+    ads += F32_DOT * pr * (torch.matmul(doh.abs(), vh.abs().transpose(-1, -2))
+                           + row_delta(o.abs(), do.abs(), h)[..., None])
+    return (_merge_heads(torch.matmul(ads, kh.abs())) * scale,
+            _merge_heads(torch.matmul(ads.transpose(-1, -2), qh.abs())) * scale,
+            _merge_heads(torch.matmul(pr.transpose(-1, -2), doh.abs())))
+
+
+def xl_bwd_terms(q, k, v, bu, bv, p, o, lse, do, h, scale, band):
+    """The XL backward's products on absolute values: scale (|dS||K| +
+    unshift|dS| |P|) for dq, scale |dS|^T |q+u| for dk, A^T |dO| for dv,
+    their (b, t) sums for the bias gradients, scale unshift|dS|^T |q+v|
+    summed over batch for dP."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _merge_heads,
+        _split_heads,
+        row_delta,
+    )
+    from transformer4sed_tpu_torch.kernels.xl_attention import _scores, rel_unshift
+
+    qu, qv, kh, scores, mask = _scores(q, k.float(), bu, bv, p.float(), h, scale, band)
+    a = torch.exp(scores - lse[..., None])
+    if mask is not None:
+        a = a.masked_fill(mask[None], 0.0)
+    vh, doh = _split_heads(v.float(), h), _split_heads(do.float(), h)
+    ads = (a * (torch.matmul(doh, vh.transpose(-1, -2)) - row_delta(o, do, h)[..., None])).abs()
+    ads += F32_DOT * a * (torch.matmul(doh.abs(), vh.abs().transpose(-1, -2))
+                          + row_delta(o.abs(), do.abs(), h)[..., None])
+    skew = rel_unshift(ads)
+    dqu = torch.matmul(ads, kh.abs()) * scale
+    dqv = torch.matmul(skew, p.float().abs()[None]) * scale
+    return (_merge_heads(dqu + dqv),
+            _merge_heads(torch.matmul(ads.transpose(-1, -2), qu.float().abs())) * scale,
+            _merge_heads(torch.matmul(a.transpose(-1, -2), doh.abs())),
+            dqu.sum((0, 2)), dqv.sum((0, 2)),
+            torch.matmul(skew.transpose(-1, -2), qv.float().abs()).sum(0) * scale)
+
+
+def grad_output(shape, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def check_train_kernels(results, rejected):
+    """Rows 7, 8, 12 and 13: the LSE forwards (output and lse) and the
+    backwards (every cotangent, fed the kernel forward's own o and lse)
+    against their plain versions in f32 on the same bf16 inputs, at the
+    train step's shapes (B=24) and on ragged and banded cases; then four
+    planted faults fed to the backwards."""
+    import math
+
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention_nhd_backward,
+        flash_attention_nhd_backward_reference,
+        flash_attention_nhd_lse,
+        flash_attention_nhd_lse_reference,
+        flash_attention_nhd_reference,
+    )
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        flash_xl_attention_nhd_backward,
+        flash_xl_attention_nhd_lse,
+        xl_attention_nhd_backward_reference,
+        xl_attention_nhd_lse_reference,
+    )
+
+    names = ("dq", "dk", "dv")
+    for b, n, c, h, main in ((24, 1190, 768, 12, True), (2, 77, 768, 12, False),
+                             (1, 130, 256, 4, False)):
+        tag = f"B={b} N={n} C={c} H={h}"
+        q, k, v = flash_inputs(b, n, c, seed=n + 1)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        do = grad_output((b, n, c), seed=n + 2)
+        out, lse = flash_attention_nhd_lse(q, k, v, h)
+        ref, ref_lse = flash_attention_nhd_lse_reference(qf, kf, vf, h)
+        ok_o, mx_o = held(f"kernel flash_attention_nhd_lse {tag} out", out, ref,
+                          flash_attention_nhd_reference(qf, kf, vf.abs(), h))
+        ok_l, mx_l = lse_held(f"kernel flash_attention_nhd_lse {tag}", lse, ref_lse)
+        check(ok_o and ok_l, "flash_attention_nhd_lse disagrees with its plain version")
+        del ref, ref_lse
+        refs = flash_attention_nhd_backward_reference(qf, kf, vf, out.float(), lse, do.float(), h)
+        terms = flash_bwd_terms(q, k, v, out, lse, do, h)
+        grads = flash_attention_nhd_backward(q, k, v, out, lse, do, h)
+        ok, mx = held_all(f"kernel flash_attention_nhd_backward {tag}", names, grads, refs, terms)
+        check(ok, "flash_attention_nhd_backward disagrees with its plain version")
+        if main:
+            results["flash_attention_nhd_lse"]["max_abs_err"] = max(mx_o, mx_l)
+            results["flash_attention_nhd_backward"]["max_abs_err"] = mx
+            bad = flash_attention_nhd_backward(q, k, v, out, lse + math.log(2.0), do, h)
+            rejected.append(held_all("planted fault: lse shifted by log 2", names, bad, refs,
+                                     terms)[0])
+            bad = flash_attention_nhd_backward(q, k, v, torch.zeros_like(out), lse, do, h)
+            rejected.append(held_all("planted fault: O zeroed (delta dropped)", names, bad, refs,
+                                     terms)[0])
+        del refs, terms, grads
+        torch.cuda.empty_cache()
+
+    names = ("dq", "dk", "dv", "dbu", "dbv", "dP")
+    for b, t, c, h, band, main in ((24, 1000, 768, 12, None, True),
+                                   (2, 77, 768, 12, None, False),
+                                   (1, 130, 256, 4, (3, 20, 1, 260), False)):
+        tag = f"B={b} T={t} C={c} H={h} band={band}"
+        q, k, v, bu, bv, p = xl_inputs(b, t, c, h, seed=t + 1)
+        scale = (c // h) ** -0.5
+        do = grad_output((b, t, c), seed=t + 2)
+        out, lse = flash_xl_attention_nhd_lse(q, k, v, bu, bv, p, h, scale, band)
+
+        def ref_fwd(vv):  # q stays bf16: q+u and q+v round as in the kernel
+            return xl_attention_nhd_lse_reference(q, k.float(), vv, bu, bv, p.float(), h, scale,
+                                                  band)
+
+        ref, ref_lse = ref_fwd(v.float())
+        ok_o, mx_o = held(f"kernel flash_xl_attention_nhd_lse {tag} out", out, ref,
+                          ref_fwd(v.float().abs())[0])
+        ok_l, mx_l = lse_held(f"kernel flash_xl_attention_nhd_lse {tag}", lse, ref_lse)
+        check(ok_o and ok_l, "flash_xl_attention_nhd_lse disagrees with its plain version")
+        del ref, ref_lse
+        refs = xl_attention_nhd_backward_reference(q, k.float(), v.float(), bu, bv, p.float(),
+                                                   out.float(), lse, do.float(), h, scale, band)
+        terms = xl_bwd_terms(q, k, v, bu, bv, p, out, lse, do, h, scale, band)
+        grads = flash_xl_attention_nhd_backward(q, k, v, bu, bv, p, out, lse, do, h, scale, band)
+        ok, mx = held_all(f"kernel flash_xl_attention_nhd_backward {tag}", names, grads, refs,
+                          terms)
+        check(ok, "flash_xl_attention_nhd_backward disagrees with its plain version")
+        if main:
+            results["flash_xl_attention_nhd_lse"]["max_abs_err"] = max(mx_o, mx_l)
+            results["flash_xl_attention_nhd_backward"]["max_abs_err"] = mx
+            bad = flash_xl_attention_nhd_backward(q, k, v, bu, bv, p.roll(1, dims=1), out, lse,
+                                                  do, h, scale)
+            rejected.append(held_all("planted fault: P rolled one row (dP scatter off by one)",
+                                     names, bad, refs, terms)[0])
+            bad = flash_xl_attention_nhd_backward(q, k, v, bu, torch.zeros_like(bv), p, out, lse,
+                                                  do, h, scale)
+            rejected.append(held_all("planted fault: pos_bias_v dropped in the backward", names,
+                                     bad, refs, terms)[0])
+        del refs, terms, grads
+        torch.cuda.empty_cache()
 
 
 # -- phases 3 and 4: the served flagship ------------------------------------------
@@ -287,22 +529,20 @@ def build_engine(device, dtype, state_dict=None):
 def serve(engine, results):
     import numpy as np
 
-    from transformer4sed_tpu_torch.kernels.flash_attention import flash_attention_nhd
-    from transformer4sed_tpu_torch.kernels.xl_attention import flash_xl_attention_nhd
-
     clips = synthetic_clips(20, seed=1)
     batches = make_batches(clips, engine.codec, 8)
     check([len(b["filename"]) for b in batches] == [8, 8, 4], "batches of 8, 8 and 4 clips")
-    flash_attention_nhd.launches = 0
-    flash_xl_attention_nhd.launches = 0
+    reset_launches()
     served = list(engine.score_batches(batches))
-    launches = (flash_attention_nhd.launches, flash_xl_attention_nhd.launches)
+    launches = read_launches()
     log(f"served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
-        f"launches flash_attention_nhd {launches[0]}, flash_xl_attention_nhd {launches[1]}")
-    check(launches == (12 * len(batches), 3 * len(batches)),
-          f"kernel launches {launches} on the served path, expected 12 and 3 per batch")
-    results["flash_attention_nhd"]["launches"] = launches[0]
-    results["flash_xl_attention_nhd"]["launches"] = launches[1]
+        f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_nhd=12 * len(batches), flash_xl_attention_nhd=3 * len(batches))
+    check(launches == want,
+          f"kernel launches {launches} on the served path, expected {want} (12 and 3 per batch)")
+    results["flash_attention_nhd"]["launches"] = launches["flash_attention_nhd"]
+    results["flash_xl_attention_nhd"]["launches"] = launches["flash_xl_attention_nhd"]
 
     t_frames = engine.codec.n_frames
     n_events = 0
@@ -346,7 +586,151 @@ def parity(card_engine, batches):
     check(worst <= DTYPE_MAX_ABS, "the card's path disagrees with the CPU f32 path")
 
 
-# -- phase 5: timing ------------------------------------------------------------
+# -- phases 5 and 6: the train step ---------------------------------------------
+
+TRAIN_SPLIT = (8, 8, 8)  # bench.py:measure_train: B=24, strong | weak | unlabeled
+TRAIN_STEPS = 2
+PARITY_SPLIT = (1, 1, 1)
+PARITY_STEPS = 3
+
+
+def synthetic_train_batch(split, seed):
+    """Learnable clips (as exps/precision_ab.py makes them): noise plus
+    three tone bursts, a burst of class c at its own pitch 300 * 1.3^c Hz,
+    in [strong | weak | unlabeled] order, with labels [B, 10, 1000] as the
+    data layer lays them out (data/datasets.py:89): strong rows hold the
+    bursts' frames (100 frames/s), weak rows their tags in frame 0,
+    unlabeled rows nothing."""
+    import numpy as np
+
+    s, w, u = split
+    rng = np.random.RandomState(seed)
+    t = np.arange(CLIP_SAMPLES) / SR
+    wav = np.zeros((s + w + u, CLIP_SAMPLES), np.float32)
+    labels = np.zeros((s + w + u, 10, 1000), np.float32)
+    for i in range(s + w + u):
+        x = 0.05 * rng.randn(CLIP_SAMPLES)
+        for _ in range(3):
+            cls, on, dur = rng.randint(10), rng.uniform(0, 8), rng.uniform(0.3, 2.0)
+            x += np.sin(2 * np.pi * 300 * 1.3 ** cls * t) * ((t >= on) & (t < on + dur))
+            if i < s:
+                labels[i, cls, int(on * 100):int((on + dur) * 100)] = 1.0
+            elif i < s + w:
+                labels[i, cls, 0] = 1.0
+        wav[i] = x
+    return {"wav": wav, "labels": labels}
+
+
+def build_trainer(device, dtype, split, augment, state_dict=None):
+    """The flagship's mean-teacher trainer as bench.py:measure_train sets it:
+    clip 20 then AdamW 1e-4 (optax.adamw's weight decay 1e-4) on every
+    param, EMA 0.999; ``augment=False`` turns mixup, shift and views off."""
+    import torch
+
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
+    from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherConfig, MeanTeacherTrainer
+    from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    model = PaSST_SED(**FLAGSHIP, dtype=dtype, device="cpu")
+    if state_dict is None:
+        init_weights_(model, seed=0)
+    else:
+        model.load_state_dict(state_dict)
+    model.to(device)
+    s, w, u = split
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0, n_transform=0)
+    cfg = MeanTeacherConfig(strong_num=s, weak_num=w, unlabel_num=u, **off)
+    spec = GroupSpec(lr=1e-4, weight_decay=1e-4)
+    return MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
+                              ParamGroupConfig(encoder=spec, decoder=spec, head=spec,
+                                               clip_grad=20.0))
+
+
+def finite_metrics(metrics):
+    import math
+
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(x) for x in values.values()), f"non-finite train metrics {values}")
+    return values
+
+
+def train(results):
+    """Mean-teacher steps of the full-width flagship at B=24 with the
+    default augmentation; returns (trainer, batch) for the timing phase."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer = build_trainer("cuda", torch.bfloat16, TRAIN_SPLIT, augment=True)
+    batch = synthetic_train_batch(TRAIN_SPLIT, seed=3)
+    log(f"built the trainer in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        values = finite_metrics(trainer.step(batch, gen))
+        log(f"train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    per_step = dict(flash_attention_nhd=12, flash_xl_attention_nhd=3, flash_attention_nhd_lse=12,
+                    flash_attention_nhd_backward=12, flash_xl_attention_nhd_lse=3,
+                    flash_xl_attention_nhd_backward=3)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"train launches over {TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on the train path, expected {want}")
+    for name in ("flash_attention_nhd_lse", "flash_attention_nhd_backward",
+                 "flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward"):
+        results[name]["launches"] = launches[name]
+    return trainer, batch
+
+
+def train_parity():
+    """The same weights, PARITY_STEPS steps at B=3 without augmentation on
+    the CPU in f32 (plain versions) and on the card in bf16 (kernels): loss
+    trajectories, then the gradient at the CPU's end state in both."""
+    import numpy as np
+    import torch
+
+    cpu = build_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False)
+    card = build_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
+                         state_dict=cpu.student.state_dict())
+    batch = synthetic_train_batch(PARITY_SPLIT, seed=4)
+    losses = {"cpu_f32": [], "card_bf16": []}
+    for i in range(PARITY_STEPS):
+        for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+            t0 = time.perf_counter()
+            values = finite_metrics(trainer.step(batch, torch.Generator().manual_seed(10 + i)))
+            losses[name].append(values["loss_total"])
+            log(f"parity step {i} {name}: loss_total {values['loss_total']:.6f} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
+    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
+    log(f"train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
+        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
+        f"(limit {TRAIN_LOSS_REL_MAX})")
+    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
+          "the card's bf16 loss trajectory leaves the f32 one")
+
+    card.student.load_state_dict(cpu.student.state_dict())
+    card.teacher.load_state_dict(cpu.teacher.state_dict())
+    card.step_count = cpu.step_count
+    flat = {}
+    for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+        trainer.forward_backward(batch, torch.Generator().manual_seed(20))
+        params = list(trainer.student.parameters())
+        check(all(p.grad is not None for p in params), f"{name}: a param got no gradient")
+        flat[name] = torch.cat([p.grad.detach().double().flatten().cpu() for p in params])
+    g32, g16 = flat["cpu_f32"], flat["card_bf16"]
+    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
+    ratio = float(g16.norm() / (g32.norm() + 1e-30))
+    log(f"train parity: gradient at the f32 end state, cosine {cos:.6f} (limit "
+        f"{TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits {TRAIN_GRAD_RATIO}), "
+        f"|g| f32 {float(g32.norm()):.5f}")
+    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
+          "the card's bf16 gradient disagrees with the f32 one")
+
+
+# -- phase 7: timing ------------------------------------------------------------
 
 def time_kernels(results):
     import torch
@@ -384,11 +768,85 @@ def time_kernels(results):
     flops = 6.0 * b * h * t * t * d  # content QK^T, (q+v)P^T at the T^2 needed offsets, PV
     nbytes = 4.0 * b * t * c * 2 + h * (2 * t - 1) * d * 2 + 2 * h * d * 4
     bound(r, flops, nbytes)
+    time_train_kernels(results)
     for name, r in results.items():
         log(f"time {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms), "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['flops'] / 1e9:.1f} GFLOP, {r['bytes'] / 1e6:.1f} MB)")
+
+
+def time_train_kernels(results):
+    """Rows 7, 8, 12, 13 at the train step's shapes (B=24), each wrapper as
+    the autograd Functions call it (the backwards with delta, workspace
+    zeroing and casts); the library yardsticks are SDPA's forward and its
+    backward through autograd."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention_nhd_backward,
+        flash_attention_nhd_backward_reference,
+        flash_attention_nhd_lse,
+        flash_attention_nhd_lse_reference,
+    )
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        flash_xl_attention_nhd_backward,
+        flash_xl_attention_nhd_lse,
+        xl_attention_nhd_backward_reference,
+        xl_attention_nhd_lse_reference,
+    )
+
+    b, n, c, h = sum(TRAIN_SPLIT), 1190, 768, 12
+    d = c // h
+    q, k, v = flash_inputs(b, n, c, seed=0)
+    do = grad_output((b, n, c), seed=1)
+    heads = lambda x: x.reshape(b, x.shape[1], h, d).transpose(1, 2)  # noqa: E731
+    r = results["flash_attention_nhd_lse"]
+    r["ms"] = cuda_ms(lambda: flash_attention_nhd_lse(q, k, v, h))
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_nhd_lse_reference(q, k, v, h), iters=3)
+    r["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
+    bound(r, 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2 + b * h * n * 4)
+    o, lse = flash_attention_nhd_lse(q, k, v, h)
+    r = results["flash_attention_nhd_backward"]
+    r["ms"] = cuda_ms(lambda: flash_attention_nhd_backward(q, k, v, o, lse, do, h))
+    r["plain_ms"] = cuda_ms(
+        lambda: flash_attention_nhd_backward_reference(q, k, v, o, lse, do, h), iters=3)
+    qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+    r["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(sdpa, (qh, kh, vh), heads(do), retain_graph=True))
+    # five products (S, dO V^T, dV, dK, dQ); q, k, v, o, dO and lse in, dq, dk, dv out
+    bound(r, 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4)
+    del o, lse, sdpa, qh, kh, vh
+    torch.cuda.empty_cache()
+
+    t = 1000
+    q, k, v, bu, bv, p = xl_inputs(b, t, c, h, seed=0)
+    do = grad_output((b, t, c), seed=2)
+    scale = d ** -0.5
+    r = results["flash_xl_attention_nhd_lse"]
+    r["ms"] = cuda_ms(lambda: flash_xl_attention_nhd_lse(q, k, v, bu, bv, p, h, scale))
+    r["plain_ms"] = cuda_ms(
+        lambda: xl_attention_nhd_lse_reference(q, k, v, bu, bv, p, h, scale), iters=3)
+    r["library_ms"] = None  # no one PyTorch call computes rel-position attention
+    bound(r, 6.0 * b * h * t * t * d,
+          4.0 * b * t * c * 2 + h * (2 * t - 1) * d * 2 + 2 * h * d * 4 + b * h * t * 4)
+    o, lse = flash_xl_attention_nhd_lse(q, k, v, bu, bv, p, h, scale)
+    r = results["flash_xl_attention_nhd_backward"]
+    r["ms"] = cuda_ms(
+        lambda: flash_xl_attention_nhd_backward(q, k, v, bu, bv, p, o, lse, do, h, scale))
+    r["plain_ms"] = cuda_ms(
+        lambda: xl_attention_nhd_backward_reference(q, k, v, bu, bv, p, o, lse, do, h, scale),
+        iters=3)
+    r["library_ms"] = None
+    # eight products (content and position scores, dO V^T, dV, dK, dQu, dQv,
+    # dP); q, k, v, o, dO, P, biases, lse in, dq, dk, dv, dP, dbu, dbv out
+    bound(r, 16.0 * b * h * t * t * d,
+          8.0 * b * t * c * 2 + 2 * h * (2 * t - 1) * d * 2 + 4 * h * d * 4 + b * h * t * 4)
+    del o, lse
+    torch.cuda.empty_cache()
 
 
 def bound(r, flops, nbytes):
@@ -424,6 +882,70 @@ def time_serving(engine, batches, windows=3, per_window=160):
     return engine.batch_size / mid * 1e3
 
 
+def time_training(trainer, batch, windows=3, per_window=4):
+    """Train steps/s and clips/s at B=24 over ``windows`` windows of
+    ``per_window`` steps (host batch in, updated student and teacher out);
+    log each window, the spread and the peak device memory; return the
+    median window's ms per step."""
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    trainer.step(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = len(batch["wav"])
+    rates = []
+    for w in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            trainer.step(batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(per_window / dt)
+        log(f"train window {w}: {per_window} steps at B={b} in {dt:.3f} s: "
+            f"{per_window / dt:.4f} steps/s, {b * per_window / dt:.2f} clips/s, "
+            f"{dt / per_window * 1e3:.1f} ms/step (frontend, augmentation, teacher, student "
+            "forward and backward, clip, AdamW, EMA)")
+    mid = sorted(rates)[len(rates) // 2]
+    log(f"train steps/s over {windows} windows: median {mid:.4f} ({b * mid:.2f} clips/s), min "
+        f"{min(rates):.4f}, max {max(rates):.4f}, spread {(max(rates) - min(rates)) / mid:.1%} "
+        "of the median")
+    log(f"train peak device memory (max_memory_allocated over the windows): "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return 1e3 / mid
+
+
+def device_kernels(prof):
+    """The device-side events of a profile, without the user annotations
+    (e.g. ``Optimizer.step#AdamW.step``) that would count their kernels twice."""
+    import torch
+
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profile_training(trainer, batch, step_ms, top=20):
+    """Device time by kernel over one train step at B=24."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(6)
+    trainer.step(batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch, gen)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    check(kernels, "the profiler recorded no CUDA kernels")
+    ms = lambda e: e.self_device_time_total / 1e3  # noqa: E731
+    device_ms = sum(ms(e) for e in kernels)
+    log(f"profile: {device_ms:.3f} ms of device time per train step at B={len(batch['wav'])} "
+        f"against {step_ms:.3f} ms per step unprofiled: device busy {device_ms / step_ms:.1%}")
+    for e in sorted(kernels, key=ms, reverse=True)[:top]:
+        log(f"  {ms(e):9.3f} ms {ms(e) / device_ms:6.1%} x{e.count:5d}  {e.key[:90]}")
+
+
 def profile_serving(engine, batches, batch_ms, top=15):
     """Device time by kernel over two served batches of 8."""
     import torch
@@ -435,8 +957,7 @@ def profile_serving(engine, batches, batch_ms, top=15):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         list(engine.score_batches(full))
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     check(kernels, "the profiler recorded no CUDA kernels")
     per_batch = lambda e: e.self_device_time_total / 1e3 / len(full)  # noqa: E731
     device_ms = sum(per_batch(e) for e in kernels)
@@ -490,9 +1011,32 @@ def main(argv=None) -> int:
             "source": "transformer4sed_tpu_torch/csrc/xl_attention.cu",
             "replaces": "transformer4sed_tpu/kernels/xl_attention.py:648",
         },
+        "flash_attention_nhd_lse": {
+            "name": "flash_attention_nhd_lse", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:579",
+        },
+        "flash_attention_nhd_backward": {
+            "name": "flash_attention_nhd_backward", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:670",
+        },
+        "flash_xl_attention_nhd_lse": {
+            "name": "flash_xl_attention_nhd_lse", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:734",
+        },
+        "flash_xl_attention_nhd_backward": {
+            "name": "flash_xl_attention_nhd_backward", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:886",
+        },
     }
     if "kernels" in phases:
+        t0 = time.perf_counter()
         check_kernels(results)
+        torch.cuda.empty_cache()
+        log(f"kernel check phase {time.perf_counter() - t0:.1f} s")
     engine = batches = None
     if phases & {"serve", "parity", "timing", "profile"}:
         t0 = time.perf_counter()
@@ -503,11 +1047,25 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         parity(engine, batches)
         log(f"parity phase {time.perf_counter() - t0:.1f} s")
+    trainer = train_batch = None
+    if phases & {"train", "timing", "profile"}:
+        t0 = time.perf_counter()
+        trainer, train_batch = train(results)
+        log(f"train phase {time.perf_counter() - t0:.1f} s")
+    if "train_parity" in phases:
+        t0 = time.perf_counter()
+        train_parity()
+        torch.cuda.empty_cache()
+        log(f"train parity phase {time.perf_counter() - t0:.1f} s")
     if "timing" in phases:
+        t0 = time.perf_counter()
         time_kernels(results)
         batch_ms = time_serving(engine, batches)
+        step_ms = time_training(trainer, train_batch)
+        log(f"timing phase {time.perf_counter() - t0:.1f} s")
         if "profile" in phases:
             profile_serving(engine, batches, batch_ms)
+            profile_training(trainer, train_batch, step_ms)
     if phases != set(PHASES):
         return 0
 

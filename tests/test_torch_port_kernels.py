@@ -7,6 +7,9 @@ the same plain versions there). Inputs come from numpy with a seed and
 are compared in float32.
 """
 
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +20,20 @@ from transformer4sed_tpu.kernels.xl_attention import _xl_nhd_forward
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
 from transformer4sed_tpu_torch.kernels import xl_attention as port_xl
 
+# the modules themselves (the package re-exports functions of the same names)
+jax_flash = importlib.import_module("transformer4sed_tpu.kernels.flash_attention")
+jax_xl = importlib.import_module("transformer4sed_tpu.kernels.xl_attention")
+
 # f32 on both sides; the sums run in another order (blocked online
 # softmax in the Pallas kernel, one matmul here): a few f32 ulps of O(1)
 ATOL = 3e-5
+# the JAX package's own bounds for the same kernels in interpret mode
+# (tests/test_kernels.py:560-600 and :719-732): the log-sum-exp, the flash
+# cotangents, and the XL cotangents, whose dP and bias gradients sum over
+# batch and time
+ATOL_LSE = 2e-5
+ATOL_FLASH_GRAD = 3e-5
+ATOL_XL_GRAD = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -92,16 +106,19 @@ def test_kernel_sources_name_their_tpu_kernels():
     """Each CUDA source carries the note of what it replaces."""
     from transformer4sed_tpu_torch.kernels import _build
 
-    for name, tpu_fn in (("flash_attention", "_flash_nhd_forward"),
-                         ("xl_attention", "_xl_nhd_forward")):
+    for name, tpu_fns in (("flash_attention", ("_flash_nhd_forward", "_flash_nhd_forward_lse")),
+                          ("flash_attention_bwd", ("_flash_nhd_backward",)),
+                          ("xl_attention", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),
+                          ("xl_attention_bwd", ("_xl_nhd_backward",))):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
-        assert tpu_fn in src and "What bounds it" in src and 'extern "C"' in src
+        assert all(f in src for f in tpu_fns) and "What bounds it" in src and 'extern "C"' in src
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
 
 
 def test_cuda_operand_checks_reject_what_the_kernels_do_not_take():
     """The checks the wrappers run before handing pointers to a kernel:
-    bf16 only (no silent cast), 16-byte aligned rows, forward only."""
+    bf16 only (no silent cast) and 16-byte aligned rows; operands that
+    require grad are taken (the autograd path launches the kernels too)."""
     good = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     port_flash.check_cuda_operands("k", good, good[..., :32], good[..., 32:])
     with pytest.raises(TypeError, match="bfloat16"):
@@ -110,7 +127,134 @@ def test_cuda_operand_checks_reject_what_the_kernels_do_not_take():
         port_flash.check_cuda_operands("k", good[..., 1:33])
     with pytest.raises(ValueError, match="aligned"):
         port_flash.check_cuda_operands("k", good.transpose(1, 2))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_flash.check_cuda_operands("k", good.clone().requires_grad_())
-    with torch.no_grad():
-        port_flash.check_cuda_operands("k", good.clone().requires_grad_())
+    port_flash.check_cuda_operands("k", good.clone().requires_grad_())
+    with pytest.raises(ValueError, match="float32"):
+        port_flash.check_f32_rows("lse", torch.zeros(2, 4, 8).transpose(1, 2), (2, 8, 4))
+
+
+# -- training kernels: LSE forwards and saved-O/LSE backwards ------------------------
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("t", [190])
+def test_flash_lse_and_backward_plain_match_pallas(t):
+    """The plain LSE forward and the plain backward against
+    ``_flash_nhd_forward_lse`` / ``_flash_nhd_backward`` in interpret mode
+    (sizes of tests/test_kernels.py:567-600), the backward fed the JAX
+    forward's own o and lse."""
+    b, h, d = 2, 4, 16
+    q, k, v = _qkv(b, t, h * d, seed=3)
+    g = np.random.RandomState(t).randn(b, t, h * d).astype(np.float32)
+    scale = d ** -0.5
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o, lse = jax_flash._flash_nhd_forward_lse(jq, jk, jv, h, scale, block_q=128, interpret=True)
+    grads = jax_flash._flash_nhd_backward(jq, jk, jv, o, lse, jg, h, scale, block_q=128,
+                                          interpret=True)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    ours_o, ours_lse = port_flash.flash_attention_nhd_lse(tq, tk, tv, h, scale)
+    np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
+    np.testing.assert_allclose(ours_lse.numpy(), np.asarray(lse)[:, :, :t], atol=ATOL_LSE)
+    to, tlse = _t(o, np.asarray(lse)[:, :, :t])
+    ours = port_flash.flash_attention_nhd_backward(tq, tk, tv, to, tlse, tg, h, scale)
+    for name, a, want in zip(("dq", "dk", "dv"), ours, grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=ATOL_FLASH_GRAD,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("t,band", [(100, None), (130, (6, 10, 6, 10))])
+def test_xl_lse_and_backward_plain_match_pallas(t, band):
+    """The plain XL LSE forward and backward against ``_xl_nhd_forward_lse``
+    / ``_xl_nhd_backward`` in interpret mode (tests/test_kernels.py:689-732):
+    a ragged T, and a banded case; all six cotangents."""
+    b, h, d = 2, 4, 16
+    arrays = _xl_data(b, t, h, d, seed=3)
+    g = np.random.RandomState(4).randn(b, t, h * d).astype(np.float32)
+    scale = d ** -0.5
+    jarr = [jnp.asarray(a) for a in arrays]
+    o, lse = jax_xl._xl_nhd_forward_lse(*jarr, h, scale, block_q=32, group=8, band_widths=band,
+                                        interpret=True)
+    grads = jax_xl._xl_nhd_backward(*jarr, o, lse, jnp.asarray(g), h, scale, block_q=32, group=8,
+                                    band_widths=band, interpret=True)
+    tarr = _t(*arrays)
+    ours_o, ours_lse = port_xl.flash_xl_attention_nhd_lse(*tarr, h, scale, band)
+    np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
+    np.testing.assert_allclose(ours_lse.numpy(), np.asarray(lse)[:, :, :t], atol=ATOL_LSE)
+    to, tlse, tg = _t(o, np.asarray(lse)[:, :, :t], g)
+    ours = port_xl.flash_xl_attention_nhd_backward(*tarr, to, tlse, tg, h, scale, band)
+    for name, a, want in zip(("dq", "dk", "dv", "dbu", "dbv", "dp"), ours, grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=ATOL_XL_GRAD,
+                                   err_msg=f"T={t} band={band} {name}")
+
+
+@pytest.mark.parametrize("kind", ["flash", "xl"])
+def test_autograd_functions_match_jax_vjp(kind):
+    """torch.autograd through FlashAttentionNHD / XLAttentionNHD (plain LSE
+    forward, plain backward on the CPU) against jax.vjp of the JAX
+    package's differentiable flash_attention_nhd / flash_xl_attention_nhd."""
+    b, t, h, d = 2, 40, 2, 16
+    arrays = _xl_data(b, t, h, d, seed=5)
+    n_in = 3 if kind == "flash" else 6
+    g = np.random.RandomState(6).randn(b, t, h * d).astype(np.float32)
+    scale = d ** -0.5
+    if kind == "flash":
+        jfn = lambda *x: jax_flash.flash_attention_nhd(*x, h, scale)  # noqa: E731
+        tfn = lambda *x: port_flash.flash_attention_nhd(*x, h, scale)  # noqa: E731
+    else:
+        jfn = lambda *x: jax_xl.flash_xl_attention_nhd(*x, h, scale, (9, 14))  # noqa: E731
+        tfn = lambda *x: port_xl.flash_xl_attention_nhd(*x, h, scale, (9, 14))  # noqa: E731
+    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+        jnp.asarray(g), *map(jnp.asarray, arrays[:n_in]))
+    leaves = [x.requires_grad_() for x in _t(*arrays[:n_in])]
+    ours = tfn(*leaves)
+    assert ours.grad_fn is not None and "NHD" in type(ours.grad_fn).__name__
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out), atol=ATOL)
+    got = torch.autograd.grad(ours, leaves, torch.from_numpy(g))
+    for i, (a, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL_XL_GRAD, err_msg=str(i))
+
+
+def test_bf16_qkv_split_cotangents_keep_their_dtypes():
+    """bf16 primals give bf16 cotangents, so the backward of the caller's
+    qkv split accepts them (the JAX test_bf16_cotangent_dtypes_match_primals
+    regression); the f32 position biases get f32 gradients."""
+    b, t, h, d = 1, 24, 2, 16
+    arrays = _xl_data(b, t, h, d, seed=7)
+    qkv = torch.from_numpy(np.concatenate(arrays[:3], -1)).bfloat16().requires_grad_()
+    bu, bv = (torch.from_numpy(a).requires_grad_() for a in arrays[3:5])
+    p = torch.from_numpy(arrays[5]).bfloat16().requires_grad_()
+    c = h * d
+    out = port_xl.flash_xl_attention_nhd(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                         bu, bv, p, h, d ** -0.5)
+    out = out + port_flash.flash_attention_nhd(qkv[..., :c], qkv[..., c:2 * c],
+                                               qkv[..., 2 * c:], h)
+    out.float().square().sum().backward()
+    assert qkv.grad.dtype == p.grad.dtype == torch.bfloat16
+    assert bu.grad.dtype == bv.grad.dtype == torch.float32
+    assert all(torch.isfinite(x.grad.float()).all() for x in (qkv, bu, bv, p))
+
+
+def test_rel_unshift_is_the_adjoint_of_rel_shift():
+    t = 9
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(2, t, 2 * t - 1))
+    y = torch.from_numpy(rng.randn(2, t, t))
+    torch.testing.assert_close((port_xl.rel_shift(x) * y).sum(),
+                               (x * port_xl.rel_unshift(y)).sum())
+
+
+def test_cpu_training_path_launches_no_kernel():
+    """With grad on the CPU the Functions take the plain LSE forward and
+    backward; no kernel counter moves, and no-grad calls keep the plain
+    forward."""
+    counters = (port_flash.flash_attention_nhd, port_flash.flash_attention_nhd_lse,
+                port_flash.flash_attention_nhd_backward, port_xl.flash_xl_attention_nhd,
+                port_xl.flash_xl_attention_nhd_lse, port_xl.flash_xl_attention_nhd_backward)
+    before = [f.launches for f in counters]
+    q, k, v, bu, bv, p = (x.requires_grad_() for x in _t(*_xl_data(1, 20, 2, 16, seed=9)))
+    out = port_flash.flash_attention_nhd(q, k, v, 2) + port_xl.flash_xl_attention_nhd(
+        q, k, v, bu, bv, p, 2, 0.25)
+    out.sum().backward()
+    assert [f.launches for f in counters] == before

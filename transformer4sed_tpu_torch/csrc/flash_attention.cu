@@ -1,9 +1,14 @@
-// Heads-in-lanes flash attention forward for Hopper (sm_90a).
+// Heads-in-lanes flash attention forward for Hopper (sm_90a), two entry points.
 //
-// Replaces the Pallas TPU kernel transformer4sed_tpu/kernels/flash_attention.py
-// :_flash_nhd_forward (line 507, kernel body _flash_nhd_kernel line 482):
-// softmax(scale * Q K^T) V per head, no mask, with q/k/v read as [B, N, H*d]
-// lane slices of the qkv projection (no head transposes).
+// t4s_flash_nhd_fwd replaces the Pallas TPU kernel
+// transformer4sed_tpu/kernels/flash_attention.py:_flash_nhd_forward (line 507,
+// kernel body _flash_nhd_kernel line 482): softmax(scale * Q K^T) V per head,
+// no mask, with q/k/v read as [B, N, H*d] lane slices of the qkv projection
+// (no head transposes). t4s_flash_nhd_fwd_lse replaces
+// :_flash_nhd_forward_lse (line 579, body _flash_nhd_lse_kernel line 560): the
+// same kernel with WITH_LSE, which also writes the natural-log row
+// log-sum-exp lse [B, H, N] f32 that the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from.
 //
 // What bounds it: at the PaSST shape (B=8, N=1190, H=12, d=64) the two
 // products are 34.8 GFLOP against 58.5 MB of q/k/v/o, about 600 FLOP per
@@ -26,10 +31,11 @@ constexpr int FA_BK = 64;
 constexpr int FA_THREADS = 128;
 constexpr int FA_PAD = 8;
 
-template <int HD>
+template <int HD, bool WITH_LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_nhd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int n,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int n,
                  long long q_bs, long long q_rs, long long k_bs, long long k_rs,
                  long long v_bs, long long v_rs, long long o_bs, long long o_rs,
                  float scale_log2) {
@@ -144,6 +150,11 @@ flash_nhd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
           pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    // m_run is in the scaled log2 domain; a row with no valid key keeps
+    // -inf (never NaN), and the backward gives it zero weight
+    if (WITH_LSE && t == 0)
+      lse[((long long)b * gridDim.y + h) * n + row] =
+          l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f : -INFINITY;
   }
 }
 
@@ -152,12 +163,12 @@ flash_nhd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // q/k/v: bf16, [B, N, H*64] views with unit stride along the lane dim and
 // batch/row strides in elements (multiples of 8); o: bf16 [B, N, H*d].
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int t4s_flash_nhd_fwd(const void* q, const void* k, const void* v, void* o,
-                                 int batch, int n, int heads, int head_dim,
-                                 long long q_bs, long long q_rs, long long k_bs,
-                                 long long k_rs, long long v_bs, long long v_rs,
-                                 long long o_bs, long long o_rs, float sm_scale,
-                                 void* stream) {
+// lse: null, or f32 [B, H, N] contiguous (natural log).
+static int launch_flash(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int batch, int n, int heads, int head_dim, long long q_bs,
+                        long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                        long long v_rs, long long o_bs, long long o_rs, float sm_scale,
+                        void* stream) {
   using namespace t4s;
   const dim3 grid((n + FA_BQ - 1) / FA_BQ, heads, batch);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
@@ -165,8 +176,34 @@ extern "C" int t4s_flash_nhd_fwd(const void* q, const void* k, const void* v, vo
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  flash_nhd_kernel<64><<<grid, FA_THREADS, 0, st>>>(qp, kp, vp, op, n, q_bs, q_rs, k_bs, k_rs,
-                                                    v_bs, v_rs, o_bs, o_rs, scale_log2);
+  if (lp != nullptr)
+    flash_nhd_kernel<64, true><<<grid, FA_THREADS, 0, st>>>(
+        qp, kp, vp, op, lp, n, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale_log2);
+  else
+    flash_nhd_kernel<64, false><<<grid, FA_THREADS, 0, st>>>(
+        qp, kp, vp, op, lp, n, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int t4s_flash_nhd_fwd(const void* q, const void* k, const void* v, void* o,
+                                 int batch, int n, int heads, int head_dim,
+                                 long long q_bs, long long q_rs, long long k_bs,
+                                 long long k_rs, long long v_bs, long long v_rs,
+                                 long long o_bs, long long o_rs, float sm_scale,
+                                 void* stream) {
+  return launch_flash(q, k, v, o, nullptr, batch, n, heads, head_dim, q_bs, q_rs, k_bs, k_rs,
+                      v_bs, v_rs, o_bs, o_rs, sm_scale, stream);
+}
+
+extern "C" int t4s_flash_nhd_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int batch, int n, int heads, int head_dim,
+                                     long long q_bs, long long q_rs, long long k_bs,
+                                     long long k_rs, long long v_bs, long long v_rs,
+                                     long long o_bs, long long o_rs, float sm_scale,
+                                     void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_flash(q, k, v, o, lse, batch, n, heads, head_dim, q_bs, q_rs, k_bs, k_rs,
+                      v_bs, v_rs, o_bs, o_rs, sm_scale, stream);
 }

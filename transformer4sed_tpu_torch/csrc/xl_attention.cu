@@ -1,8 +1,13 @@
-// Fused heads-in-lanes Transformer-XL attention forward for Hopper (sm_90a).
+// Fused heads-in-lanes Transformer-XL attention forward for Hopper (sm_90a),
+// two entry points.
 //
-// Replaces the Pallas TPU kernel transformer4sed_tpu/kernels/xl_attention.py
-// :_xl_nhd_forward (line 648, kernel body _xl_row_nhd_kernel line 613 with
-// _row_scores :180, _valid_mask :161, _roll_rows_left :143, _geometry :399):
+// t4s_xl_nhd_fwd replaces the Pallas TPU kernel
+// transformer4sed_tpu/kernels/xl_attention.py:_xl_nhd_forward (line 648,
+// kernel body _xl_row_nhd_kernel line 613 with _row_scores :180, _valid_mask
+// :161, _roll_rows_left :143, _geometry :399); t4s_xl_nhd_fwd_lse replaces
+// :_xl_nhd_forward_lse (line 734, body _xl_row_nhd_lse_kernel line 701): the
+// same kernel with WITH_LSE, which also writes the natural-log row
+// log-sum-exp lse [B, H, T] f32 for the backward (xl_attention_bwd.cu).
 //   softmax(scale * ((q+u) K^T + relshift((q+v) P^T))) V
 // with q/k/v as [B, T, H*d] lane slices, u/v = pos_bias_u/pos_bias_v [H, d]
 // added in f32 in-kernel and rounded to bf16, P the projected position
@@ -50,12 +55,13 @@ struct XlSmem {
   static_assert(XL_BQ * LD * 2 <= XL_WARPS * 16 * XL_SLD * 4, "Q tile aliases the scratch");
 };
 
-template <int HD>
+template <int HD, bool WITH_LSE>
 __global__ void __launch_bounds__(XL_THREADS)
 xl_nhd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const float* __restrict__ bias_u,
               const float* __restrict__ bias_v, const bf16* __restrict__ p,
-              const int* __restrict__ band, bf16* __restrict__ o, int n,
+              const int* __restrict__ band, bf16* __restrict__ o,
+              float* __restrict__ lse, int n,
               long long q_bs, long long q_rs, long long k_bs, long long k_rs,
               long long v_bs, long long v_rs, long long p_hs, long long p_rs,
               long long o_bs, long long o_rs, float scale_log2) {
@@ -212,23 +218,28 @@ xl_nhd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
           pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    // m_run is in the scaled log2 domain; a row with no valid key keeps
+    // -inf (never NaN), and the backward gives it zero weight
+    if (WITH_LSE && t == 0)
+      lse[((long long)b * gridDim.y + h) * n + row] =
+          l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f : -INFINITY;
   }
 }
 
-template <int HD>
+template <int HD, bool WITH_LSE>
 static int launch_xl(const dim3& grid, cudaStream_t st, const bf16* q, const bf16* k,
                      const bf16* v, const float* bu, const float* bv, const bf16* p,
-                     const int* band, bf16* o, int n, long long q_bs, long long q_rs,
-                     long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                     long long p_hs, long long p_rs, long long o_bs, long long o_rs,
-                     float scale_log2) {
+                     const int* band, bf16* o, float* lse, int n, long long q_bs,
+                     long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                     long long v_rs, long long p_hs, long long p_rs, long long o_bs,
+                     long long o_rs, float scale_log2) {
   constexpr int bytes = XlSmem<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(xl_nhd_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(xl_nhd_kernel<HD, WITH_LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  xl_nhd_kernel<HD><<<grid, XL_THREADS, bytes, st>>>(q, k, v, bu, bv, p, band, o, n, q_bs, q_rs,
-                                                     k_bs, k_rs, v_bs, v_rs, p_hs, p_rs, o_bs,
-                                                     o_rs, scale_log2);
+  xl_nhd_kernel<HD, WITH_LSE><<<grid, XL_THREADS, bytes, st>>>(
+      q, k, v, bu, bv, p, band, o, lse, n, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, p_hs, p_rs, o_bs,
+      o_rs, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,14 +248,15 @@ static int launch_xl(const dim3& grid, cudaStream_t st, const bf16* q, const bf1
 // q/k/v: bf16 [B, T, H*d] views with d = 64 (unit lane stride, strides in
 // elements, multiples of 8); bias_u/bias_v: f32 [H, d] contiguous; p: bf16 [H, 2T-1, d]
 // with head/row strides; band: int32 [H] widths on the device, or null for
-// full attention; o: bf16 [B, T, H*d]. Returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int t4s_xl_nhd_fwd(const void* q, const void* k, const void* v, const void* bias_u,
-                              const void* bias_v, const void* p, const void* band, void* o,
-                              int batch, int n, int heads, int head_dim, long long q_bs,
-                              long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                              long long v_rs, long long p_hs, long long p_rs, long long o_bs,
-                              long long o_rs, float sm_scale, void* stream) {
+// full attention; o: bf16 [B, T, H*d]; lse (the _lse entry point only): f32
+// [B, H, T] contiguous. Returns cudaGetLastError() after the launch
+// (0 = launched).
+static int xl_fwd(const void* q, const void* k, const void* v, const void* bias_u,
+                  const void* bias_v, const void* p, const void* band, void* o, void* lse,
+                  int batch, int n, int heads, int head_dim, long long q_bs, long long q_rs,
+                  long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+                  long long p_hs, long long p_rs, long long o_bs, long long o_rs,
+                  float sm_scale, void* stream) {
   using namespace t4s;
   const dim3 grid((n + XL_BQ - 1) / XL_BQ, heads, batch);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
@@ -254,7 +266,33 @@ extern "C" int t4s_xl_nhd_fwd(const void* q, const void* k, const void* v, const
   const float *bu = static_cast<const float*>(bias_u), *bv = static_cast<const float*>(bias_v);
   const int* bw = static_cast<const int*>(band);
   bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   if (head_dim != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_xl<64>(grid, st, qp, kp, vp, bu, bv, pp, bw, op, n, q_bs, q_rs, k_bs, k_rs, v_bs,
-                       v_rs, p_hs, p_rs, o_bs, o_rs, scale_log2);
+  if (lp != nullptr)
+    return launch_xl<64, true>(grid, st, qp, kp, vp, bu, bv, pp, bw, op, lp, n, q_bs, q_rs, k_bs,
+                               k_rs, v_bs, v_rs, p_hs, p_rs, o_bs, o_rs, scale_log2);
+  return launch_xl<64, false>(grid, st, qp, kp, vp, bu, bv, pp, bw, op, lp, n, q_bs, q_rs, k_bs,
+                              k_rs, v_bs, v_rs, p_hs, p_rs, o_bs, o_rs, scale_log2);
+}
+
+extern "C" int t4s_xl_nhd_fwd(const void* q, const void* k, const void* v, const void* bias_u,
+                              const void* bias_v, const void* p, const void* band, void* o,
+                              int batch, int n, int heads, int head_dim, long long q_bs,
+                              long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                              long long v_rs, long long p_hs, long long p_rs, long long o_bs,
+                              long long o_rs, float sm_scale, void* stream) {
+  return xl_fwd(q, k, v, bias_u, bias_v, p, band, o, nullptr, batch, n, heads, head_dim, q_bs,
+                q_rs, k_bs, k_rs, v_bs, v_rs, p_hs, p_rs, o_bs, o_rs, sm_scale, stream);
+}
+
+extern "C" int t4s_xl_nhd_fwd_lse(const void* q, const void* k, const void* v,
+                                  const void* bias_u, const void* bias_v, const void* p,
+                                  const void* band, void* o, void* lse, int batch, int n,
+                                  int heads, int head_dim, long long q_bs, long long q_rs,
+                                  long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+                                  long long p_hs, long long p_rs, long long o_bs, long long o_rs,
+                                  float sm_scale, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return xl_fwd(q, k, v, bias_u, bias_v, p, band, o, lse, batch, n, heads, head_dim, q_bs, q_rs,
+                k_bs, k_rs, v_bs, v_rs, p_hs, p_rs, o_bs, o_rs, sm_scale, stream);
 }

@@ -1,4 +1,4 @@
-"""Waveform -> log-mel frontend (port of ``frontend/mel.py``, eval path).
+"""Waveform -> log-mel frontend (port of ``frontend/mel.py``, PaSST frontend).
 
 PaSST (``src/models/passt/passt_feature_extraction.py:53-94``): wav
 peak-norm -> pre-emphasis -> STFT(1024/320/800, Hann periodic=False,
@@ -7,13 +7,15 @@ center/reflect) -> power -> Kaldi mel banks -> log "fast normalisation".
 The STFT is ``torch.stft`` (cuFFT on the card) with the reference's
 frame layout: reflect-padded by n_fft // 2 on both sides, the 800-sample
 window zero-padded symmetrically to 1024. The mel projection stays in
-float32. The fmin/fmax augmentation of training comes with that slice.
+float32. Training draws one fmin/fmax pair per call
+(:meth:`PasstFrontend.draw_fminmax`) and builds the mel banks for that
+pair on the device (``frontend/mel.py:212-243`` of the JAX package).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +90,7 @@ class PasstFrontend:
     fmin: float = 0.0
     fmax: Optional[float] = None
     wav_norm: bool = True
+    fmin_aug_range: int = 10
     fmax_aug_range: int = 2000
     preemphasis: float = 0.97
     device: Optional[torch.device] = None
@@ -106,8 +109,17 @@ class PasstFrontend:
             return self.fmax
         return self.sr // 2 - self.fmax_aug_range // 2
 
-    def __call__(self, wav: torch.Tensor) -> torch.Tensor:
-        """wav [B, n_samples] -> power mel [B, n_mels, T] (float32)."""
+    def draw_fminmax(self, gen: torch.Generator) -> Tuple[float, float]:
+        """One training pair: fmin + U{0 .. fmin_aug_range - 1}, fmax +
+        fmax_aug_range // 2 - U{0 .. fmax_aug_range - 1}."""
+        lo = int(torch.randint(0, self.fmin_aug_range, (), generator=gen, device=gen.device))
+        hi = int(torch.randint(0, self.fmax_aug_range, (), generator=gen, device=gen.device))
+        return float(self.fmin + lo), float(self.effective_fmax + self.fmax_aug_range // 2 - hi)
+
+    def __call__(self, wav: torch.Tensor,
+                 fminmax: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+        """wav [B, n_samples] -> power mel [B, n_mels, T] (float32); with
+        ``fminmax`` (training) the banks are built for that pair."""
         if wav.ndim == 1:
             wav = wav[None]
         wav = wav.to(device=self.device, dtype=torch.float32)
@@ -116,7 +128,11 @@ class PasstFrontend:
         # pre-emphasis: y[t] = x[t+1] - 0.97 x[t]
         wav = wav[:, 1:] - self.preemphasis * wav[:, :-1]
         power = stft_power(wav, self.n_fft, self.hop_length, self.win_length, self._window)
-        return torch.einsum("mf,bft->bmt", self._basis, power)
+        basis = self._basis
+        if fminmax is not None:
+            basis = kaldi_mel_banks(self.n_mels, self.n_fft, self.sr, fminmax[0], fminmax[1],
+                                    device=self.device)
+        return torch.einsum("mf,bft->bmt", basis, power)
 
     def normalize(self, mel: torch.Tensor) -> torch.Tensor:
         return fast_normalize(mel)

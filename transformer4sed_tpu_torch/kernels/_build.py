@@ -21,13 +21,14 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "xl_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "xl_attention", "xl_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, object] = {}  # (source, symbol) -> bound launcher
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's stderr (register/spill report with verbose)
 
 
@@ -82,6 +83,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, n_ptrs: int, n_strides: int):
+    """ctypes binding of ``symbol`` in ``csrc/<name>.cu``, the attention
+    launchers' C interface: ``n_ptrs`` pointers, four ints (batch, length,
+    heads, head dim), ``n_strides`` 64-bit strides, the softmax scale and
+    the stream; returns cudaError_t. Bound once per process."""
+    key = (name, symbol)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -1,7 +1,7 @@
-"""Fused heads-in-lanes Transformer-XL attention: the CUDA kernel and its
-plain version.
+"""Fused heads-in-lanes Transformer-XL attention: the CUDA kernels and their
+plain versions.
 
-Port of ``transformer4sed_tpu/kernels/xl_attention.py:_xl_nhd_forward``
+Port of the heads-in-lanes path of ``transformer4sed_tpu/kernels/xl_attention.py``
 (the MAT-SED decoder's attention, ``models/xl.py:182-197``):
 
     softmax(scale * ((q+u) K^T + relshift((q+v) P^T))) V
@@ -10,16 +10,24 @@ with q/k/v as [B, T, H*d] lane slices, u/v = ``pos_bias_u``/``pos_bias_v``
 [H, d] added in float32 and rounded to q's dtype, P the projected
 position table [H, 2T-1, d] in offset order T-1 ... -(T-1), and an
 optional per-head band (row i attends [i - w//2, i + w//2) plus i).
-The kernel (``csrc/xl_attention.cu``) does the rel-shift as index
-arithmetic on a position strip in shared memory; the plain version
-below computes the full position scores and skews them.
+Three kernels:
 
-Forward only: the backward kernels come with the training slice.
+  * ``csrc/xl_attention.cu`` ``t4s_xl_nhd_fwd`` for ``_xl_nhd_forward``
+    (no-grad calls: serving, the mean teacher);
+  * the same source's ``t4s_xl_nhd_fwd_lse`` for ``_xl_nhd_forward_lse``;
+  * ``csrc/xl_attention_bwd.cu`` for ``_xl_nhd_backward`` (dq, dk, dv,
+    d``pos_bias_u``, d``pos_bias_v`` and dP).
+
+The kernels do the rel-shift as index arithmetic on a position strip in
+shared memory; the plain versions below compute the full position scores
+and skew them (:func:`rel_shift`, and its adjoint :func:`rel_unshift` in
+the backward). :func:`flash_xl_attention_nhd` dispatches like the JAX
+``custom_vjp``: differentiated calls run :class:`XLAttentionNHD`, others
+the plain forward kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -30,11 +38,11 @@ from transformer4sed_tpu_torch.kernels.flash_attention import (
     _merge_heads,
     _split_heads,
     check_cuda_operands,
-    forbid_grad,
+    check_f32_rows,
+    row_delta,
 )
 
 _NEG_INF = -1e30
-_FN = None
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -46,37 +54,80 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, t, n)[..., :t]
 
 
-def xl_attention_nhd_reference(q, k, v, bias_u, bias_v, p, num_heads: int,
-                               sm_scale: float, band_widths: Optional[Sequence[int]] = None):
-    """Plain PyTorch XL attention in the [B, T, H*d] layout: full position
-    scores [B, H, T, 2T-1], skewed (the reference's ``_rel_position_scores``
-    counterpart), with scores and softmax in float32."""
+def rel_unshift(x: torch.Tensor) -> torch.Tensor:
+    """Adjoint of :func:`rel_shift`: [..., T, T] -> [..., T, 2T-1] with
+    out[..., i, (T-1) - i + j] = x[..., i, j] and zeros elsewhere."""
+    t = x.shape[-1]
+    i = torch.arange(t, device=x.device)
+    idx = (t - 1 - i)[:, None] + i[None, :]
+    out = x.new_zeros(*x.shape[:-1], 2 * t - 1)
+    return out.scatter_(-1, idx.expand(x.shape), x)
+
+
+def _scores(q, k, bias_u, bias_v, p, num_heads, sm_scale, band_widths):
+    """(qu, qv, kh, masked f32 scores [B, H, T, T], band mask or None)."""
     from transformer4sed_tpu_torch.models.xl import build_band_mask
 
     t = q.shape[1]
     qh = _split_heads(q, num_heads)
     qu = (qh.float() + bias_u.float()[None, :, None]).to(q.dtype)
     qv = (qh.float() + bias_v.float()[None, :, None]).to(q.dtype)
-    kh, vh = _split_heads(k, num_heads), _split_heads(v, num_heads)
+    kh = _split_heads(k, num_heads)
     content = torch.matmul(qu.float(), kh.float().transpose(-1, -2))
     position = rel_shift(torch.matmul(qv.float(), p.float().transpose(-1, -2)[None]))
     scores = (content + position) * sm_scale
+    mask = None
     if band_widths is not None:
         mask = torch.as_tensor(build_band_mask(t, list(band_widths)), device=q.device)
         scores = scores.masked_fill(mask[None], _NEG_INF)
+    return qu, qv, kh, scores, mask
+
+
+def xl_attention_nhd_reference(q, k, v, bias_u, bias_v, p, num_heads: int,
+                               sm_scale: float, band_widths: Optional[Sequence[int]] = None):
+    """Plain PyTorch XL attention in the [B, T, H*d] layout: full position
+    scores [B, H, T, 2T-1], skewed (the reference's ``_rel_position_scores``
+    counterpart), with scores and softmax in float32."""
+    *_, scores, _ = _scores(q, k, bias_u, bias_v, p, num_heads, sm_scale, band_widths)
     attn = torch.softmax(scores, dim=-1)
-    return _merge_heads(torch.matmul(attn.to(v.dtype), vh))
+    return _merge_heads(torch.matmul(attn.to(v.dtype), _split_heads(v, num_heads)))
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = _build.load("xl_attention").t4s_xl_nhd_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def xl_attention_nhd_lse_reference(q, k, v, bias_u, bias_v, p, num_heads: int,
+                                   sm_scale: float, band_widths: Optional[Sequence[int]] = None):
+    """Plain version of the LSE forward: (out [B, T, H*d], lse f32 [B, H, T])."""
+    *_, scores, _ = _scores(q, k, bias_u, bias_v, p, num_heads, sm_scale, band_widths)
+    lse = torch.logsumexp(scores, dim=-1)
+    attn = torch.exp(scores - lse[..., None])
+    return _merge_heads(torch.matmul(attn.to(v.dtype), _split_heads(v, num_heads))), lse
+
+
+def xl_attention_nhd_backward_reference(q, k, v, bias_u, bias_v, p, o, lse, do, num_heads: int,
+                                        sm_scale: float,
+                                        band_widths: Optional[Sequence[int]] = None):
+    """Plain version of the backward from the saved (o, lse): the formulas
+    of ``_xl_bwd_nhd_kernel``, in float32, with q+u and q+v rounded to q's
+    dtype and A and dS to v's dtype before their products, as the kernels
+    round them. Returns float32 (dq, dk, dv, dbu, dbv, dp);
+    :class:`XLAttentionNHD` casts them to the primals' dtypes."""
+    qu, qv, kh, scores, mask = _scores(q, k, bias_u, bias_v, p, num_heads, sm_scale,
+                                       band_widths)
+    a = torch.exp(scores - lse[..., None])
+    if mask is not None:
+        a = a.masked_fill(mask[None], 0.0)
+    vh, doh = _split_heads(v, num_heads), _split_heads(do, num_heads)
+    dpr = torch.matmul(doh.float(), vh.float().transpose(-1, -2))
+    ds = a * (dpr - row_delta(o, do, num_heads)[..., None])
+    lo = v.dtype
+    a_lo, ds_lo = a.to(lo).float(), ds.to(lo).float()
+    dv = torch.matmul(a_lo.transpose(-1, -2), doh.float())
+    dk = torch.matmul(ds_lo.transpose(-1, -2), qu.float()) * sm_scale
+    dqu = torch.matmul(ds_lo, kh.float()) * sm_scale
+    skew = rel_unshift(ds_lo)  # [B, H, T, 2T-1]
+    dqv = torch.matmul(skew, p.float()[None]) * sm_scale
+    dp = torch.matmul(skew.transpose(-1, -2), qv.float()).sum(0) * sm_scale
+    return (_merge_heads(dqu + dqv), _merge_heads(dk), _merge_heads(dv), dqu.sum((0, 2)),
+            dqv.sum((0, 2)), dp)
 
 
 def _band_tensor(band_widths, num_heads: int, device) -> Optional[torch.Tensor]:
@@ -88,46 +139,147 @@ def _band_tensor(band_widths, num_heads: int, device) -> Optional[torch.Tensor]:
     return torch.tensor(widths, dtype=torch.int32, device=device)
 
 
+def _check(what, q, k, v, bias_u, bias_v, p, num_heads):
+    """Shapes and operands the XL kernels take; returns the f32 biases."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+    b, t, c = q.shape
+    d = c // num_heads
+    if (k.shape != q.shape or v.shape != q.shape or c % num_heads or d != 64
+            or tuple(p.shape) != (num_heads, 2 * t - 1, d)
+            or tuple(bias_u.shape) != (num_heads, d) or tuple(bias_v.shape) != (num_heads, d)):
+        raise ValueError(
+            f"{what}: unsupported shapes q {tuple(q.shape)}, p {tuple(p.shape)}, "
+            f"bias {tuple(bias_u.shape)}, {num_heads} heads"
+        )
+    check_cuda_operands(what, q, k, v, p)
+    return tuple(x.detach().to(device=q.device, dtype=torch.float32).contiguous()
+                 for x in (bias_u, bias_v))
+
+
+def _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths,
+                    with_lse: bool):
+    what = "flash_xl_attention_nhd_lse" if with_lse else "flash_xl_attention_nhd"
+    bu, bv = _check(what, q, k, v, bias_u, bias_v, p, num_heads)
+    b, t, c = q.shape
+    band = _band_tensor(band_widths, num_heads, q.device)
+    out = torch.empty((b, t, c), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=q.device) if with_lse else None
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bu.data_ptr(), bv.data_ptr(), p.data_ptr(),
+            None if band is None else band.data_ptr(), out.data_ptr()]
+    if with_lse:
+        ptrs.append(lse.data_ptr())
+    symbol = "t4s_xl_nhd_fwd_lse" if with_lse else "t4s_xl_nhd_fwd"
+    with torch.cuda.device(q.device):
+        status = _build.function("xl_attention", symbol, len(ptrs), 10)(
+            *ptrs, b, t, num_heads, c // num_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            p.stride(0), p.stride(1), out.stride(0), out.stride(1),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    return out, lse
+
+
+def flash_xl_attention_nhd_lse(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float,
+                               band_widths: Optional[Sequence[int]] = None):
+    """(out [B, T, H*d], lse f32 [B, H, T]): the LSE forward kernel for
+    CUDA tensors, its plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return xl_attention_nhd_lse_reference(q, k, v, bias_u, bias_v, p, num_heads, sm_scale,
+                                              band_widths)
+    out, lse = _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths,
+                               with_lse=True)
+    flash_xl_attention_nhd_lse.launches += 1
+    return out, lse
+
+
+def flash_xl_attention_nhd_backward(q, k, v, bias_u, bias_v, p, o, lse, do, num_heads: int,
+                                    sm_scale: float,
+                                    band_widths: Optional[Sequence[int]] = None):
+    """(dq, dk, dv, dbu, dbv, dp) from the saved (o, lse): the backward
+    kernel for CUDA tensors (each result in its primal's dtype), its plain
+    version for CPU tensors (float32). dq = dQu + dQv and the bias
+    gradients (sums of dQu and dQv over batch and time) are formed here in
+    float32."""
+    if q.device.type == "cpu":
+        return xl_attention_nhd_backward_reference(q, k, v, bias_u, bias_v, p, o, lse, do,
+                                                   num_heads, sm_scale, band_widths)
+    what = "flash_xl_attention_nhd_backward"
+    bu, bv = _check(what, q, k, v, bias_u, bias_v, p, num_heads)
+    b, t, c = q.shape
+    d = c // num_heads
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} vs q {tuple(q.shape)}")
+    check_cuda_operands(what, o, do)
+    check_f32_rows(what, lse, (b, num_heads, t))
+    band = _band_tensor(band_widths, num_heads, q.device)
+    delta = row_delta(o, do, num_heads)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dqu, dqv = torch.zeros((b, t, c), **f32), torch.zeros((b, t, c), **f32)
+    dp = torch.zeros((num_heads, 2 * t - 1, d), **f32)
+    dk = torch.empty((b, t, c), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, c), dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        status = _build.function("xl_attention_bwd", "t4s_xl_nhd_bwd", 15, 14)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bu.data_ptr(),
+            bv.data_ptr(), p.data_ptr(), None if band is None else band.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dp.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, t, num_heads, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            do.stride(0), do.stride(1), p.stride(0), p.stride(1),
+            dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_xl_attention_nhd_backward.launches += 1
+    return ((dqu + dqv).to(q.dtype), dk, dv,
+            dqu.reshape(b, t, num_heads, d).sum((0, 1)).to(bias_u.dtype),
+            dqv.reshape(b, t, num_heads, d).sum((0, 1)).to(bias_v.dtype), dp.to(p.dtype))
+
+
+class XLAttentionNHD(torch.autograd.Function):
+    """The differentiated path: LSE forward, then the fused backward from
+    the saved operands, output and log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float, band_widths):
+        out, lse = flash_xl_attention_nhd_lse(q, k, v, bias_u, bias_v, p, num_heads, sm_scale,
+                                              band_widths)
+        ctx.save_for_backward(q, k, v, bias_u, bias_v, p, out, lse)
+        ctx.num_heads, ctx.sm_scale, ctx.band_widths = num_heads, sm_scale, band_widths
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias_u, bias_v, p, out, lse = ctx.saved_tensors
+        primals = (q, k, v, bias_u, bias_v, p)
+        grads = flash_xl_attention_nhd_backward(
+            *primals, out, lse, do.to(q.dtype).contiguous(), ctx.num_heads, ctx.sm_scale,
+            ctx.band_widths)
+        return (*(g.to(x.dtype) for g, x in zip(grads, primals)), None, None, None)
+
+
 def flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float,
                            band_widths: Optional[Sequence[int]] = None):
     """Fused XL attention, q/k/v [B, T, H*d], bias_u/v [H, d], p [H, 2T-1, d]
     -> [B, T, H*d].
 
-    CUDA tensors (bf16 q/k/v/p, head dim 64) launch the hand-written
-    kernel; CPU tensors take the plain version. Any other case raises.
+    Differentiated calls run :class:`XLAttentionNHD`; others launch the
+    forward kernel for CUDA tensors (bf16 q/k/v/p, head dim 64) and take
+    the plain version for CPU tensors. Any other case raises.
     """
-    b, t, c = q.shape
-    d = c // num_heads
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias_u, bias_v, p)):
+        return XLAttentionNHD.apply(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths)
     if q.device.type == "cpu":
         return xl_attention_nhd_reference(q, k, v, bias_u, bias_v, p, num_heads, sm_scale,
                                           band_widths)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_xl_attention_nhd: no kernel for device {q.device}")
-    if (k.shape != q.shape or v.shape != q.shape or c % num_heads or d != 64
-            or tuple(p.shape) != (num_heads, 2 * t - 1, d)
-            or tuple(bias_u.shape) != (num_heads, d) or tuple(bias_v.shape) != (num_heads, d)):
-        raise ValueError(
-            f"flash_xl_attention_nhd: unsupported shapes q {tuple(q.shape)}, p {tuple(p.shape)}, "
-            f"bias {tuple(bias_u.shape)}, {num_heads} heads"
-        )
-    check_cuda_operands("flash_xl_attention_nhd", q, k, v, p)
-    forbid_grad("flash_xl_attention_nhd", bias_u, bias_v)
-    bu = bias_u.detach().to(device=q.device, dtype=torch.float32).contiguous()
-    bv = bias_v.detach().to(device=q.device, dtype=torch.float32).contiguous()
-    band = _band_tensor(band_widths, num_heads, q.device)
-    out = torch.empty((b, t, c), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        status = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bu.data_ptr(), bv.data_ptr(),
-            p.data_ptr(), None if band is None else band.data_ptr(), out.data_ptr(),
-            b, t, num_heads, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            p.stride(0), p.stride(1), out.stride(0), out.stride(1),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(status, "flash_xl_attention_nhd")
+    out, _ = _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths,
+                             with_lse=False)
     flash_xl_attention_nhd.launches += 1
     return out
 
 
 flash_xl_attention_nhd.launches = 0
+flash_xl_attention_nhd_lse.launches = 0
+flash_xl_attention_nhd_backward.launches = 0

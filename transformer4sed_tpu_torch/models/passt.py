@@ -1,17 +1,20 @@
-"""PaSST backbone, eval path (port of ``models/passt.py``).
+"""PaSST backbone (port of ``models/passt.py``).
 
 ViT on log-mel "images" with disentangled time/frequency positional
 embeddings (``src/models/passt/passt.py:366-612``): 16x16 patches at
 stride 10, ``time_new_pos_embed`` cropped to the input's time grid,
 ``freq_new_pos_embed``, cls + dist tokens with their own
 ``new_pos_embed``, the f-major token sequence through ``depth`` pre-norm
-blocks, named taps, final LayerNorm. Patchout and the random time crop
-are training-only and come with the training slice.
+blocks, named taps, final LayerNorm. In training (``train=True``) an input
+shorter than the nominal time grid takes its time embedding from a random
+offset drawn from the caller's generator (``models/passt.py:102-112`` of
+the JAX package). Patchout is zero in the flagship and not ported yet
+(ROADMAP.md, queue 1, item 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,17 +43,26 @@ class PaSST(nn.Module):
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads, dtype=dtype) for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """x: [B, 1, F, T] normalised log-mel. Returns ``layer{k}_out``
         [B, P+2, D] (f32) for the tap layer k, ``frame`` (final-norm tokens,
-        f32) and the grid sizes ``f_dim``/``t_dim``."""
+        f32) and the grid sizes ``f_dim``/``t_dim``. ``generator`` draws the
+        training time-embedding offset."""
         out: Dict[str, torch.Tensor] = {}
         patches = self.patch_embed(x)  # [B, D, F', T'] in the compute dtype
         b, d, f_dim, t_dim = patches.shape
         nominal_t = self.grid_size[1]
         time_pos = self.time_new_pos_embed
         if t_dim < nominal_t:
-            time_pos = time_pos[:, :, :, :t_dim]
+            offset = 0
+            if train:
+                if generator is None:
+                    raise ValueError("train=True on a short input draws a time offset: "
+                                     "pass a torch.Generator")
+                offset = int(torch.randint(0, nominal_t - t_dim + 1, (), generator=generator,
+                                           device=generator.device))
+            time_pos = time_pos[:, :, :, offset:offset + t_dim]
         elif t_dim > nominal_t:
             patches = patches[:, :, :, :nominal_t]
             t_dim = nominal_t

@@ -1,4 +1,4 @@
-"""PaSST_SED, the MAT-SED network, eval path (port of ``models/passt_sed.py``).
+"""PaSST_SED, the MAT-SED network (port of ``models/passt_sed.py``).
 
 PaSST encoder tapped at ``passt_feature_layer`` -> drop cls/dist tokens
 -> ``out_norm`` -> frequency mean-pool over the [B, f, t, C] patch grid
@@ -8,7 +8,9 @@ linear interpolation -> Transformer-XL decoder -> classifier ->
 pooling; the AT adapter attention-pools the backbone's final-norm frame
 tokens. Params keep the upstream cai525 state-dict names (including
 upstream's ``at_adpater`` spelling), so published ``.pt`` files load
-with ``load_state_dict``.
+with ``load_state_dict``. ``train=True`` is the forward of the
+mean-teacher step; it is differentiable end to end through the attention
+kernels' autograd Functions.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 _LATER = "is not ported yet: ROADMAP.md, queue 1, item 2 (head and decoder options)"
+_MLM_SLICE = "is not ported yet: ROADMAP.md, queue 1, item 1 (the MLM pretrain slice)"
 
 
 class PaSST_SED(nn.Module):
@@ -46,6 +49,8 @@ class PaSST_SED(nn.Module):
         decoder_win_len: Optional[Any] = None,
         at_adapter: bool = False,
         mlm: bool = False,
+        s_patchout_f: int = 0,
+        s_patchout_t: int = 0,
         backbone_depth: int = 12,
         backbone_num_heads: int = 12,
         backbone_img_size: Tuple[int, int] = (128, 998),
@@ -64,7 +69,9 @@ class PaSST_SED(nn.Module):
         if interpolate_mode != "linear":
             raise NotImplementedError(f"interpolate_mode={interpolate_mode!r} {_LATER}")
         if mlm:
-            raise NotImplementedError("mlm=True comes with the training slice (ROADMAP.md, queue 1, item 1)")
+            raise NotImplementedError(f"mlm=True (masked reconstruction) {_MLM_SLICE}")
+        if s_patchout_f or s_patchout_t:
+            raise NotImplementedError(f"structured patchout {_MLM_SLICE}")
         if decoder_dim != embed_dim:
             raise ValueError("the XL decoder runs at the backbone width")
         device = resolve_device(device)
@@ -93,10 +100,12 @@ class PaSST_SED(nn.Module):
         temp_w: float = 1.0,
         pad_mask: Optional[torch.Tensor] = None,  # [B, frames] bool, True = padded
         encoder_win: bool = False,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> SEDOutput:
         if encoder_win:
             raise NotImplementedError(f"encoder_win (sliding-window fusion) {_LATER}")
-        backbone_out = self.backbone(mel[:, None])
+        backbone_out = self.backbone(mel[:, None], train=train, generator=generator)
         feat = self.out_norm(backbone_out[f"layer{self.passt_feature_layer}_out"][:, 2:, :])
         b, _, c = feat.shape
         x = feat.reshape(b, backbone_out["f_dim"], backbone_out["t_dim"], c).mean(dim=1)

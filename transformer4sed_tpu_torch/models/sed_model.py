@@ -1,5 +1,5 @@
 """Shared SED model output contract (port of ``models/sed_model.py``;
-the MLM fields come with the training slice)."""
+the MLM fields come with the MLM slice, ROADMAP.md queue 1 item 1)."""
 
 from __future__ import annotations
 

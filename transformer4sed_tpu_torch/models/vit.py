@@ -1,9 +1,11 @@
-"""ViT building blocks (port of ``models/vit.py``, eval path).
+"""ViT building blocks (port of ``models/vit.py``).
 
 timm-style blocks the PaSST backbone is built from: Mlp, Attention,
 pre-norm Block, PatchEmbed. Attention runs the heads-in-lanes flash
-kernel on the lane slices of the [B, N, 3C] qkv output, as the
-reference's maskless path does (``models/vit.py:113-122``). Matmuls run
+kernels on the lane slices of the [B, N, 3C] qkv output, as the
+reference's maskless path does (``models/vit.py:113-122``), through their
+autograd Function when gradients are recorded. Dropout and DropPath are
+zero in the flagship and not ported yet (ROADMAP.md, queue 1, item 1). Matmuls run
 in ``dtype`` (bf16 on the flagship) with f32 params and f32 layer norms.
 """
 

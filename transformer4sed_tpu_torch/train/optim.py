@@ -1,0 +1,154 @@
+"""Optimizer construction: per-module param groups (port of ``train/optim.py``).
+
+The reference recipes' optimisation policy
+(``recipes/desed/finetune/passt/setting.py:28-103`` and
+``recipes/desed/setting.py:254-278``), as the JAX package labels it, on
+torch ``state_dict`` names:
+
+  * 'encoder' (backbone) with optional step-LR: the top-N blocks and the
+    final backbone norm train at 2x the encoder LR;
+  * 'decoder' (decoder / f-pool / projector modules);
+  * 'head' (everything else);
+  * lr <= 0 or freeze_layer -> 'frozen': left out of the optimizer.
+
+Each live group is ``torch.optim.AdamW`` (betas (0.9, 0.999), eps 1e-8) at
+its own base LR, all scaled by one ``LambdaLR`` schedule. Global-norm
+clipping (:func:`clip_by_global_norm`) runs before the step over the live
+params only, and with optax's arithmetic. ``child_tuning``, gradient
+accumulation, and the extra groups of the AudioSet and LoRA policies (cnn,
+at_decoder, query, lora) are not ported yet: they come with those training
+paths and model families (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+
+@dataclass(frozen=True)
+class GroupSpec:
+    lr: float = 1e-4
+    weight_decay: float = 1e-8
+    step_lr: int = 0  # encoder only: top-N blocks at 2x lr
+    freeze_layer: int = 0  # encoder only: freeze blocks [0, k)
+
+
+@dataclass(frozen=True)
+class ParamGroupConfig:
+    encoder: GroupSpec = field(default_factory=GroupSpec)
+    decoder: GroupSpec = field(default_factory=GroupSpec)
+    head: GroupSpec = field(default_factory=GroupSpec)
+    backbone_depth: int = 12
+    clip_grad: float = 20.0
+
+
+# union of the reference's decoder-group keyword lists (DESED cnn_trans
+# `cnn_trans/setting.py:21`, AudioSet DASM `lr_set.py:41-51`)
+_DECODER_KEYWORDS = (
+    "decoder", "f_pool_module", "transformer_projector", "cnn_projector",
+    "at_projector", "merge_weight", "norm_before_pool", "norm_after_merge",
+)
+
+
+def _in_backbone(name: str) -> bool:
+    return name.startswith("backbone.") or ".backbone." in name
+
+
+def _backbone_block_key(name: str):
+    """(layer, block) sort key of a backbone param name, or None: flat ViT
+    blocks ``blocks.{i}``, hierarchical ``layers.{i}.blocks.{j}``."""
+    m = re.search(r"(?:layers[._](\d+)[._])?blocks[._](\d+)", name)
+    if m is None:
+        return None
+    return (int(m.group(1)) if m.group(1) is not None else -1, int(m.group(2)))
+
+
+def label_params(names: Iterable[str], cfg: ParamGroupConfig) -> Dict[str, str]:
+    """Group label of each param name, following the reference policy."""
+    names = list(names)
+    block_keys = sorted({k for n in names if _in_backbone(n)
+                         for k in [_backbone_block_key(n)] if k is not None})
+    global_block_idx = {k: i for i, k in enumerate(block_keys)}
+
+    def label_of(name: str) -> str:
+        if _in_backbone(name):
+            bk = _backbone_block_key(name)
+            block_idx = global_block_idx[bk] if bk is not None else None
+            is_final_norm = re.search(r"backbone\.norm\.", name) is not None
+            if cfg.encoder.lr <= 0:
+                return "frozen"
+            if cfg.encoder.freeze_layer > 0:
+                trainable = ((block_idx is not None and block_idx + 1 > cfg.encoder.freeze_layer)
+                             or is_final_norm)
+                if not trainable:
+                    return "frozen"
+            if cfg.encoder.step_lr:
+                depth = len(global_block_idx) or cfg.backbone_depth
+                high = (block_idx is not None
+                        and depth - block_idx <= cfg.encoder.step_lr) or is_final_norm
+                return "encoder_high" if high else "encoder_low"
+            return "encoder_low"
+        for kw in _DECODER_KEYWORDS:
+            if kw in name:
+                return "frozen" if cfg.decoder.lr <= 0 else "decoder"
+        return "frozen" if cfg.head.lr <= 0 else "head"
+
+    return {n: label_of(n) for n in names}
+
+
+def _group_specs(cfg: ParamGroupConfig) -> Dict[str, Tuple[float, float]]:
+    return {
+        "encoder_low": (cfg.encoder.lr, cfg.encoder.weight_decay),
+        "encoder_high": (cfg.encoder.lr * 2, cfg.encoder.weight_decay),
+        "decoder": (cfg.decoder.lr, cfg.decoder.weight_decay),
+        "head": (cfg.head.lr, cfg.head.weight_decay),
+    }
+
+
+def build_optimizer(model: nn.Module, cfg: ParamGroupConfig,
+                    schedule: Optional[Callable[[int], float]] = None):
+    """(AdamW, LambdaLR, labels): one param group per live label, 'frozen'
+    params left out. ``schedule`` maps the 0-based step to an LR scale
+    (None: constant 1); the scheduler is stepped once per optimizer step."""
+    named = dict(model.named_parameters())
+    labels = label_params(named, cfg)
+    groups = []
+    for label, (lr, wd) in _group_specs(cfg).items():
+        params = [p for n, p in named.items() if labels[n] == label]
+        if params:
+            groups.append({"params": params, "lr": lr, "weight_decay": wd, "label": label})
+    opt = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, schedule or (lambda step: 1.0))
+    return opt, sched, labels
+
+
+def live_params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+@torch.no_grad()
+def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of the params' gradients (None counts as 0)."""
+    sq = [p.grad.float().square().sum() for p in params if p.grad is not None]
+    if not sq:
+        return torch.zeros(())
+    return torch.stack(sq).sum().sqrt()
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm``: when the global norm g reaches
+    ``max_norm``, every gradient becomes (grad / g) * max_norm, with no
+    epsilon (``torch.nn.utils.clip_grad_norm_`` divides by g + 1e-6).
+    Returns g."""
+    params = [p for p in params if p.grad is not None]
+    norm = global_norm(params)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for p in params:
+        p.grad.mul_(scale.to(p.grad.dtype))
+    return norm

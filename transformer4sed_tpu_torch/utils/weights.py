@@ -107,7 +107,7 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     and conv weights N(0, 1/fan_in) clipped at 2 sigma, biases N(0, 0.02),
     LayerNorm scales 1 + N(0, 0.02), tokens and position embeddings
     N(0, 0.02), XL position biases N(0, 0.1). For tests and smoke runs
-    with random weights; training's init comes with the training slice."""
+    with random weights (the JAX package's truncated-normal init is not ported)."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal(p, std):
