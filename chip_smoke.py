@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py                              # every phase, one card
     python3 chip_smoke.py --phases build,kernels,train # the short call after a kernel edit
+    python3 chip_smoke.py --phases build,window_kernels  # the Swin window kernels alone
 
-Phases, in order; any failure exits non-zero:
+Two model families run: the MAT-SED flagship (PaSST_SED, phases 3 to 6) and
+HTSAT_CNN (phases 9 to 12). Phases, in order; any failure exits non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
@@ -14,7 +16,11 @@ Phases, in order; any failure exits non-zero:
      the same check rejects planted faults (a dropped key tile, a dropped
      bias, a rel-shift off by one, a band one key wider; for the backwards
      an LSE shifted by log 2, a zeroed O, P rolled by one row, pos_bias_v
-     dropped);
+     dropped); the Swin window forward and backward at HTSAT-tiny's four
+     stage shapes at B=64, shifted and unshifted, with four more planted
+     faults (head 0's bias for every head, window 0's shift mask for every
+     window, head-dim lanes 24..31 read from the next head, a dbias that
+     misses the last window);
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
      flagship (PaSST 768/12/12 tapped at layer 10, 3-layer Transformer-XL
@@ -37,10 +43,27 @@ Phases, in order; any failure exits non-zero:
   7. time each kernel, its plain version and the one-call library
      equivalent (SDPA forward, SDPA backward through autograd) with CUDA
      events, beside the least time the card could take; time served
-     clips/s at B=8 over three windows of 160 batches; time train steps/s
+     clips/s at B=8 over three windows of 80 batches; time train steps/s
      and clips/s at B=24 over three windows, and the peak device memory;
   8. profile two served batches and one train step (torch.profiler):
-     device time by kernel and the device's busy share.
+     device time by kernel and the device's busy share;
+  9. serve 148 synthetic 10-s clips (64, 64 and a ragged 20) through
+     ``InferenceEngine`` with the full-width HTSAT_CNN of
+     config/audioset_strong/htsat_cnn.yaml (HTSAT-tiny, the ten-layer CNN
+     branch, 3-layer Transformer-XL at T=320, 447 classes), seeded weights,
+     bf16: shapes, finiteness, events, and per batch 12 window-attention
+     and 3 XL launches;
+ 10. the same weights on 2 clips in eval mode, CPU f32 against card bf16;
+ 11. three supervised steps of HTSAT_CNN at B=64 (frame shift, mixup,
+     filt_aug, CNN dropout, AslLoss, the config's param groups, clip 20):
+     finite losses, per step 12 window forwards, 12 window backwards, 3 XL
+     LSE forwards and 3 XL backwards, and BatchNorm running statistics that
+     moved;
+ 12. HTSAT_CNN train parity: 3 steps at B=4 with augmentation and dropout
+     off, CPU f32 against card bf16, held as in phase 6;
+then, inside phases 7 and 8, the window kernels' times beside their bound,
+plain versions and SDPA, and HTSAT_CNN's served clips/s, train steps/s, peak
+memory and profiles.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
@@ -57,7 +80,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "timing", "profile")
+PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "htsat_serve",
+          "htsat_parity", "htsat_train", "htsat_train_parity", "timing", "profile")
+# subsets of a phase, for the short call after an edit; never part of the whole run
+SUB_PHASES = ("window_kernels", "htsat_timing")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -194,11 +220,12 @@ def held_all(what, names, outs, refs, extras):
 def kernel_wrappers():
     """Every kernel wrapper of the port by name; each counts its launches."""
     from transformer4sed_tpu_torch.kernels import flash_attention as fa
+    from transformer4sed_tpu_torch.kernels import window_attention as wa
     from transformer4sed_tpu_torch.kernels import xl_attention as xa
 
     fns = (fa.flash_attention_nhd, xa.flash_xl_attention_nhd, fa.flash_attention_nhd_lse,
            fa.flash_attention_nhd_backward, xa.flash_xl_attention_nhd_lse,
-           xa.flash_xl_attention_nhd_backward)
+           xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward)
     return {f.__name__: f for f in fns}
 
 
@@ -298,6 +325,7 @@ def check_kernels(results):
             rejected.append(held("planted fault: band one key wider each side", out, ref,
                                  ref_abs_v)[0])
     check_train_kernels(results, rejected)
+    check_window_kernels(results, rejected)
     check(not any(rejected), "the kernel check let a planted fault through")
     log(f"all {len(rejected)} planted faults fall outside the bound")
 
@@ -458,6 +486,173 @@ def check_train_kernels(results, rejected):
                                      bad, refs, terms)[0])
         del refs, terms, grads
         torch.cuda.empty_cache()
+
+
+# -- phase 2, rows 14 and 15: Swin window attention ---------------------------------
+
+# HTSAT-tiny (config/audioset_strong/htsat_cnn.yaml: spec 256, patch 4, window
+# 8, head dim 24): (heads, windows per image) of stages 0..3, at the recipe's
+# batch of 64: 64 * nW * H = 16384, 8192, 4096 and 2048 (window, head) pairs
+HTSAT_STAGES = ((4, 64), (8, 16), (16, 4), (32, 1))
+HTSAT_BATCH = 64
+# dbias and dshift are f32 sums of the f32 dS over n_terms windows, added in an
+# order that changes from run to run (atomics): |sum - ref| <= 2^-24 * (n_terms
+# + F32_TERM) * sum |dS|, the worst case of an f32 sum (Higham) plus F32_TERM
+# ulps for each term's own f32 error (24- and 64-term dots, exp2 for exp)
+F32_TERM = 512
+
+
+def window_inputs(b, h, nw, shifted, seed):
+    """(qkv, q, k, v, bias, mask): q, k, v as the model makes them, lane views
+    [B*nW, 64, H, 24] of one bf16 qkv projection [B*nW, 64, 3, H, 24]; a
+    bias [H, 64, 64] f32; the additive 0 / -100 shift mask [nW, 64, 64] of
+    the stage's resolution (or None)."""
+    import math
+
+    import torch
+
+    from transformer4sed_tpu_torch.models.htsat import _shift_attn_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b * nw, 64, 3, h, 24, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    bias = torch.randn(h, 64, 64, generator=gen, device="cuda") * 0.5
+    mask = None
+    if shifted:
+        res = 8 * math.isqrt(nw)
+        mask = torch.from_numpy(_shift_attn_mask(res, res, 8, 4)).cuda()
+        check(mask.shape == (nw, 64, 64), f"shift mask {tuple(mask.shape)} for {nw} windows")
+    return qkv, q, k, v, bias, mask
+
+
+def f32_held(what, out, ref, abs_sum, n_terms):
+    """Log an f32 sum's error against its bound (F32_TERM above); return
+    (within, max abs error)."""
+    import torch
+
+    err = (out.float() - ref).abs()
+    # + 1e-30: where every term underflows (P = exp(-100) under a shift mask)
+    # the bound is 0 and a denormal on one side would read as inf
+    tol = 2.0 ** -24 * (n_terms + F32_TERM) * abs_sum + 1e-30
+    worst = float(torch.where(err == 0, 0.0, err / tol).max())
+    ok = worst <= 1.0
+    log(f"{what}: max_abs_err {float(err.max()):.3e}, max err/bound {worst:.3f} (limit 1, f32 sum "
+        f"of {n_terms} terms): {'within' if ok else 'OUTSIDE'}")
+    return ok, float(err.max())
+
+
+def window_bwd_terms(q, k, v, o, g, bias, mask, nw, scale):
+    """The window backward's products on absolute values: scale |dS| |K| for
+    dq, scale |dS|^T |Q| for dk, P^T |G| for dv (|dS| with its f32 term in
+    units of u, as for the other backwards), and sum |dS| over the windows
+    for dbias and dshift (with the f32 term at face value)."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.window_attention import _scores
+
+    qf, kf, vf, gf, of = (x.float() for x in (q, k, v, g, o))
+    p = torch.softmax(_scores(q, k, bias, mask, nw, scale), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * of).sum(-1).transpose(1, 2)[..., None]
+    ads = (p * (dp - delta)).abs()
+    del dp
+    f32 = p * (torch.einsum("bqhd,bkhd->bhqk", gf.abs(), vf.abs())
+               + (gf.abs() * of.abs()).sum(-1).transpose(1, 2)[..., None])
+    sums = ads + f32
+    ads = ads + F32_DOT * f32
+    del f32
+    terms = [torch.einsum("bhqk,bkhd->bqhd", ads, kf.abs()) * scale,
+             torch.einsum("bhqk,bqhd->bkhd", ads, qf.abs()) * scale,
+             torch.einsum("bhqk,bqhd->bkhd", p, gf.abs()),
+             sums.sum(0)]
+    if mask is not None:
+        terms.append(sums.reshape(-1, nw, *sums.shape[1:]).sum((0, 2)))
+    return terms
+
+
+def window_bwd_held(what, grads, refs, terms, n_windows_total, heads, nw):
+    """dq, dk, dv against the bf16 bound, dbias and dshift against the f32
+    one; (all within, max abs error)."""
+    ok, worst = held_all(what, ("dq", "dk", "dv"), grads[:3], refs[:3], terms[:3])
+    ok_b, mx = f32_held(f"{what} dbias", grads[3], refs[3], terms[3], n_windows_total)
+    oks, worst = [ok, ok_b], max(worst, mx)
+    if refs[4] is not None:
+        ok_s, mx = f32_held(f"{what} dshift", grads[4], refs[4], terms[4],
+                            heads * n_windows_total // nw)
+        oks.append(ok_s)
+        worst = max(worst, mx)
+    return all(oks), worst
+
+
+def check_window_kernels(results, rejected):
+    """Rows 14 and 15 against their plain versions in f32 on the same bf16
+    inputs, at the four HTSAT stage shapes at B=64, shifted and unshifted
+    (the backward fed the kernel forward's own output); then four planted
+    faults: head 0's bias for every head, window 0's shift mask for every
+    window, head-dim lanes 24..31 read from the neighbouring head, and a
+    dbias that misses the last window."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.window_attention import (
+        window_attention,
+        window_attention_backward,
+        window_attention_backward_plain,
+        window_attention_plain,
+    )
+
+    scale = 24 ** -0.5
+    worst_fwd = worst_bwd = 0.0
+    for stage, (h, nw) in enumerate(HTSAT_STAGES):
+        for shifted in (False, True):
+            tag = f"stage {stage} B={HTSAT_BATCH} nW={nw} H={h} {'shifted' if shifted else 'plain'}"
+            qkv, q, k, v, bias, mask = window_inputs(HTSAT_BATCH, h, nw, shifted, seed=10 * stage)
+            bnw = q.shape[0]
+            qf, kf, vf = q.float(), k.float(), v.float()
+            ref = window_attention_plain(qf, kf, vf, bias, mask, nw, scale)
+            ref_abs_v = window_attention_plain(qf, kf, vf.abs(), bias, mask, nw, scale)
+            out = window_attention(q, k, v, bias, mask, nw, scale)
+            ok, mx = held(f"kernel window_attention {tag}", out, ref, ref_abs_v)
+            check(ok, "window_attention disagrees with its plain version")
+            worst_fwd = max(worst_fwd, mx)
+            if stage == 0 and shifted:
+                bad = window_attention(q, k, v, bias[:1].expand(h, -1, -1).contiguous(), mask, nw,
+                                       scale)
+                rejected.append(held("planted fault: head 0's bias for every head", bad, ref,
+                                     ref_abs_v)[0])
+                bad = window_attention(q, k, v, bias, mask[:1].expand(nw, -1, -1).contiguous(),
+                                       nw, scale)
+                rejected.append(held("planted fault: window 0's shift mask for every window", bad,
+                                     ref, ref_abs_v)[0])
+                # a kernel that padded the head dim to 32 by reading on: 32-lane
+                # q and k slices of the qkv row, lanes 24..31 the next head's
+                rows = qkv.reshape(bnw, 64, 3 * h * 24).float()
+                c = h * 24
+                q32 = torch.stack([rows[..., i * 24:i * 24 + 32] for i in range(h)], 2)
+                k32 = torch.stack([rows[..., c + i * 24:c + i * 24 + 32] for i in range(h)], 2)
+                bad = window_attention_plain(q32, k32, vf, bias, mask, nw, scale)
+                rejected.append(held("planted fault: lanes 24..31 read from the next head",
+                                     bad.to(torch.bfloat16), ref, ref_abs_v)[0])
+                del rows, q32, k32, bad
+            del ref, ref_abs_v
+
+            g = grad_output(tuple(q.shape), seed=10 * stage + 1)
+            refs = window_attention_backward_plain(qf, kf, vf, out.float(), g.float(), bias, mask,
+                                                   nw, scale)
+            terms = window_bwd_terms(q, k, v, out, g, bias, mask, nw, scale)
+            grads = window_attention_backward(q, k, v, out, g, bias, mask, nw, scale)
+            ok, mx = window_bwd_held(f"kernel window_attention_backward {tag}", grads, refs, terms,
+                                     bnw, h, nw)
+            check(ok, "window_attention_backward disagrees with its plain version")
+            worst_bwd = max(worst_bwd, mx)
+            if stage == 3 and not shifted:
+                bad = window_attention_backward(q[:-1], k[:-1], v[:-1], out[:-1], g[:-1], bias,
+                                                None, 1, scale)
+                rejected.append(f32_held("planted fault: dbias misses the last window", bad[3],
+                                         refs[3], terms[3], bnw)[0])
+            del refs, terms, grads, qf, kf, vf
+            torch.cuda.empty_cache()
+    results["window_attention"]["max_abs_err"] = worst_fwd
+    results["window_attention_backward"]["max_abs_err"] = worst_bwd
 
 
 # -- phases 3 and 4: the served flagship ------------------------------------------
@@ -675,7 +870,8 @@ def train(results):
     per_step = dict(flash_attention_nhd=12, flash_xl_attention_nhd=3, flash_attention_nhd_lse=12,
                     flash_attention_nhd_backward=12, flash_xl_attention_nhd_lse=3,
                     flash_xl_attention_nhd_backward=3)
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    want = {name: 0 for name in launches}
+    want.update({k: n * TRAIN_STEPS for k, n in per_step.items()})
     log(f"train launches over {TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the train path, expected {want}")
     for name in ("flash_attention_nhd_lse", "flash_attention_nhd_backward",
@@ -730,6 +926,251 @@ def train_parity():
           "the card's bf16 gradient disagrees with the f32 one")
 
 
+# -- the HTSAT_CNN family: serving and the supervised train step -------------------
+
+# config/audioset_strong/htsat_cnn.yaml (PyYAML is absent on the card's
+# machine, so its values stand here): HTSAT_CNN.init_kwargs, val_kwargs and
+# train_kwargs, training.batch_size(_val) and median_window, class_loss, opt
+HTSAT_CNN_CFG = dict(
+    class_num=447, decoder_dim=768, num_heads=12, decoder="transformerXL", decoder_layer_num=3,
+    decoder_pos_emd_len=1000, backbone_upsample_ratio=10, htsat_config="tiny",
+    cnn_param=dict(
+        nb_filters=[16, 16, 32, 32, 64, 64, 128, 128, 256, 384], kernel_size=[3] * 10,
+        padding=[1] * 10, stride=[1] * 10,
+        pooling=[[2, 2], [1, 1], [2, 2], [1, 1], [1, 2], [1, 2], [1, 2], [1, 2], [1, 1], [1, 1]],
+        conv_dropout=0.5, activation="cg"),
+)
+HTSAT_FRAMES = 320       # feature.pred_len: 32 latent frames x 10
+HTSAT_NET_POOLING = 3.125  # feature.net_subsample: 1000 / 320
+HTSAT_MEDIAN = 7
+HTSAT_VAL_KWARGS = {"temp_w": 0.5}
+HTSAT_TRAIN_KWARGS = {"temp_w": 1}
+HTSAT_LOSS = dict(loss_name="AslLoss", loss_kwargs={"rp": 0, "rn": 4, "margin": 0.05})
+HTSAT_OPT = dict(encoder=dict(lr=1.0e-5, weight_decay=1.0e-4, freeze_layer=0, step_lr=4),
+                 decoder=dict(lr=2.0e-4, weight_decay=1.0e-4),
+                 head=dict(lr=2.0e-4, weight_decay=1.0e-4))
+HTSAT_CLIP_GRAD = 20.0   # training.clip_grad: true (recipes/common.py:455)
+HTSAT_TRAIN_STEPS = 3
+HTSAT_PARITY_BATCH, HTSAT_PARITY_STEPS = 4, 3
+# launches per served batch / per train step: 12 Swin blocks, 3 XL blocks
+HTSAT_SERVE_LAUNCHES = dict(window_attention=12, flash_xl_attention_nhd=3)
+HTSAT_TRAIN_LAUNCHES = dict(window_attention=12, window_attention_backward=12,
+                            flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
+
+
+def audioset_labels():
+    with open(ROOT / "meta" / "audioset_strong" / "labeldict_audioset_strong.json") as f:
+        table = json.load(f)
+    return [name for name, _ in sorted(table.items(), key=lambda kv: kv[1])]
+
+
+def build_htsat_model(device, dtype, state_dict=None, **overrides):
+    from transformer4sed_tpu_torch.models.htsat_heads import HTSAT_CNN
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    cfg = dict(HTSAT_CNN_CFG)
+    cfg["cnn_param"] = dict(cfg["cnn_param"], **overrides)
+    model = HTSAT_CNN(**cfg, dtype=dtype, device="cpu")
+    if state_dict is None:
+        init_weights_(model, seed=0)
+    else:
+        model.load_state_dict(state_dict)
+    return model.to(device)
+
+
+def build_htsat_engine(device, dtype, state_dict=None, batch_size=HTSAT_BATCH):
+    from transformer4sed_tpu_torch.core.codec import LabelCodec
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    codec = LabelCodec(audioset_labels(), audio_len=10.0, frame_len=1024, frame_hop=320,
+                       net_pooling=HTSAT_NET_POOLING, sr=SR)
+    check(codec.n_frames == HTSAT_FRAMES and codec.n_classes == 447,
+          f"codec of {codec.n_frames} frames and {codec.n_classes} classes")
+    model = build_htsat_model(device, dtype, state_dict)
+    return InferenceEngine(model.eval(), HTSATFrontend(device=device), codec, HTSAT_MEDIAN,
+                           batch_size=batch_size, threshold=0.5, model_kwargs=HTSAT_VAL_KWARGS,
+                           device=device)
+
+
+def htsat_serve(engine, results):
+    """Two full batches of 64 synthetic 10-s clips and a ragged one of 20
+    through ``InferenceEngine``: shapes, finiteness, events, launch counts."""
+    import numpy as np
+
+    clips = synthetic_clips(2 * HTSAT_BATCH + 20, seed=7)
+    batches = make_batches(clips, engine.codec, HTSAT_BATCH)
+    check([len(b["filename"]) for b in batches] == [64, 64, 20], "batches of 64, 64 and 20 clips")
+    reset_launches()
+    served = list(engine.score_batches(batches))
+    launches = read_launches()
+    log(f"HTSAT_CNN served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
+        f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update({k: n * len(batches) for k, n in HTSAT_SERVE_LAUNCHES.items()})
+    check(launches == want, f"kernel launches {launches} on the HTSAT_CNN served path, expected "
+                            f"{want} (12 window and 3 XL per batch)")
+    results["window_attention"]["launches"] = launches["window_attention"]
+    n_events = 0
+    for (names, scores, weak), batch in zip(served, batches):
+        check(names == batch["filename"], "results come back in order")
+        check(scores.shape == (len(names), HTSAT_FRAMES, 447) and weak.shape == (len(names), 447),
+              f"output shapes {scores.shape}, {weak.shape}")
+        check(np.all(np.isfinite(scores)) and np.all(np.isfinite(weak)), "finite outputs")
+        check(np.all((scores > 0) & (scores <= 1)) and np.all((weak > 0) & (weak <= 1)),
+              "probabilities in (0, 1]")
+        for i in range(len(names)):
+            for label, onset, offset in engine.decode(scores[i]):
+                check(label in engine.codec.labels and 0.0 <= onset < offset <= 10.0,
+                      f"event {label, onset, offset}")
+                n_events += 1
+    short = served[0][1][5]  # 6.5-s clip: frames from 208 are padding, clipped to 1e-7
+    check(np.all(short[208 + HTSAT_MEDIAN // 2:] <= 1.0001e-7), "padded frames are at the floor")
+    log(f"decoded {n_events} events; scores finite in (0, 1]; padded frames at the 1e-7 floor")
+    return batches
+
+
+def htsat_parity(card_engine, batches):
+    """The same weights on 2 clips in eval mode: CPU f32 (plain versions)
+    against the card's bf16 (kernels), on probabilities."""
+    import numpy as np
+    import torch
+
+    state = {k: v.detach().cpu() for k, v in card_engine.model.state_dict().items()}
+    cpu_engine = build_htsat_engine("cpu", torch.float32, state_dict=state, batch_size=2)
+    wav = torch.from_numpy(batches[0]["wav"][4:6].copy())  # clip 5 is the short one
+    pm = torch.from_numpy(batches[0]["pad_mask"][4:6].copy())
+    outs = {}
+    for name, engine in (("cpu_f32", cpu_engine), ("card_bf16", card_engine)):
+        with torch.no_grad():
+            mel = engine.frontend.normalize(engine.frontend(wav.to(engine.device)))
+            out = engine.model(mel, pad_mask=pm.to(engine.device), **HTSAT_VAL_KWARGS)
+        outs[name] = {k: getattr(out, k).float().cpu().numpy() for k in ("strong", "weak")}
+    worst = 0.0
+    for key in ("strong", "weak"):
+        diff = float(np.abs(outs["cpu_f32"][key] - outs["card_bf16"][key]).max())
+        worst = max(worst, diff)
+        log(f"HTSAT_CNN card bf16 vs CPU f32 {key}: max_abs_diff {diff:.4e} (tol {DTYPE_MAX_ABS}); "
+            f"CPU {key} spans {outs['cpu_f32'][key].min():.3e} .. {outs['cpu_f32'][key].max():.3e}")
+    check(worst <= DTYPE_MAX_ABS, "HTSAT_CNN: the card's path disagrees with the CPU f32 path")
+
+
+def synthetic_audioset_batch(b, seed):
+    """Learnable clips for the 447 classes: noise plus three tone bursts, a
+    burst of class c at its own pitch 150 * 2^(c / 70) Hz, with strong labels
+    [B, 447, 320] on the model's 32 frames/s grid."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(CLIP_SAMPLES) / SR
+    wav = np.zeros((b, CLIP_SAMPLES), np.float32)
+    labels = np.zeros((b, 447, HTSAT_FRAMES), np.float32)
+    for i in range(b):
+        x = 0.05 * rng.randn(CLIP_SAMPLES)
+        for _ in range(3):
+            cls, on, dur = rng.randint(447), rng.uniform(0, 8), rng.uniform(0.3, 2.0)
+            x += np.sin(2 * np.pi * 150 * 2 ** (cls / 70) * t) * ((t >= on) & (t < on + dur))
+            labels[i, cls, int(on * 32):int((on + dur) * 32)] = 1.0
+        wav[i] = x
+    return {"wav": wav, "labels": labels}
+
+
+def build_supervised(device, dtype, augment, dropout, state_dict=None):
+    """The recipe's supervised step: AslLoss, the config's param groups,
+    clip 20; ``augment=False`` turns shift, mixup and filt_aug off,
+    ``dropout=False`` the CNN's conv_dropout."""
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes.audioset_strong import SupervisedConfig, SupervisedStep
+    from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
+
+    overrides = {} if dropout else {"conv_dropout": 0.0}
+    model = build_htsat_model(device, dtype, state_dict, **overrides)
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0,
+                                  transform_choice=(0, 0, 0, 0))
+    cfg = SupervisedConfig(**HTSAT_LOSS, model_kwargs=HTSAT_TRAIN_KWARGS, **off)
+    groups = {k: GroupSpec(**v) for k, v in HTSAT_OPT.items()}
+    return SupervisedStep(model, HTSATFrontend(device=device), cfg,
+                          ParamGroupConfig(**groups, clip_grad=HTSAT_CLIP_GRAD))
+
+
+def htsat_train(results):
+    """Supervised steps of the full-width HTSAT_CNN at B=64 with the
+    recipe's augmentation and dropout; returns (stepper, batch)."""
+    import torch
+
+    t0 = time.perf_counter()
+    stepper = build_supervised("cuda", torch.bfloat16, augment=True, dropout=True)
+    batch = synthetic_audioset_batch(HTSAT_BATCH, seed=8)
+    log(f"built the HTSAT_CNN supervised step in {time.perf_counter() - t0:.1f} s; param groups "
+        f"{sorted(set(stepper.labels.values()))}")
+    stats = {k: v.clone() for k, v in stepper.model.state_dict().items() if "running_" in k}
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(HTSAT_TRAIN_STEPS):
+        values = finite_metrics(stepper.step(batch, gen))
+        log(f"HTSAT_CNN train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * HTSAT_TRAIN_STEPS for k, n in HTSAT_TRAIN_LAUNCHES.items()})
+    log(f"HTSAT_CNN train launches over {HTSAT_TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on the HTSAT_CNN train path, expected "
+                            f"{want}")
+    results["window_attention_backward"]["launches"] = launches["window_attention_backward"]
+    now = stepper.model.state_dict()
+    check(len(stats) == 22 and all(not torch.equal(now[k], v) for k, v in stats.items()),
+          "a BatchNorm running statistic did not move")
+    check(int(now["backbone.bn0.num_batches_tracked"]) == HTSAT_TRAIN_STEPS,
+          "bn0 did not count its batches")
+    log(f"all {len(stats)} running statistics moved over the steps")
+    return stepper, batch
+
+
+def htsat_train_parity():
+    """The same weights, HTSAT_PARITY_STEPS supervised steps at B=4 with
+    augmentation and dropout off on the CPU in f32 (plain versions) and on
+    the card in bf16 (kernels): loss trajectories, then the gradient at the
+    CPU's end state in both, as :func:`train_parity` holds the flagship."""
+    import numpy as np
+    import torch
+
+    cpu = build_supervised("cpu", torch.float32, augment=False, dropout=False)
+    card = build_supervised("cuda", torch.bfloat16, augment=False, dropout=False,
+                            state_dict=cpu.model.state_dict())
+    batch = synthetic_audioset_batch(HTSAT_PARITY_BATCH, seed=9)
+    losses = {"cpu_f32": [], "card_bf16": []}
+    for i in range(HTSAT_PARITY_STEPS):
+        for name, stepper in (("cpu_f32", cpu), ("card_bf16", card)):
+            t0 = time.perf_counter()
+            values = finite_metrics(stepper.step(batch, torch.Generator().manual_seed(10 + i)))
+            losses[name].append(values["loss_class_strong"])
+            log(f"HTSAT_CNN parity step {i} {name}: loss {values['loss_class_strong']:.6f}, "
+                f"grad_norm {values['grad_norm']:.4f} ({time.perf_counter() - t0:.1f} s)")
+    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
+    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
+    log(f"HTSAT_CNN train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
+        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
+        f"(limit {TRAIN_LOSS_REL_MAX})")
+    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
+          "HTSAT_CNN: the card's bf16 loss trajectory leaves the f32 one")
+
+    card.model.load_state_dict(cpu.model.state_dict())
+    flat = {}
+    for name, stepper in (("cpu_f32", cpu), ("card_bf16", card)):
+        stepper.forward_backward(batch, torch.Generator().manual_seed(20))
+        params = list(stepper.model.parameters())
+        check(all(p.grad is not None for p in params), f"{name}: a param got no gradient")
+        flat[name] = torch.cat([p.grad.detach().double().flatten().cpu() for p in params])
+    g32, g16 = flat["cpu_f32"], flat["card_bf16"]
+    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
+    ratio = float(g16.norm() / (g32.norm() + 1e-30))
+    log(f"HTSAT_CNN train parity: gradient at the f32 end state, cosine {cos:.6f} (limit "
+        f"{TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits {TRAIN_GRAD_RATIO}), "
+        f"|g| f32 {float(g32.norm()):.5f}")
+    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
+          "HTSAT_CNN: the card's bf16 gradient disagrees with the f32 one")
+
+
 # -- phase 7: timing ------------------------------------------------------------
 
 def time_kernels(results):
@@ -769,6 +1210,7 @@ def time_kernels(results):
     nbytes = 4.0 * b * t * c * 2 + h * (2 * t - 1) * d * 2 + 2 * h * d * 4
     bound(r, flops, nbytes)
     time_train_kernels(results)
+    time_window_kernels(results)
     for name, r in results.items():
         log(f"time {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms), "
@@ -849,6 +1291,66 @@ def time_train_kernels(results):
     torch.cuda.empty_cache()
 
 
+def time_window_kernels(results):
+    """Rows 14 and 15 at the stage-0 and stage-3 shapes at B=64, each
+    wrapper as the autograd Function calls it (the backward with its zeroed
+    dbias / dshift); the plain versions; and SDPA on the same
+    [B*nW, H, 64, 24] problem with bias and shift mask folded into one
+    ``attn_mask``, forward and backward through autograd (dq, dk, dv only:
+    it has no reduced bias gradient). The record keeps the stage-0 shifted
+    shape, the main path's costliest."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.kernels.window_attention import (
+        window_attention,
+        window_attention_backward,
+        window_attention_backward_plain,
+        window_attention_plain,
+    )
+
+    scale = 24 ** -0.5
+    for stage, shifted in ((0, True), (0, False), (3, False)):
+        h, nw = HTSAT_STAGES[stage]
+        _, q, k, v, bias, mask = window_inputs(HTSAT_BATCH, h, nw, shifted, seed=stage)
+        bnw = q.shape[0]
+        g = grad_output(tuple(q.shape), seed=stage + 1)
+        fwd = {"ms": cuda_ms(lambda: window_attention(q, k, v, bias, mask, nw, scale)),
+               "plain_ms": cuda_ms(lambda: window_attention_plain(q, k, v, bias, mask, nw, scale),
+                                   iters=5)}
+        out = window_attention(q, k, v, bias, mask, nw, scale)
+        bwd = {"ms": cuda_ms(lambda: window_attention_backward(q, k, v, out, g, bias, mask, nw,
+                                                               scale)),
+               "plain_ms": cuda_ms(lambda: window_attention_backward_plain(
+                   q, k, v, out, g, bias, mask, nw, scale), iters=3)}
+        heads = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731  [B*nW, H, 64, 24] views
+        am = bias[None].expand(bnw, -1, -1, -1)
+        if mask is not None:
+            am = am + mask[torch.arange(bnw, device="cuda") % nw][:, None]
+        am = am.to(torch.bfloat16).contiguous()
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=am, scale=scale))
+        qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am, scale=scale)
+        bwd["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(sdpa, (qh, kh, vh), heads(g), retain_graph=True))
+        pairs, side = bnw * h, (h + (nw if shifted else 0)) * 64 * 64 * 4
+        # two products of 2 * 64 * 64 * 24; q, k, v in, o out, bias and shift in
+        bound(fwd, 2 * 2.0 * 64 * 64 * 24 * pairs, 4.0 * pairs * 64 * 24 * 2 + side)
+        # five products (S, G V^T, dV, dQ, dK); q, k, v, o, g in, dq, dk, dv out,
+        # bias and shift in, dbias and dshift out
+        bound(bwd, 5 * 2.0 * 64 * 64 * 24 * pairs, 8.0 * pairs * 64 * 24 * 2 + 2 * side)
+        tag = f"stage {stage} B={HTSAT_BATCH} nW={nw} H={h} {'shifted' if shifted else 'plain'}"
+        for name, r in (("window_attention", fwd), ("window_attention_backward", bwd)):
+            log(f"time {name} {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, SDPA "
+                f"{r['library_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB)")
+            if stage == 0 and shifted:
+                results[name].update(r)
+        del out, sdpa, qh, kh, vh, am
+        torch.cuda.empty_cache()
+
+
 def bound(r, flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     r["bound_ms"] = max(t_ops, t_bytes)
@@ -856,10 +1358,11 @@ def bound(r, flops, nbytes):
     r["flops"], r["bytes"] = flops, nbytes
 
 
-def time_serving(engine, batches, windows=3, per_window=160):
+def time_serving(engine, batches, windows=3, per_window=160, what="served"):
     """Served clips/s over ``windows`` back-to-back windows of ``per_window``
-    batches of 8 (the full host batches replayed, a few seconds each);
-    log each window's rate and return the median window's ms per batch."""
+    batches of the engine's size (the full host batches replayed, a few
+    seconds each); log each window's rate and return the median window's ms
+    per batch."""
     import torch
 
     full = [b for b in batches if len(b["filename"]) == engine.batch_size]
@@ -873,20 +1376,22 @@ def time_serving(engine, batches, windows=3, per_window=160):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rates.append(n / dt)
-        log(f"served window {w}: {n} clips at B={engine.batch_size} in {dt:.3f} s: "
+        log(f"{what} window {w}: {n} clips at B={engine.batch_size} in {dt:.3f} s: "
             f"{n / dt:.2f} clips/s (host batches to decoded-ready scores, frontend and "
             "median filter included)")
     mid = sorted(rates)[len(rates) // 2]
-    log(f"served clips/s over {windows} windows: median {mid:.2f}, min {min(rates):.2f}, "
+    log(f"{what} clips/s over {windows} windows: median {mid:.2f}, min {min(rates):.2f}, "
         f"max {max(rates):.2f}, spread {(max(rates) - min(rates)) / mid:.1%} of the median")
     return engine.batch_size / mid * 1e3
 
 
-def time_training(trainer, batch, windows=3, per_window=4):
-    """Train steps/s and clips/s at B=24 over ``windows`` windows of
-    ``per_window`` steps (host batch in, updated student and teacher out);
-    log each window, the spread and the peak device memory; return the
-    median window's ms per step."""
+def time_training(trainer, batch, windows=3, per_window=4, what="train",
+                  parts="frontend, augmentation, teacher, student forward and backward, clip, "
+                        "AdamW, EMA"):
+    """Train steps/s and clips/s over ``windows`` windows of ``per_window``
+    steps (host batch in, updated model and optimizer state out); log each
+    window, the spread and the peak device memory; return the median
+    window's ms per step."""
     import torch
 
     gen = torch.Generator().manual_seed(5)
@@ -903,15 +1408,14 @@ def time_training(trainer, batch, windows=3, per_window=4):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rates.append(per_window / dt)
-        log(f"train window {w}: {per_window} steps at B={b} in {dt:.3f} s: "
+        log(f"{what} window {w}: {per_window} steps at B={b} in {dt:.3f} s: "
             f"{per_window / dt:.4f} steps/s, {b * per_window / dt:.2f} clips/s, "
-            f"{dt / per_window * 1e3:.1f} ms/step (frontend, augmentation, teacher, student "
-            "forward and backward, clip, AdamW, EMA)")
+            f"{dt / per_window * 1e3:.1f} ms/step ({parts})")
     mid = sorted(rates)[len(rates) // 2]
-    log(f"train steps/s over {windows} windows: median {mid:.4f} ({b * mid:.2f} clips/s), min "
+    log(f"{what} steps/s over {windows} windows: median {mid:.4f} ({b * mid:.2f} clips/s), min "
         f"{min(rates):.4f}, max {max(rates):.4f}, spread {(max(rates) - min(rates)) / mid:.1%} "
         "of the median")
-    log(f"train peak device memory (max_memory_allocated over the windows): "
+    log(f"{what} peak device memory (max_memory_allocated over the windows): "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return 1e3 / mid
 
@@ -925,8 +1429,8 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_training(trainer, batch, step_ms, top=20):
-    """Device time by kernel over one train step at B=24."""
+def profile_training(trainer, batch, step_ms, top=20, what="train"):
+    """Device time by kernel over one train step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -940,14 +1444,14 @@ def profile_training(trainer, batch, step_ms, top=20):
     check(kernels, "the profiler recorded no CUDA kernels")
     ms = lambda e: e.self_device_time_total / 1e3  # noqa: E731
     device_ms = sum(ms(e) for e in kernels)
-    log(f"profile: {device_ms:.3f} ms of device time per train step at B={len(batch['wav'])} "
+    log(f"profile: {device_ms:.3f} ms of device time per {what} step at B={len(batch['wav'])} "
         f"against {step_ms:.3f} ms per step unprofiled: device busy {device_ms / step_ms:.1%}")
     for e in sorted(kernels, key=ms, reverse=True)[:top]:
         log(f"  {ms(e):9.3f} ms {ms(e) / device_ms:6.1%} x{e.count:5d}  {e.key[:90]}")
 
 
-def profile_serving(engine, batches, batch_ms, top=15):
-    """Device time by kernel over two served batches of 8."""
+def profile_serving(engine, batches, batch_ms, top=15, what="served"):
+    """Device time by kernel over the full served batches given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,7 +1465,7 @@ def profile_serving(engine, batches, batch_ms, top=15):
     check(kernels, "the profiler recorded no CUDA kernels")
     per_batch = lambda e: e.self_device_time_total / 1e3 / len(full)  # noqa: E731
     device_ms = sum(per_batch(e) for e in kernels)
-    log(f"profile: {device_ms:.3f} ms of device time per batch of {engine.batch_size} against "
+    log(f"profile: {device_ms:.3f} ms of device time per {what} batch of {engine.batch_size} against "
         f"{batch_ms:.3f} ms per batch unprofiled: device busy {device_ms / batch_ms:.1%}")
     for e in sorted(kernels, key=per_batch, reverse=True)[:top]:
         log(f"  {per_batch(e):8.3f} ms {per_batch(e) / device_ms:6.1%} x{e.count // len(full):4d}  "
@@ -974,8 +1478,8 @@ def main(argv=None) -> int:
                         help=f"comma list of {PHASES} (default: all)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= set(PHASES):
-        parser.error(f"unknown phases {sorted(phases - set(PHASES))}")
+    if not phases <= set(PHASES + SUB_PHASES):
+        parser.error(f"unknown phases {sorted(phases - set(PHASES + SUB_PHASES))}")
 
     import torch
 
@@ -1031,12 +1535,27 @@ def main(argv=None) -> int:
             "source": "transformer4sed_tpu_torch/csrc/xl_attention_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/xl_attention.py:886",
         },
+        "window_attention": {
+            "name": "window_attention", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/window_attention.cu",
+            "replaces": "transformer4sed_tpu/kernels/window_attention.py:145",
+        },
+        "window_attention_backward": {
+            "name": "window_attention_backward", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/window_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/window_attention.py:260",
+        },
     }
     if "kernels" in phases:
         t0 = time.perf_counter()
         check_kernels(results)
         torch.cuda.empty_cache()
         log(f"kernel check phase {time.perf_counter() - t0:.1f} s")
+    elif "window_kernels" in phases:
+        rejected = []
+        check_window_kernels(results, rejected)
+        check(not any(rejected), "the kernel check let a planted fault through")
+        log(f"all {len(rejected)} planted faults fall outside the bound")
     engine = batches = None
     if phases & {"serve", "parity", "timing", "profile"}:
         t0 = time.perf_counter()
@@ -1060,12 +1579,47 @@ def main(argv=None) -> int:
     if "timing" in phases:
         t0 = time.perf_counter()
         time_kernels(results)
-        batch_ms = time_serving(engine, batches)
+        batch_ms = time_serving(engine, batches, per_window=80)
         step_ms = time_training(trainer, train_batch)
-        log(f"timing phase {time.perf_counter() - t0:.1f} s")
+        log(f"flagship timing phase {time.perf_counter() - t0:.1f} s")
         if "profile" in phases:
             profile_serving(engine, batches, batch_ms)
             profile_training(trainer, train_batch, step_ms)
+    del engine, trainer
+    torch.cuda.empty_cache()
+
+    h_engine = h_batches = None
+    if phases & {"htsat_serve", "htsat_parity", "timing", "profile", "htsat_timing"}:
+        t0 = time.perf_counter()
+        h_engine = build_htsat_engine("cuda", torch.bfloat16)
+        h_batches = htsat_serve(h_engine, results)
+        log(f"HTSAT_CNN serve phase {time.perf_counter() - t0:.1f} s")
+    if "htsat_parity" in phases:
+        t0 = time.perf_counter()
+        htsat_parity(h_engine, h_batches)
+        log(f"HTSAT_CNN parity phase {time.perf_counter() - t0:.1f} s")
+    stepper = h_train_batch = None
+    if phases & {"htsat_train", "timing", "profile", "htsat_timing"}:
+        t0 = time.perf_counter()
+        stepper, h_train_batch = htsat_train(results)
+        log(f"HTSAT_CNN train phase {time.perf_counter() - t0:.1f} s")
+    if "htsat_train_parity" in phases:
+        t0 = time.perf_counter()
+        htsat_train_parity()
+        torch.cuda.empty_cache()
+        log(f"HTSAT_CNN train parity phase {time.perf_counter() - t0:.1f} s")
+    if phases & {"timing", "htsat_timing"}:
+        t0 = time.perf_counter()
+        if "timing" not in phases:
+            time_window_kernels(results)
+        h_batch_ms = time_serving(h_engine, h_batches, per_window=20, what="HTSAT_CNN served")
+        h_step_ms = time_training(
+            stepper, h_train_batch, what="HTSAT_CNN train",
+            parts="frontend, augmentation, forward and backward, clip, AdamW")
+        log(f"HTSAT_CNN timing phase {time.perf_counter() - t0:.1f} s")
+        if phases & {"profile", "htsat_timing"}:
+            profile_serving(h_engine, h_batches, h_batch_ms, what="HTSAT_CNN served")
+            profile_training(stepper, h_train_batch, h_step_ms, what="HTSAT_CNN train")
     if phases != set(PHASES):
         return 0
 

@@ -17,12 +17,15 @@ import torch
 
 from transformer4sed_tpu.kernels.flash_attention import _flash_nhd_forward
 from transformer4sed_tpu.kernels.xl_attention import _xl_nhd_forward
+from transformer4sed_tpu.models.htsat import _shift_attn_mask
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
+from transformer4sed_tpu_torch.kernels import window_attention as port_window
 from transformer4sed_tpu_torch.kernels import xl_attention as port_xl
 
 # the modules themselves (the package re-exports functions of the same names)
 jax_flash = importlib.import_module("transformer4sed_tpu.kernels.flash_attention")
 jax_xl = importlib.import_module("transformer4sed_tpu.kernels.xl_attention")
+jax_window = importlib.import_module("transformer4sed_tpu.kernels.window_attention")
 
 # f32 on both sides; the sums run in another order (blocked online
 # softmax in the Pallas kernel, one matmul here): a few f32 ulps of O(1)
@@ -34,6 +37,11 @@ ATOL = 3e-5
 ATOL_LSE = 2e-5
 ATOL_FLASH_GRAD = 3e-5
 ATOL_XL_GRAD = 1e-4
+# the window kernels in interpret mode against their XLA reference
+# (tests/test_kernels.py:365 and :437): forward, and the cotangents, whose
+# dbias and dshift sum over windows and heads
+ATOL_WINDOW = 2e-5
+ATOL_WINDOW_GRAD = 3e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,7 +117,9 @@ def test_kernel_sources_name_their_tpu_kernels():
     for name, tpu_fns in (("flash_attention", ("_flash_nhd_forward", "_flash_nhd_forward_lse")),
                           ("flash_attention_bwd", ("_flash_nhd_backward",)),
                           ("xl_attention", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),
-                          ("xl_attention_bwd", ("_xl_nhd_backward",))):
+                          ("xl_attention_bwd", ("_xl_nhd_backward",)),
+                          ("window_attention", ("_window_forward",)),
+                          ("window_attention_bwd", ("_window_backward",))):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert all(f in src for f in tpu_fns) and "What bounds it" in src and 'extern "C"' in src
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
@@ -251,10 +261,115 @@ def test_cpu_training_path_launches_no_kernel():
     forward."""
     counters = (port_flash.flash_attention_nhd, port_flash.flash_attention_nhd_lse,
                 port_flash.flash_attention_nhd_backward, port_xl.flash_xl_attention_nhd,
-                port_xl.flash_xl_attention_nhd_lse, port_xl.flash_xl_attention_nhd_backward)
+                port_xl.flash_xl_attention_nhd_lse, port_xl.flash_xl_attention_nhd_backward,
+                port_window.window_attention, port_window.window_attention_backward)
     before = [f.launches for f in counters]
     q, k, v, bu, bv, p = (x.requires_grad_() for x in _t(*_xl_data(1, 20, 2, 16, seed=9)))
     out = port_flash.flash_attention_nhd(q, k, v, 2) + port_xl.flash_xl_attention_nhd(
         q, k, v, bu, bv, p, 2, 0.25)
     out.sum().backward()
+    wq, wk, wv, bias, _ = (x.requires_grad_() for x in _t(*_window_data(2, 16, 2, 8, 1, False, 9)))
+    port_window.swin_window_attention(wq, wk, wv, bias, None, 1, 0.3).sum().backward()
     assert [f.launches for f in counters] == before
+
+
+# -- Swin window attention (rows 14 and 15 of the kernel table) ------------------------
+
+
+def _window_data(bnw, n, h, d, n_windows, shifted, seed):
+    """q, k, v [bnw, n, h, d], bias [h, n, n] and the 0 / -100 shift mask of
+    a square grid of ``n_windows`` windows (zeros of a scalar when not
+    shifted), as tests/test_kernels.py:_data makes them."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(bnw, n, h, d).astype(np.float32) for _ in range(3))
+    bias = (rng.randn(h, n, n) * 0.3).astype(np.float32)
+    shift = np.zeros((), np.float32)
+    if shifted:
+        w = int(np.sqrt(n))
+        grid = int(np.sqrt(n_windows)) * w
+        shift = _shift_attn_mask(grid, grid, w, w // 2)
+    return q, k, v, bias, shift
+
+
+WINDOW_CASES = [
+    (8, 64, 4, 24, 4, False),  # the card's window and head dim, plain
+    (8, 64, 4, 24, 4, True),   # shifted windows, two images
+    (6, 16, 2, 8, 1, False),   # the tiny test model's shapes
+]
+
+
+@pytest.mark.parametrize("bnw,n,h,d,n_windows,shifted", WINDOW_CASES)
+def test_window_plain_versions_match_pallas(bnw, n, h, d, n_windows, shifted):
+    """The plain forward against ``_window_forward`` and the plain backward
+    against ``_window_backward``, both in interpret mode, the backward fed
+    the JAX forward's own output: dq, dk, dv, dbias and dshift."""
+    q, k, v, bias, shift = _window_data(bnw, n, h, d, n_windows, shifted, seed=n + shifted)
+    g = (np.random.RandomState(3).randn(bnw, n, h, d) * 0.1).astype(np.float32)
+    scale = d ** -0.5
+    jshift = jnp.asarray(shift) if shifted else None
+    jq, jk, jv, jbias, jg = map(jnp.asarray, (q, k, v, bias, g))
+    out = jax_window._window_forward(jq, jk, jv, jbias, jshift, n_windows, scale, interpret=True)
+    want = jax_window._window_backward(jq, jk, jv, out, jg, jbias, jshift, n_windows, scale,
+                                       interpret=True)
+    tq, tk, tv, tbias, tg, tout = _t(q, k, v, bias, g, out)
+    tshift = torch.from_numpy(shift) if shifted else None
+    ours = port_window.window_attention(tq, tk, tv, tbias, tshift, n_windows, scale)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(out), atol=ATOL_WINDOW)
+    got = port_window.window_attention_backward(tq, tk, tv, tout, tg, tbias, tshift, n_windows,
+                                                scale)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias", "dshift"), got, want):
+        if w is None:
+            assert a is None and not shifted, name
+            continue
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL_WINDOW_GRAD, err_msg=name)
+
+
+def test_window_function_matches_jax_vjp_with_mask_gradient():
+    """The autograd Function against ``jax.vjp`` of ``_xla_window_attention``
+    on q, k, v, bias and the shift mask; a mask that asks for no gradient
+    gets none."""
+    bnw, n, h, d, n_windows = 8, 16, 2, 8, 4
+    arrays = _window_data(bnw, n, h, d, n_windows, True, seed=5)
+    g = np.random.RandomState(6).randn(bnw, n, h, d).astype(np.float32)
+    scale = d ** -0.5
+    fn = lambda *x: jax_window._xla_window_attention(*x, n_windows, scale)  # noqa: E731
+    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(fn, *x)))(
+        jnp.asarray(g), *map(jnp.asarray, arrays))
+    leaves = [x.requires_grad_() for x in _t(*arrays)]
+    ours = port_window.swin_window_attention(*leaves, n_windows, scale)
+    assert type(ours.grad_fn).__name__.startswith("SwinWindowAttention")
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out), atol=ATOL_WINDOW)
+    got = torch.autograd.grad(ours, leaves, torch.from_numpy(g))
+    assert float(got[4].abs().max()) > 0  # softmax(s + mask) does depend on the mask
+    for i, (a, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL_WINDOW_GRAD,
+                                   err_msg=str(i))
+    leaves[4] = leaves[4].detach()  # a constant buffer, as in the model
+    ours = port_window.swin_window_attention(*leaves, n_windows, scale)
+    ours.backward(torch.from_numpy(g))
+    assert leaves[4].grad is None
+    np.testing.assert_allclose(leaves[3].grad.numpy(), np.asarray(want[3]), atol=ATOL_WINDOW_GRAD)
+
+
+def test_window_bf16_cotangents_keep_their_dtypes_and_bad_periods_raise():
+    """bf16 q, k, v from one qkv projection give bf16 cotangents through the
+    unbind, the f32 bias an f32 one (the JAX
+    test_pallas_backward_bf16_dtypes); a window count that does not divide
+    bnw raises as ``_window_forward`` does."""
+    bnw, n, h, d, n_windows = 8, 16, 2, 8, 4
+    q, k, v, bias, shift = _window_data(bnw, n, h, d, n_windows, True, seed=7)
+    qkv = torch.from_numpy(np.stack([q, k, v], 2)).bfloat16().requires_grad_()
+    tbias = torch.from_numpy(bias).requires_grad_()
+    tq, tk, tv = qkv.unbind(2)
+    out = port_window.swin_window_attention(tq, tk, tv, tbias, torch.from_numpy(shift),
+                                            n_windows, d ** -0.5)
+    assert out.dtype == torch.bfloat16
+    out.float().square().sum().backward()
+    assert qkv.grad.dtype == torch.bfloat16 and tbias.grad.dtype == torch.float32
+    assert torch.isfinite(qkv.grad.float()).all() and torch.isfinite(tbias.grad).all()
+    with pytest.raises(ValueError, match="multiple of n_windows"):
+        port_window.window_attention(tq[:6], tk[:6], tv[:6], tbias, torch.from_numpy(shift),
+                                     n_windows, d ** -0.5)
+    with pytest.raises(ValueError, match="multiple of n_windows"):
+        jax_window._window_forward(*map(jnp.asarray, (q[:6], k[:6], v[:6], bias, shift)),
+                                   n_windows, d ** -0.5, interpret=True)

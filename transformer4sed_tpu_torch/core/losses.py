@@ -1,4 +1,6 @@
-"""Losses of the mean-teacher step (port of ``core/losses.py``: ``bce``, ``mse``).
+"""Losses of the ported train steps (port of ``core/losses.py``: ``bce``,
+``bce_logits``, ``mse``, ``asl`` and the factory for the names the shipped
+configs of those steps use; the other losses come with their families).
 
 ``bce`` keeps the JAX package's ``_safe_log``: the exact log for
 x >= 1e-37, torch BCELoss's -100 clamp below, and finite gradients at
@@ -8,7 +10,11 @@ the log itself and its gradient at 0 and 1 differs.
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, Dict, Optional
+
 import torch
+import torch.nn.functional as F
 
 _LOG_CLAMP = -100.0
 _LOG_TINY = 1e-37
@@ -29,3 +35,31 @@ def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return ((pred - target) ** 2).mean()
+
+
+def bce_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Numerically stable BCE on logits: softplus(x) - target * x."""
+    return (F.softplus(logits) - target * logits).mean()
+
+
+def asl(pred: torch.Tensor, target: torch.Tensor, rp: float, rn: float,
+        margin: float) -> torch.Tensor:
+    """Asymmetric loss with probability margin (reference AslLoss)."""
+    pred_m = torch.clamp_min(pred - margin, 0.0)
+    losses = -(((1.0 - pred) ** rp) * target * safe_log(pred)
+               + (pred_m ** rn) * (1.0 - target) * safe_log(1.0 - pred_m))
+    return losses.mean()
+
+
+_REGISTRY: Dict[str, Callable[..., Callable]] = {
+    "BCELoss": lambda **kw: bce,
+    "MSELoss": lambda **kw: mse,
+    "AslLoss": lambda **kw: functools.partial(asl, **kw),
+}
+
+
+def loss_function_factory(name: str, kwargs: Optional[dict] = None) -> Callable:
+    """Build a ``loss(pred, target) -> scalar`` from a config name."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown loss {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**(kwargs or {}))

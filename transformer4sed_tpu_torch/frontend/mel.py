@@ -23,10 +23,12 @@ import torch
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 
-def hann_window(win_length: int) -> np.ndarray:
-    """Symmetric Hann window (torch.hann_window(periodic=False))."""
+def hann_window(win_length: int, periodic: bool = False) -> np.ndarray:
+    """Hann window; ``periodic=False`` is torch.hann_window(periodic=False),
+    the PaSST frontend's; the HTSAT frontend's is periodic."""
+    n = win_length if periodic else win_length - 1
     k = np.arange(win_length, dtype=np.float64)
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * k / (win_length - 1))).astype(np.float32)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)).astype(np.float32)
 
 
 def stft_power(wav: torch.Tensor, n_fft: int, hop_length: int, win_length: int,

@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "xl_attention", "xl_attention_bwd")
+SOURCES = ("flash_attention", "flash_attention_bwd", "xl_attention", "xl_attention_bwd",
+           "window_attention", "window_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -85,16 +86,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, n_ptrs: int, n_strides: int):
+def function(name: str, symbol: str, n_ptrs: int, n_strides: int, n_ints: int = 4):
     """ctypes binding of ``symbol`` in ``csrc/<name>.cu``, the attention
-    launchers' C interface: ``n_ptrs`` pointers, four ints (batch, length,
-    heads, head dim), ``n_strides`` 64-bit strides, the softmax scale and
-    the stream; returns cudaError_t. Bound once per process."""
+    launchers' C interface: ``n_ptrs`` pointers, ``n_ints`` ints (batch,
+    length, heads, head dim; the window kernels add the windows per image),
+    ``n_strides`` 64-bit strides, the softmax scale and the stream; returns
+    cudaError_t. Bound once per process."""
     key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[key] = fn

@@ -8,7 +8,14 @@
   * ``build_band_mask``: the band-diagonal local-attention mask, which the
     XL kernel's plain version uses (the kernel builds it per element).
   * ``TransformerXLBlock`` keeps the reference's residual wiring
-    ``x = norm1(x); x = x + attn(x); x = x + mlp(norm2(x))``.
+    ``x = norm1(x); x = x + attn(x); x = x + mlp(norm2(x))``; its MLP is
+    ``mlp_ratio`` times as wide as the block (``decoder_expand_rate``).
+
+The port has one XL attention. The JAX package builds PaSST_SED's decoder
+with ``use_flash`` (the fused kernel) and HTSAT_CNN's without it (the
+unfused scores, ``models/htsat_heads.py:66-72``); the two compute the same
+function, so both families run the fused kernels here on the card (rows 2,
+12 and 13 of the kernel table) and their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -84,14 +91,14 @@ class RelPositionMultiheadAttention(nn.Module):
 
 
 class TransformerXLBlock(nn.Module):
-    """XL block with the reference's residual wiring; MLP ratio 1."""
+    """XL block with the reference's residual wiring."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.0, dtype=torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = RelPositionMultiheadAttention(dim, num_heads, dtype=dtype)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, dim, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x, pos_emb):
         x = self.norm1(x)
@@ -103,11 +110,12 @@ class TransformerXLDecoder(nn.Module):
     """Stack of XL blocks over the frame sequence."""
 
     def __init__(self, dim: int, decoder_layer_num: int = 2, num_heads: int = 12,
-                 seq_len: int = 1000, dtype=torch.float32):
+                 seq_len: int = 1000, mlp_ratio: float = 1.0, dtype=torch.float32):
         super().__init__()
         self.seq_len = seq_len
         self.encoder_blocks = nn.ModuleList(
-            TransformerXLBlock(dim, num_heads, dtype=dtype) for _ in range(decoder_layer_num)
+            TransformerXLBlock(dim, num_heads, mlp_ratio, dtype=dtype)
+            for _ in range(decoder_layer_num)
         )
         self.register_buffer(
             "pe", torch.from_numpy(rel_positional_encoding(seq_len, dim)), persistent=False

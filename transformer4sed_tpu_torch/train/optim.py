@@ -8,16 +8,21 @@ torch ``state_dict`` names:
   * 'encoder' (backbone) with optional step-LR: the top-N blocks and the
     final backbone norm train at 2x the encoder LR;
   * 'decoder' (decoder / f-pool / projector modules);
+  * 'cnn' (the CNN branch, when the config gives it its own group;
+    otherwise it falls to 'head');
   * 'head' (everything else);
   * lr <= 0 or freeze_layer -> 'frozen': left out of the optimizer.
 
 Each live group is ``torch.optim.AdamW`` (betas (0.9, 0.999), eps 1e-8) at
 its own base LR, all scaled by one ``LambdaLR`` schedule. Global-norm
 clipping (:func:`clip_by_global_norm`) runs before the step over the live
-params only, and with optax's arithmetic. ``child_tuning``, gradient
-accumulation, and the extra groups of the AudioSet and LoRA policies (cnn,
-at_decoder, query, lora) are not ported yet: they come with those training
-paths and model families (ROADMAP.md, queue 1).
+params only, and with optax's arithmetic. The hierarchical HTSAT backbone
+names its blocks ``layers.{i}.blocks.{j}`` (``layers_{i}_blocks_{j}`` in
+the JAX package): ``freeze_layer`` and ``step_lr`` count them in depth
+order over the whole network. ``child_tuning``, gradient accumulation,
+and the remaining groups of the AudioSet and LoRA policies (at_decoder,
+query, lora) are not ported yet: they come with those training paths and
+model families (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ class ParamGroupConfig:
     encoder: GroupSpec = field(default_factory=GroupSpec)
     decoder: GroupSpec = field(default_factory=GroupSpec)
     head: GroupSpec = field(default_factory=GroupSpec)
+    # a separate LR for the CNN branch (the AudioSet recipes' policy); None
+    # folds it into decoder / head as before
+    cnn: Optional[GroupSpec] = None
     backbone_depth: int = 12
     clip_grad: float = 20.0
 
@@ -93,6 +101,8 @@ def label_params(names: Iterable[str], cfg: ParamGroupConfig) -> Dict[str, str]:
                         and depth - block_idx <= cfg.encoder.step_lr) or is_final_norm
                 return "encoder_high" if high else "encoder_low"
             return "encoder_low"
+        if cfg.cnn is not None and (name.startswith("cnn.") or ".cnn." in name):
+            return "frozen" if cfg.cnn.lr <= 0 else "cnn"
         for kw in _DECODER_KEYWORDS:
             if kw in name:
                 return "frozen" if cfg.decoder.lr <= 0 else "decoder"
@@ -102,12 +112,15 @@ def label_params(names: Iterable[str], cfg: ParamGroupConfig) -> Dict[str, str]:
 
 
 def _group_specs(cfg: ParamGroupConfig) -> Dict[str, Tuple[float, float]]:
-    return {
+    specs = {
         "encoder_low": (cfg.encoder.lr, cfg.encoder.weight_decay),
         "encoder_high": (cfg.encoder.lr * 2, cfg.encoder.weight_decay),
         "decoder": (cfg.decoder.lr, cfg.decoder.weight_decay),
         "head": (cfg.head.lr, cfg.head.weight_decay),
     }
+    if cfg.cnn is not None:
+        specs["cnn"] = (cfg.cnn.lr, cfg.cnn.weight_decay)
+    return specs
 
 
 def build_optimizer(model: nn.Module, cfg: ParamGroupConfig,
