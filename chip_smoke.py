@@ -4,9 +4,12 @@
     python3 chip_smoke.py                              # every phase, one card
     python3 chip_smoke.py --phases build,kernels,train # the short call after a kernel edit
     python3 chip_smoke.py --phases build,window_kernels  # the Swin window kernels alone
+    python3 chip_smoke.py --phases build,hm_kernels      # the head-major XL kernels alone
+    python3 chip_smoke.py --phases build,pmam_serve,pmam_train  # the PMAM paths, no timing
 
-Two model families run: the MAT-SED flagship (PaSST_SED, phases 3 to 6) and
-HTSAT_CNN (phases 9 to 12). Phases, in order; any failure exits non-zero:
+Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, and its
+MLM pretrain step, phases 17 and 18), HTSAT_CNN (phases 9 to 12) and PMAM's
+PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
@@ -20,7 +23,13 @@ HTSAT_CNN (phases 9 to 12). Phases, in order; any failure exits non-zero:
      stage shapes at B=64, shifted and unshifted, with four more planted
      faults (head 0's bias for every head, window 0's shift mask for every
      window, head-dim lanes 24..31 read from the next head, a dbias that
-     misses the last window);
+     misses the last window); the head-major XL forward, LSE forward and
+     backward at PMAM's decoder shapes ([8, 12, 1000, 32] and [18, 12, 1000,
+     32], strided views of [B, T, 3*384] projections), on ragged and banded
+     cases, at head dim 64 and once at [2, 12, 3000, 64], with five more
+     planted faults (qv read for qu, k's head stride taken as its row stride,
+     a band one key wider, dqu and dqv swapped, a dP that misses the last
+     batch);
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
      flagship (PaSST 768/12/12 tapped at layer 10, 3-layer Transformer-XL
@@ -61,9 +70,34 @@ HTSAT_CNN (phases 9 to 12). Phases, in order; any failure exits non-zero:
      moved;
  12. HTSAT_CNN train parity: 3 steps at B=4 with augmentation and dropout
      off, CPU f32 against card bf16, held as in phase 6;
-then, inside phases 7 and 8, the window kernels' times beside their bound,
-plain versions and SDPA, and HTSAT_CNN's served clips/s, train steps/s, peak
-memory and profiles.
+ 13. serve 20 synthetic 10-s clips (8, 8 and a ragged 4) through
+     ``InferenceEngine`` with the full-width PaSST_CNN of
+     config/pmam/finetune1.yaml (PaSST 768/12/12 tapped at layer 10, attention
+     f-pool, the ten-layer BatchNorm CNN, 3-layer Transformer-XL at T=1000,
+     384 wide with 12 heads of 32, AT adapter, 10 DESED classes), bf16:
+     shapes, finiteness, events, and per batch 12 flash and 3 head-major XL
+     launches and none of the head-dim-64 XL kernel;
+ 14. the same weights on 2 clips in eval mode, CPU f32 against card bf16;
+ 15. two mean-teacher steps of PaSST_CNN at the config's B=18 (strong 6 |
+     weak 6 | unlabeled 6) with its loss weights, transform, param groups
+     (backbone blocks 0 to 7 frozen) and CNN dropout: finite losses, per step
+     the teacher's 12 and 3 forwards, the student's 12 flash and 3 head-major
+     XL LSE forwards and backwards, none of the head-dim-64 XL kernels, and
+     running statistics of both models that moved, each its own;
+ 16. PMAM train parity: 3 steps at B=3 with augmentation and dropout off, CPU
+     f32 against card bf16, held as in phase 6;
+ 17. two MLM pretrain steps of the flagship with ``mlm=True`` at B=24
+     (config/mat-sed/pretrain.yaml: block masking of 75 %, one filt_aug view,
+     the encoder group frozen): a finite non-zero loss, a masked share of
+     0.76, per step 3 head-dim-64 XL LSE forwards and backwards, 12 flash LSE
+     forwards and 10 flash backwards (blocks 11 and 12 feed no MLM output),
+     an unchanged encoder;
+ 18. MLM train parity: 3 steps at B=3 with shift and views off and the mask
+     drawn alike, CPU f32 against card bf16, held as in phase 6;
+then, inside phases 7 and 8, the window and head-major XL kernels' times beside
+their bounds and plain versions (and SDPA for the window kernels), and
+HTSAT_CNN's and PMAM's served clips/s, the train steps/s of HTSAT_CNN, PMAM
+and MLM, peak memory and profiles.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
@@ -81,9 +115,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "htsat_serve",
-          "htsat_parity", "htsat_train", "htsat_train_parity", "timing", "profile")
+          "htsat_parity", "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity",
+          "pmam_train", "pmam_train_parity", "mlm_train", "mlm_train_parity", "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
-SUB_PHASES = ("window_kernels", "htsat_timing")
+SUB_PHASES = ("window_kernels", "hm_kernels", "htsat_timing", "pmam_timing")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -225,7 +260,8 @@ def kernel_wrappers():
 
     fns = (fa.flash_attention_nhd, xa.flash_xl_attention_nhd, fa.flash_attention_nhd_lse,
            fa.flash_attention_nhd_backward, xa.flash_xl_attention_nhd_lse,
-           xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward)
+           xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward,
+           xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward)
     return {f.__name__: f for f in fns}
 
 
@@ -326,6 +362,7 @@ def check_kernels(results):
                                  ref_abs_v)[0])
     check_train_kernels(results, rejected)
     check_window_kernels(results, rejected)
+    check_hm_kernels(results, rejected)
     check(not any(rejected), "the kernel check let a planted fault through")
     log(f"all {len(rejected)} planted faults fall outside the bound")
 
@@ -353,35 +390,18 @@ def flash_bwd_terms(q, k, v, o, lse, do, h):
 
 
 def xl_bwd_terms(q, k, v, bu, bv, p, o, lse, do, h, scale, band):
-    """The XL backward's products on absolute values: scale (|dS||K| +
-    unshift|dS| |P|) for dq, scale |dS|^T |q+u| for dk, A^T |dO| for dv,
-    their (b, t) sums for the bias gradients, scale unshift|dS|^T |q+v|
-    summed over batch for dP."""
-    import torch
+    """The XL backward's products on absolute values (:func:`hm_bwd_terms` on
+    the head-major views): scale (|dS||K| + unshift|dS| |P|) for dq, scale
+    |dS|^T |q+u| for dk, A^T |dO| for dv, the (b, t) sums of dq's two parts
+    for the bias gradients, scale unshift|dS|^T |q+v| summed over batch for dP."""
+    from transformer4sed_tpu_torch.kernels.flash_attention import _merge_heads, _split_heads
+    from transformer4sed_tpu_torch.kernels.xl_attention import add_pos_bias
 
-    from transformer4sed_tpu_torch.kernels.flash_attention import (
-        _merge_heads,
-        _split_heads,
-        row_delta,
-    )
-    from transformer4sed_tpu_torch.kernels.xl_attention import _scores, rel_unshift
-
-    qu, qv, kh, scores, mask = _scores(q, k.float(), bu, bv, p.float(), h, scale, band)
-    a = torch.exp(scores - lse[..., None])
-    if mask is not None:
-        a = a.masked_fill(mask[None], 0.0)
-    vh, doh = _split_heads(v.float(), h), _split_heads(do.float(), h)
-    ads = (a * (torch.matmul(doh, vh.transpose(-1, -2)) - row_delta(o, do, h)[..., None])).abs()
-    ads += F32_DOT * a * (torch.matmul(doh.abs(), vh.abs().transpose(-1, -2))
-                          + row_delta(o.abs(), do.abs(), h)[..., None])
-    skew = rel_unshift(ads)
-    dqu = torch.matmul(ads, kh.abs()) * scale
-    dqv = torch.matmul(skew, p.float().abs()[None]) * scale
-    return (_merge_heads(dqu + dqv),
-            _merge_heads(torch.matmul(ads.transpose(-1, -2), qu.float().abs())) * scale,
-            _merge_heads(torch.matmul(a.transpose(-1, -2), doh.abs())),
-            dqu.sum((0, 2)), dqv.sum((0, 2)),
-            torch.matmul(skew.transpose(-1, -2), qv.float().abs()).sum(0) * scale)
+    qu, qv = add_pos_bias(q, bu, bv, h)
+    dqu, dqv, dk, dv, dp = hm_bwd_terms(qu, qv, *(_split_heads(x, h) for x in (k, v)), p,
+                                        _split_heads(o, h), lse, _split_heads(do, h), scale, band)
+    return (_merge_heads(dqu + dqv), _merge_heads(dk), _merge_heads(dv), dqu.sum((0, 2)),
+            dqv.sum((0, 2)), dp)
 
 
 def grad_output(shape, seed):
@@ -655,6 +675,162 @@ def check_window_kernels(results, rejected):
     results["window_attention_backward"]["max_abs_err"] = worst_bwd
 
 
+# -- phase 2, rows 9, 10 and 11: head-major XL attention ------------------------------
+
+# PMAM's decoder (config/pmam/finetune1.yaml): 384 wide, 12 heads of 32, T=1000;
+# served at B=8, trained at B=18 (training.batch_size [4, 2, 6, 6])
+PMAM_HEADS, PMAM_HEAD_DIM, PMAM_SERVE_BATCH, PMAM_TRAIN_BATCH = 12, 32, 8, 18
+
+
+def hm_inputs(b, t, h, d, seed):
+    """(qu, qv, k, v, p) as ``flash_xl_attention_nhd`` hands them to the
+    head-major kernels: k and v strided [B, H, T, d] views of one bf16
+    [B, T, 3*H*d] projection, qu and qv the q slice plus each f32 bias
+    rounded to bf16, p a [2T-1, H*d] projection viewed as [H, 2T-1, d]."""
+    from transformer4sed_tpu_torch.kernels.flash_attention import _split_heads
+    from transformer4sed_tpu_torch.kernels.xl_attention import add_pos_bias
+
+    q, k, v, bu, bv, p = xl_inputs(b, t, h * d, h, seed)
+    qu, qv = add_pos_bias(q, bu, bv, h)
+    return qu, qv, _split_heads(k, h), _split_heads(v, h), p
+
+
+def hm_bwd_terms(qu, qv, k, v, p, o, lse, do, scale, band):
+    """The head-major backward's products on absolute values: scale |dS||K|
+    for dqu, scale unshift|dS| |P| for dqv, scale |dS|^T |qu| for dk,
+    A^T |dO| for dv, and scale unshift|dS|^T |qv| summed over batch for dP."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.xl_attention import _hm_scores, rel_unshift
+
+    scores, mask = _hm_scores(qu, qv, k.float(), p.float(), scale, band)
+    a = torch.exp(scores - lse[..., None])
+    del scores
+    if mask is not None:
+        a = a.masked_fill(mask[None], 0.0)
+    vf, dof = v.float(), do.float()
+    ads = (a * (torch.matmul(dof, vf.transpose(-1, -2))
+                - (dof * o.float()).sum(-1)[..., None])).abs()
+    ads += F32_DOT * a * (torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+                          + (dof.abs() * o.float().abs()).sum(-1)[..., None])
+    skew = rel_unshift(ads)
+    return (torch.matmul(ads, k.float().abs()) * scale,
+            torch.matmul(skew, p.float().abs()[None]) * scale,
+            torch.matmul(ads.transpose(-1, -2), qu.float().abs()) * scale,
+            torch.matmul(a.transpose(-1, -2), dof.abs()),
+            torch.matmul(skew.transpose(-1, -2), qv.float().abs()).sum(0) * scale)
+
+
+def check_hm_kernels(results, rejected):
+    """Rows 9, 10 and 11 against their plain versions in f32 on the same bf16
+    inputs: at PMAM's decoder shapes ([8, 12, 1000, 32] served, [18, 12, 1000,
+    32] trained) from strided views of [B, T, 3*384] projections, on small
+    ragged and banded cases, at head dim 64, and the forward once at
+    [2, 12, 3000, 64] (the 30-s PaSST variant's decoder length); the backward
+    is fed the kernel forward's own o and lse, and its dP is held to the bf16
+    bound plus an f32-sum term. Then five planted faults: qv
+    read for qu, k's head stride taken as its row stride, a band one key
+    wider, dqu and dqv swapped, and a dP that misses the last batch."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        flash_xl_attention,
+        flash_xl_attention_backward,
+        flash_xl_attention_backward_reference,
+        flash_xl_attention_lse,
+        flash_xl_attention_lse_reference,
+        flash_xl_attention_reference,
+    )
+
+    h, d = PMAM_HEADS, PMAM_HEAD_DIM
+    pmam_band = (1, 2, 5, 16, 31, 64, 100, 128, 255, 500, 999, 2000)
+    cases = [  # (b, t, h, d, band, main path?)
+        (PMAM_SERVE_BATCH, 1000, h, d, None, True),
+        (PMAM_SERVE_BATCH, 1000, h, d, pmam_band, False),
+        (2, 77, h, d, None, False),
+        (1, 130, 4, 32, (3, 20, 1, 260), False),
+        (2, 203, 6, 64, (7, 64, 1, 500, 33, 128), False),
+        (2, 3000, 12, 64, None, False),
+    ]
+    for b, t, hh, dd, band, main in cases:
+        tag = f"B={b} H={hh} T={t} d={dd} band={band}"
+        qu, qv, k, v, p = hm_inputs(b, t, hh, dd, seed=t)
+        scale = dd ** -0.5
+
+        def ref_of(vv, widths=band):
+            return flash_xl_attention_reference(qu, qv, k.float(), vv, p.float(), scale, widths)
+
+        ref, ref_abs_v = ref_of(v.float()), ref_of(v.float().abs())
+        out = flash_xl_attention(qu, qv, k, v, p, scale, band)
+        check(out.shape == qu.shape and out.transpose(1, 2).is_contiguous(),
+              "flash_xl_attention returns a [B, H, T, d] view of a [B, T, H, d] buffer")
+        ok, mx = held(f"kernel flash_xl_attention {tag}", out, ref, ref_abs_v)
+        check(ok, "flash_xl_attention disagrees with its plain version")
+        if main:
+            results["flash_xl_attention"]["max_abs_err"] = mx
+            out = flash_xl_attention(qv, qv, k, v, p, scale)
+            rejected.append(held("planted fault: qv read for qu", out, ref, ref_abs_v)[0])
+            s = k.stride()  # [B, H, T, d]: the head and the row stride change places
+            bad_k = k.as_strided(k.shape, (s[0], s[2], s[1], s[3]), k.storage_offset())
+            out = flash_xl_attention(qu, qv, bad_k, v, p, scale)
+            rejected.append(held("planted fault: k's head stride taken as its row stride", out,
+                                 ref, ref_abs_v)[0])
+        if band == pmam_band:
+            wider = tuple(w + 2 for w in band)
+            out = flash_xl_attention(qu, qv, k, v, p, scale, wider)
+            rejected.append(held("planted fault: band one key wider each side", out, ref,
+                                 ref_abs_v)[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+
+    names = ("dqu", "dqv", "dk", "dv", "dP")
+    cases = [
+        (PMAM_TRAIN_BATCH, 1000, h, d, None, True),
+        (2, 77, h, d, None, False),
+        (1, 130, 4, 32, (3, 20, 1, 260), False),
+        (2, 203, 6, 64, (7, 64, 1, 500, 33, 128), False),
+    ]
+    for b, t, hh, dd, band, main in cases:
+        tag = f"B={b} H={hh} T={t} d={dd} band={band}"
+        qu, qv, k, v, p = hm_inputs(b, t, hh, dd, seed=t + 1)
+        scale = dd ** -0.5
+        # dO as autograd hands it over: the gradient of the merged [B, T, H*d] output
+        do = grad_output((b, t, hh, dd), seed=t + 2).permute(0, 2, 1, 3)
+        out, lse = flash_xl_attention_lse(qu, qv, k, v, p, scale, band)
+
+        def ref_fwd(vv):
+            return flash_xl_attention_lse_reference(qu, qv, k.float(), vv, p.float(), scale, band)
+
+        ref, ref_lse = ref_fwd(v.float())
+        ok_o, mx_o = held(f"kernel flash_xl_attention_lse {tag} out", out, ref,
+                          ref_fwd(v.float().abs())[0])
+        ok_l, mx_l = lse_held(f"kernel flash_xl_attention_lse {tag}", lse, ref_lse)
+        check(ok_o and ok_l, "flash_xl_attention_lse disagrees with its plain version")
+        del ref, ref_lse
+        refs = flash_xl_attention_backward_reference(qu, qv, k.float(), v.float(), p.float(),
+                                                     out.float(), lse, do.float(), scale, band)
+        terms = list(hm_bwd_terms(qu, qv, k, v, p, out, lse, do, scale, band))
+        # dP is an f32 sum of B * T products an element, added in an order that
+        # changes from run to run (atomics): its worst case, 2^-24 * B * T times
+        # the sum of |terms| (Higham), joins the bf16 bound, in units of u
+        terms[4] = terms[4] * (1.0 + 2.0 ** -24 * b * t / BF16_U)
+        grads = flash_xl_attention_backward(qu, qv, k, v, p, out, lse, do, scale, band)
+        ok, mx = held_all(f"kernel flash_xl_attention_backward {tag}", names, grads, refs, terms)
+        check(ok, "flash_xl_attention_backward disagrees with its plain version")
+        if main:
+            results["flash_xl_attention_lse"]["max_abs_err"] = max(mx_o, mx_l)
+            results["flash_xl_attention_backward"]["max_abs_err"] = mx
+            swapped = (grads[1], grads[0]) + tuple(grads[2:])
+            rejected.append(held_all("planted fault: dqu and dqv swapped", names, swapped, refs,
+                                     terms)[0])
+            bad = flash_xl_attention_backward(qu[:-1], qv[:-1], k[:-1], v[:-1], p, out[:-1],
+                                              lse[:-1].contiguous(), do[:-1], scale)
+            rejected.append(held("planted fault: dP misses the last batch", bad[4], refs[4],
+                                 terms[4])[0])
+        del refs, terms, grads
+        torch.cuda.empty_cache()
+
+
 # -- phases 3 and 4: the served flagship ------------------------------------------
 
 def desed_labels():
@@ -759,12 +935,14 @@ def serve(engine, results):
     return batches
 
 
-def parity(card_engine, batches):
+def parity(card_engine, batches, build=None, what="flagship"):
+    """The same weights on 2 clips in eval mode: CPU f32 (plain versions)
+    against the card's bf16 (kernels), on strong, weak and at_out."""
     import numpy as np
     import torch
 
     state = {k: v.detach().cpu() for k, v in card_engine.model.state_dict().items()}
-    cpu_engine = build_engine("cpu", torch.float32, state_dict=state)
+    cpu_engine = (build or build_engine)("cpu", torch.float32, state_dict=state)
     wav = torch.from_numpy(batches[0]["wav"][4:6].copy())  # clip 5 is the short one
     pm = torch.from_numpy(batches[0]["pad_mask"][4:6].copy())
     outs = {}
@@ -777,8 +955,8 @@ def parity(card_engine, batches):
     for key in ("strong", "weak", "at_out"):
         diff = float(np.abs(outs["cpu_f32"][key] - outs["card_bf16"][key]).max())
         worst = max(worst, diff)
-        log(f"card bf16 vs CPU f32 {key}: max_abs_diff {diff:.4e} (tol {DTYPE_MAX_ABS})")
-    check(worst <= DTYPE_MAX_ABS, "the card's path disagrees with the CPU f32 path")
+        log(f"{what} card bf16 vs CPU f32 {key}: max_abs_diff {diff:.4e} (tol {DTYPE_MAX_ABS})")
+    check(worst <= DTYPE_MAX_ABS, f"{what}: the card's path disagrees with the CPU f32 path")
 
 
 # -- phases 5 and 6: the train step ---------------------------------------------
@@ -880,50 +1058,65 @@ def train(results):
     return trainer, batch
 
 
-def train_parity():
-    """The same weights, PARITY_STEPS steps at B=3 without augmentation on
-    the CPU in f32 (plain versions) and on the card in bf16 (kernels): loss
-    trajectories, then the gradient at the CPU's end state in both."""
+def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
+    """The same weights, ``steps`` steps on the CPU in f32 (plain versions)
+    and on the card in bf16 (kernels), each step's draws from a generator
+    seeded alike on both: loss trajectories, then the gradient at the CPU's
+    end state in both, held to the JAX package's bf16-vs-f32 bounds.
+    ``modules(trainer)`` lists the modules that hold a trainer's state, the
+    differentiated one first; params the loss does not read have no gradient
+    on either side."""
     import numpy as np
+    import torch
+
+    losses = {"cpu_f32": [], "card_bf16": []}
+    for i in range(steps):
+        for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+            t0 = time.perf_counter()
+            values = finite_metrics(trainer.step(batch, torch.Generator().manual_seed(10 + i)))
+            losses[name].append(values[loss_key])
+            log(f"{what} parity step {i} {name}: {loss_key} {values[loss_key]:.6f}, grad_norm "
+                f"{values['grad_norm']:.4f} ({time.perf_counter() - t0:.1f} s)")
+    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
+    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
+    log(f"{what} train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
+        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
+        f"(limit {TRAIN_LOSS_REL_MAX})")
+    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
+          f"{what}: the card's bf16 loss trajectory leaves the f32 one")
+
+    for ours, theirs in zip(modules(card), modules(cpu)):
+        ours.load_state_dict(theirs.state_dict())
+    card.step_count = cpu.step_count
+    grads = {}
+    for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+        trainer.forward_backward(batch, torch.Generator().manual_seed(20))
+        grads[name] = {k: p.grad.detach().double().flatten().cpu()
+                       for k, p in modules(trainer)[0].named_parameters() if p.grad is not None}
+    check(grads["cpu_f32"].keys() == grads["card_bf16"].keys() and grads["cpu_f32"],
+          f"{what}: the two sides give gradients to different params")
+    g32, g16 = (torch.cat(list(grads[name].values())) for name in ("cpu_f32", "card_bf16"))
+    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
+    ratio = float(g16.norm() / (g32.norm() + 1e-30))
+    log(f"{what} train parity: gradient at the f32 end state over {len(grads['cpu_f32'])} "
+        f"params, cosine {cos:.6f} (limit {TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits "
+        f"{TRAIN_GRAD_RATIO}), |g| f32 {float(g32.norm()):.5f}")
+    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
+          f"{what}: the card's bf16 gradient disagrees with the f32 one")
+
+
+def train_parity():
+    """The flagship's mean-teacher step: PARITY_STEPS steps at B=3 without
+    augmentation, CPU f32 against card bf16 (:func:`trainer_parity`)."""
     import torch
 
     cpu = build_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False)
     card = build_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
                          state_dict=cpu.student.state_dict())
-    batch = synthetic_train_batch(PARITY_SPLIT, seed=4)
-    losses = {"cpu_f32": [], "card_bf16": []}
-    for i in range(PARITY_STEPS):
-        for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
-            t0 = time.perf_counter()
-            values = finite_metrics(trainer.step(batch, torch.Generator().manual_seed(10 + i)))
-            losses[name].append(values["loss_total"])
-            log(f"parity step {i} {name}: loss_total {values['loss_total']:.6f} "
-                f"({time.perf_counter() - t0:.1f} s)")
-    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
-    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
-    log(f"train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
-        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
-        f"(limit {TRAIN_LOSS_REL_MAX})")
-    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
-          "the card's bf16 loss trajectory leaves the f32 one")
-
-    card.student.load_state_dict(cpu.student.state_dict())
-    card.teacher.load_state_dict(cpu.teacher.state_dict())
-    card.step_count = cpu.step_count
-    flat = {}
-    for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
-        trainer.forward_backward(batch, torch.Generator().manual_seed(20))
-        params = list(trainer.student.parameters())
-        check(all(p.grad is not None for p in params), f"{name}: a param got no gradient")
-        flat[name] = torch.cat([p.grad.detach().double().flatten().cpu() for p in params])
-    g32, g16 = flat["cpu_f32"], flat["card_bf16"]
-    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
-    ratio = float(g16.norm() / (g32.norm() + 1e-30))
-    log(f"train parity: gradient at the f32 end state, cosine {cos:.6f} (limit "
-        f"{TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits {TRAIN_GRAD_RATIO}), "
-        f"|g| f32 {float(g32.norm()):.5f}")
-    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
-          "the card's bf16 gradient disagrees with the f32 one")
+    params = list(cpu.student.parameters())
+    trainer_parity("flagship", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=4),
+                   PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
+    check(all(p.grad is not None for p in params), "flagship: a param got no gradient")
 
 
 # -- the HTSAT_CNN family: serving and the supervised train step -------------------
@@ -1127,48 +1320,286 @@ def htsat_train(results):
 
 
 def htsat_train_parity():
-    """The same weights, HTSAT_PARITY_STEPS supervised steps at B=4 with
-    augmentation and dropout off on the CPU in f32 (plain versions) and on
-    the card in bf16 (kernels): loss trajectories, then the gradient at the
-    CPU's end state in both, as :func:`train_parity` holds the flagship."""
-    import numpy as np
+    """HTSAT_CNN's supervised step: HTSAT_PARITY_STEPS steps at B=4 with
+    augmentation and dropout off, CPU f32 against card bf16
+    (:func:`trainer_parity`)."""
     import torch
 
     cpu = build_supervised("cpu", torch.float32, augment=False, dropout=False)
     card = build_supervised("cuda", torch.bfloat16, augment=False, dropout=False,
                             state_dict=cpu.model.state_dict())
-    batch = synthetic_audioset_batch(HTSAT_PARITY_BATCH, seed=9)
-    losses = {"cpu_f32": [], "card_bf16": []}
-    for i in range(HTSAT_PARITY_STEPS):
-        for name, stepper in (("cpu_f32", cpu), ("card_bf16", card)):
-            t0 = time.perf_counter()
-            values = finite_metrics(stepper.step(batch, torch.Generator().manual_seed(10 + i)))
-            losses[name].append(values["loss_class_strong"])
-            log(f"HTSAT_CNN parity step {i} {name}: loss {values['loss_class_strong']:.6f}, "
-                f"grad_norm {values['grad_norm']:.4f} ({time.perf_counter() - t0:.1f} s)")
-    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
-    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
-    log(f"HTSAT_CNN train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
-        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
-        f"(limit {TRAIN_LOSS_REL_MAX})")
-    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
-          "HTSAT_CNN: the card's bf16 loss trajectory leaves the f32 one")
+    trainer_parity("HTSAT_CNN", cpu, card, synthetic_audioset_batch(HTSAT_PARITY_BATCH, seed=9),
+                   HTSAT_PARITY_STEPS, "loss_class_strong", lambda t: (t.model,))
+    check(all(p.grad is not None for p in cpu.model.parameters()),
+          "HTSAT_CNN: a param got no gradient")
 
-    card.model.load_state_dict(cpu.model.state_dict())
-    flat = {}
-    for name, stepper in (("cpu_f32", cpu), ("card_bf16", card)):
-        stepper.forward_backward(batch, torch.Generator().manual_seed(20))
-        params = list(stepper.model.parameters())
-        check(all(p.grad is not None for p in params), f"{name}: a param got no gradient")
-        flat[name] = torch.cat([p.grad.detach().double().flatten().cpu() for p in params])
-    g32, g16 = flat["cpu_f32"], flat["card_bf16"]
-    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
-    ratio = float(g16.norm() / (g32.norm() + 1e-30))
-    log(f"HTSAT_CNN train parity: gradient at the f32 end state, cosine {cos:.6f} (limit "
-        f"{TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits {TRAIN_GRAD_RATIO}), "
-        f"|g| f32 {float(g32.norm()):.5f}")
-    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
-          "HTSAT_CNN: the card's bf16 gradient disagrees with the f32 one")
+
+# -- the PMAM network (PaSST_CNN): serving and the mean-teacher step ------------------
+
+# config/pmam/finetune1.yaml (PyYAML is absent on the card's machine, so its
+# values stand here): PaSST_CNN.init_kwargs (the loader drops f_pool_heads and
+# renames cnn_param's kernel / pad), training.*, test_kwargs, opt.param_groups
+PMAM_CFG = dict(
+    class_num=10, passt_feature_layer=10, f_pool="attention", at_adapter=True,
+    decoder="transformerXL", decoder_layer_num=3, decoder_pos_emd_len=1000, decoder_dim=384,
+    cnn_name="base",
+    cnn_param=dict(
+        activation="cg", conv_dropout=0.5, kernel_size=[3] * 10, padding=[1] * 10,
+        stride=[1] * 10, nb_filters=[16, 16, 32, 32, 64, 64, 128, 128, 256, 384],
+        pooling=[[2, 2], [1, 1], [2, 2], [1, 1], [1, 2], [1, 2], [1, 2], [1, 2], [1, 2], [1, 1]]),
+)
+PMAM_TEST_KWARGS = {"temp_w": 0.5}
+# training.batch_size [4, 2, 6, 6] = strong, synth, weak, unlabeled; the recipe
+# folds synth into strong (recipes/matsed.py:79-81): strong 6 | weak 6 | unlabeled 6
+PMAM_SPLIT = (6, 6, 6)
+PMAM_MT = dict(
+    w_weak=0.5, w_weak_cons=0.5, w_at=2.0, w_cons_max=2.0, w_cons_min=0.0,
+    cons_scheduler="Linear", ema_factor=0.999, n_transform=2, transform_choice=(1, 0, 0, 1),
+    filter_db_range=(-26, 26), filter_bands=(2, 5), filter_minimum_bandwidth=4,
+    filter_type="step", self_loss_warmup_steps=8 * 100,  # self_loss_warmup epochs x steps
+    stu_kwargs={"temp_w": 1}, tch_kwargs={"temp_w": 1})
+PMAM_OPT = dict(encoder=dict(lr=5.0e-6, weight_decay=1.0e-4, freeze_layer=8, step_lr=0),
+                decoder=dict(lr=1.5e-4, weight_decay=1.0e-4),
+                head=dict(lr=2.0e-4, weight_decay=1.0e-4))
+PMAM_TRAIN_STEPS = 2
+# launches per served batch: 12 backbone blocks, 3 decoder blocks of 12 heads of 32
+PMAM_SERVE_LAUNCHES = dict(flash_attention_nhd=12, flash_xl_attention=3)
+# per train step: the teacher's forwards as served; the student's LSE forwards
+# and backwards. freeze_layer 8 leaves blocks 0..7 out of the optimizer, but the
+# port, like the JAX step, differentiates all twelve and drops their gradients
+PMAM_TRAIN_LAUNCHES = dict(flash_attention_nhd=12, flash_xl_attention=3,
+                           flash_attention_nhd_lse=12, flash_attention_nhd_backward=12,
+                           flash_xl_attention_lse=3, flash_xl_attention_backward=3)
+
+
+def build_pmam_model(device, dtype, state_dict=None, **cnn_overrides):
+    from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    cfg = dict(PMAM_CFG)
+    cfg["cnn_param"] = dict(cfg["cnn_param"], **cnn_overrides)
+    model = PaSST_CNN(**cfg, dtype=dtype, device="cpu")
+    if state_dict is None:
+        init_weights_(model, seed=0)
+    else:
+        model.load_state_dict(state_dict)
+    return model.to(device)
+
+
+def build_pmam_engine(device, dtype, state_dict=None):
+    from transformer4sed_tpu_torch.core.codec import LabelCodec
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    codec = LabelCodec(desed_labels(), audio_len=10.0, frame_len=1024, frame_hop=320,
+                       net_pooling=1, sr=SR)
+    model = build_pmam_model(device, dtype, state_dict)
+    check(model.decoder.encoder_blocks[0].attn.pos_bias_u.shape == (12, 32),
+          "PMAM's decoder has 12 heads of 32")
+    widths = [int(w / 156 * codec.n_frames) for w in MEDIAN_WINDOW]
+    return InferenceEngine(model.eval(), PasstFrontend(device=device), codec, widths,
+                           batch_size=8, threshold=0.5, model_kwargs=PMAM_TEST_KWARGS,
+                           device=device)
+
+
+def pmam_serve(engine, results):
+    """20 synthetic 10-s clips (8, 8 and a ragged 4) through ``InferenceEngine``
+    with the full-width PaSST_CNN: shapes, finiteness, events, launch counts."""
+    import numpy as np
+
+    batches = make_batches(synthetic_clips(20, seed=11), engine.codec, 8)
+    reset_launches()
+    served = list(engine.score_batches(batches))
+    launches = read_launches()
+    log(f"PMAM served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
+        f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update({k: n * len(batches) for k, n in PMAM_SERVE_LAUNCHES.items()})
+    check(launches == want, f"kernel launches {launches} on the PMAM served path, expected "
+                            f"{want} (12 flash and 3 head-major XL per batch, no d=64 XL)")
+    results["flash_xl_attention"]["launches"] = launches["flash_xl_attention"]
+    n_events = 0
+    for (names, scores, weak), batch in zip(served, batches):
+        check(names == batch["filename"], "results come back in order")
+        check(scores.shape == (len(names), 1000, 10) and weak.shape == (len(names), 10),
+              f"output shapes {scores.shape}, {weak.shape}")
+        check(np.all(np.isfinite(scores)) and np.all(np.isfinite(weak)), "finite outputs")
+        check(np.all((scores >= 0) & (scores <= 1)) and np.all((weak > 0) & (weak <= 1)),
+              "probabilities in [0, 1]")
+        for i in range(len(names)):
+            for label, onset, offset in engine.decode(scores[i]):
+                check(label in engine.codec.labels and 0.0 <= onset < offset <= 10.0,
+                      f"event {label, onset, offset}")
+                n_events += 1
+    short = served[0][1][5]  # 6.5-s clip: frames from 650 are padding
+    check(np.all(short[650 + max(engine.median_filter) // 2:] == 0.0), "padded frames are zero")
+    log(f"PMAM decoded {n_events} events; scores finite in [0, 1]; padded frames zero")
+    return batches
+
+
+def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None):
+    """The recipe's mean-teacher trainer over PaSST_CNN: the config's loss
+    weights, transform and param groups, clip 20; ``augment=False`` turns mixup,
+    shift and views off, ``dropout=False`` the CNN's conv_dropout."""
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherConfig, MeanTeacherTrainer
+    from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
+
+    model = build_pmam_model(device, dtype, state_dict,
+                             **({} if dropout else {"conv_dropout": 0.0}))
+    s, w, u = split
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0, n_transform=0)
+    cfg = MeanTeacherConfig(strong_num=s, weak_num=w, unlabel_num=u, **{**PMAM_MT, **off})
+    groups = {k: GroupSpec(**v) for k, v in PMAM_OPT.items()}
+    return MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
+                              ParamGroupConfig(**groups, clip_grad=20.0))
+
+
+def running_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+
+
+def pmam_train(results):
+    """Mean-teacher steps of the full-width PaSST_CNN at the config's batch
+    (B=18) with its augmentation and CNN dropout; returns (trainer, batch)."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer = build_pmam_trainer("cuda", torch.bfloat16, PMAM_SPLIT, augment=True, dropout=True)
+    batch = synthetic_train_batch(PMAM_SPLIT, seed=12)
+    groups = sorted(set(trainer.labels.values()))
+    frozen = sum(v == "frozen" for v in trainer.labels.values())
+    log(f"built the PMAM trainer in {time.perf_counter() - t0:.1f} s; param groups {groups}, "
+        f"{frozen} of {len(trainer.labels)} params frozen")
+    check(groups == ["decoder", "encoder_low", "frozen", "head"], f"PMAM param groups {groups}")
+    before = [running_stats(m) for m in (trainer.student, trainer.teacher)]
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(PMAM_TRAIN_STEPS):
+        values = finite_metrics(trainer.step(batch, gen))
+        log(f"PMAM train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * PMAM_TRAIN_STEPS for k, n in PMAM_TRAIN_LAUNCHES.items()})
+    log(f"PMAM train launches over {PMAM_TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on the PMAM train path, expected {want}")
+    results["flash_xl_attention_lse"]["launches"] = launches["flash_xl_attention_lse"]
+    results["flash_xl_attention_backward"]["launches"] = launches["flash_xl_attention_backward"]
+    for who, model, was in zip(("student", "teacher"), (trainer.student, trainer.teacher), before):
+        now = running_stats(model)
+        check(len(was) == 20 and all(not torch.equal(now[k], v) for k, v in was.items()),
+              f"a BatchNorm running statistic of the {who} did not move")
+    stu, tch = (running_stats(m) for m in (trainer.student, trainer.teacher))
+    check(any(not torch.equal(stu[k], tch[k]) for k in stu),
+          "the teacher's running statistics are the student's")
+    log("all 20 running statistics of the student and of the teacher moved, each model's own")
+    return trainer, batch
+
+
+def pmam_train_parity():
+    """PMAM's mean-teacher step: PARITY_STEPS steps at B=3 with augmentation
+    and dropout off, CPU f32 against card bf16 (:func:`trainer_parity`)."""
+    import torch
+
+    cpu = build_pmam_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, dropout=False)
+    card = build_pmam_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False, dropout=False,
+                              state_dict=cpu.student.state_dict())
+    trainer_parity("PMAM", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=13), PARITY_STEPS,
+                   "loss_total", lambda t: (t.student, t.teacher))
+    check(all(p.grad is not None for p in cpu.student.parameters()),
+          "PMAM: a param got no gradient")
+
+
+# -- the MLM pretrain step of the flagship ---------------------------------------------
+
+# config/mat-sed/pretrain.yaml: PaSST_SED.init_kwargs, training.batch_size
+# [4, 4, 16] (three unlabeled-style sources, B=24), training.transform, opt
+MLM_CFG = dict(FLAGSHIP, at_adapter=False, mlm=True,
+               mlm_dict=dict(mask_rate=0.75, mask_style=(0.8, 0.1, 0.1), strategy="block",
+                             block_width=10, out_dim=768))
+MLM_BATCH = 24
+MLM_TRANSFORM = dict(transform_choice=(1, 0, 0, 0), filter_db_range=(-26, 26),
+                     filter_bands=(2, 5), filter_minimum_bandwidth=4, filter_type="step")
+MLM_OPT = dict(encoder=dict(lr=0.0, weight_decay=1.0e-4, freeze_layer=0, step_lr=0),
+               decoder=dict(lr=2.0e-4, weight_decay=1.0e-4),
+               head=dict(lr=2.0e-4, weight_decay=1.0e-4))
+MLM_TRAIN_STEPS = 2
+# block masking of 1000 frames: int(100 * 0.75) + 1 = 76 of the 100 segments
+MLM_MASKED_SHARE = 0.76
+# per step: the decoder's d=64 LSE forwards and backwards (rows 12, 13). The
+# encoder group is frozen (lr 0), but the target is not detached and the port,
+# like the JAX step, differentiates the backbone: every block runs its LSE
+# forward, and the ten blocks up to the tap run their backward (blocks 11 and
+# 12 feed only the final-norm tokens, which no MLM output reads)
+MLM_TRAIN_LAUNCHES = dict(flash_attention_nhd_lse=12, flash_attention_nhd_backward=10,
+                          flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
+
+
+def build_mlm_trainer(device, dtype, augment, state_dict=None):
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
+    from transformer4sed_tpu_torch.train.mlm import MLMConfig, MLMTrainer
+    from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    model = PaSST_SED(**MLM_CFG, dtype=dtype, device="cpu")
+    if state_dict is None:
+        init_weights_(model, seed=0)
+    else:
+        model.load_state_dict(state_dict)
+    model.to(device)
+    off = {} if augment else dict(max_shift_frame=0, transform_choice=(0, 0, 0, 0))
+    groups = {k: GroupSpec(**v) for k, v in MLM_OPT.items()}
+    return MLMTrainer(model, PasstFrontend(device=device), MLMConfig(**{**MLM_TRANSFORM, **off}),
+                      ParamGroupConfig(**groups, clip_grad=20.0))
+
+
+def mlm_train():
+    """MLM pretrain steps of the full-width flagship at B=24 with the
+    config's transform and the frozen encoder; returns (trainer, batch)."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer = build_mlm_trainer("cuda", torch.bfloat16, augment=True)
+    batch = {"wav": synthetic_train_batch((0, 0, MLM_BATCH), seed=14)["wav"]}
+    log(f"built the MLM trainer in {time.perf_counter() - t0:.1f} s; param groups "
+        f"{sorted(set(trainer.labels.values()))}")
+    encoder = {k: v.clone() for k, v in trainer.model.backbone.state_dict().items()}
+    head = trainer.model.mlm_mlp[2].weight.detach().clone()
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(MLM_TRAIN_STEPS):
+        values = finite_metrics(trainer.step(batch, gen))
+        log(f"MLM train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+        check(values["loss_mlm"] > 0, "the MLM loss is zero")
+        check(abs(values["masked_share"] - MLM_MASKED_SHARE) < 1e-6,
+              f"masked share {values['masked_share']}, expected {MLM_MASKED_SHARE}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * MLM_TRAIN_STEPS for k, n in MLM_TRAIN_LAUNCHES.items()})
+    log(f"MLM train launches over {MLM_TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on the MLM train path, expected {want}")
+    now = trainer.model.backbone.state_dict()
+    check(all(torch.equal(now[k], v) for k, v in encoder.items()),
+          "a param of the frozen encoder moved")
+    check(not torch.equal(trainer.model.mlm_mlp[2].weight, head), "the MLM head did not move")
+    log("the frozen encoder kept its weights; the decoder and the MLM head moved")
+    return trainer, batch
+
+
+def mlm_train_parity():
+    """The MLM step: PARITY_STEPS steps at B=3 with shift and views off, the
+    mask drawn from generators seeded alike, CPU f32 against card bf16
+    (:func:`trainer_parity`)."""
+    import torch
+
+    cpu = build_mlm_trainer("cpu", torch.float32, augment=False)
+    card = build_mlm_trainer("cuda", torch.bfloat16, augment=False,
+                             state_dict=cpu.model.state_dict())
+    batch = {"wav": synthetic_train_batch((0, 0, 3), seed=15)["wav"]}
+    trainer_parity("MLM", cpu, card, batch, PARITY_STEPS, "loss_mlm", lambda t: (t.model,))
 
 
 # -- phase 7: timing ------------------------------------------------------------
@@ -1211,6 +1642,7 @@ def time_kernels(results):
     bound(r, flops, nbytes)
     time_train_kernels(results)
     time_window_kernels(results)
+    time_hm_kernels(results)
     for name, r in results.items():
         log(f"time {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms), "
@@ -1349,6 +1781,58 @@ def time_window_kernels(results):
                 results[name].update(r)
         del out, sdpa, qh, kh, vh, am
         torch.cuda.empty_cache()
+
+
+def time_hm_kernels(results):
+    """Rows 9, 10 and 11 at PMAM's decoder shapes (row 9 at the served B=8,
+    rows 10 and 11 at the trained B=18), operands as the dispatch hands them
+    over (strided views), the backward as the autograd Function calls it
+    (with delta, workspace zeroing and casts); their plain versions. No one
+    PyTorch call computes relative-position attention: no library time."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        flash_xl_attention,
+        flash_xl_attention_backward,
+        flash_xl_attention_backward_reference,
+        flash_xl_attention_lse,
+        flash_xl_attention_lse_reference,
+        flash_xl_attention_reference,
+    )
+
+    h, d, t = PMAM_HEADS, PMAM_HEAD_DIM, 1000
+    scale = d ** -0.5
+    p_bytes = h * (2 * t - 1) * d * 2
+    b = PMAM_SERVE_BATCH
+    qu, qv, k, v, p = hm_inputs(b, t, h, d, seed=0)
+    r = results["flash_xl_attention"]
+    r["ms"] = cuda_ms(lambda: flash_xl_attention(qu, qv, k, v, p, scale))
+    r["plain_ms"] = cuda_ms(lambda: flash_xl_attention_reference(qu, qv, k, v, p, scale), iters=5)
+    r["library_ms"] = None
+    # content qu K^T, qv P^T at the T^2 needed offsets, A V; qu, qv, k, v, P in, o out
+    bound(r, 6.0 * b * h * t * t * d, 5.0 * b * h * t * d * 2 + p_bytes)
+
+    b = PMAM_TRAIN_BATCH
+    qu, qv, k, v, p = hm_inputs(b, t, h, d, seed=1)
+    do = grad_output((b, t, h, d), seed=2).permute(0, 2, 1, 3)
+    r = results["flash_xl_attention_lse"]
+    r["ms"] = cuda_ms(lambda: flash_xl_attention_lse(qu, qv, k, v, p, scale))
+    r["plain_ms"] = cuda_ms(lambda: flash_xl_attention_lse_reference(qu, qv, k, v, p, scale),
+                            iters=3)
+    r["library_ms"] = None
+    bound(r, 6.0 * b * h * t * t * d, 5.0 * b * h * t * d * 2 + p_bytes + b * h * t * 4)
+    o, lse = flash_xl_attention_lse(qu, qv, k, v, p, scale)
+    r = results["flash_xl_attention_backward"]
+    r["ms"] = cuda_ms(lambda: flash_xl_attention_backward(qu, qv, k, v, p, o, lse, do, scale))
+    r["plain_ms"] = cuda_ms(
+        lambda: flash_xl_attention_backward_reference(qu, qv, k, v, p, o, lse, do, scale),
+        iters=3)
+    r["library_ms"] = None
+    # eight products (content and position scores, dO V^T, dV, dK, dQu, dQv,
+    # dP); qu, qv, k, v, o, dO, P, lse in, dqu, dqv, dk, dv, dP out
+    bound(r, 16.0 * b * h * t * t * d, 10.0 * b * h * t * d * 2 + 2 * p_bytes + b * h * t * 4)
+    del o, lse
+    torch.cuda.empty_cache()
 
 
 def bound(r, flops, nbytes):
@@ -1545,15 +2029,33 @@ def main(argv=None) -> int:
             "source": "transformer4sed_tpu_torch/csrc/window_attention_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/window_attention.py:260",
         },
+        "flash_xl_attention": {
+            "name": "flash_xl_attention", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_hm.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:340",
+        },
+        "flash_xl_attention_lse": {
+            "name": "flash_xl_attention_lse", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_hm.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:410",
+        },
+        "flash_xl_attention_backward": {
+            "name": "flash_xl_attention_backward", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_hm_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:458",
+        },
     }
     if "kernels" in phases:
         t0 = time.perf_counter()
         check_kernels(results)
         torch.cuda.empty_cache()
         log(f"kernel check phase {time.perf_counter() - t0:.1f} s")
-    elif "window_kernels" in phases:
+    elif phases & {"window_kernels", "hm_kernels"}:
         rejected = []
-        check_window_kernels(results, rejected)
+        if "window_kernels" in phases:
+            check_window_kernels(results, rejected)
+        if "hm_kernels" in phases:
+            check_hm_kernels(results, rejected)
         check(not any(rejected), "the kernel check let a planted fault through")
         log(f"all {len(rejected)} planted faults fall outside the bound")
     engine = batches = None
@@ -1579,7 +2081,7 @@ def main(argv=None) -> int:
     if "timing" in phases:
         t0 = time.perf_counter()
         time_kernels(results)
-        batch_ms = time_serving(engine, batches, per_window=80)
+        batch_ms = time_serving(engine, batches, per_window=40)
         step_ms = time_training(trainer, train_batch)
         log(f"flagship timing phase {time.perf_counter() - t0:.1f} s")
         if "profile" in phases:
@@ -1620,6 +2122,53 @@ def main(argv=None) -> int:
         if phases & {"profile", "htsat_timing"}:
             profile_serving(h_engine, h_batches, h_batch_ms, what="HTSAT_CNN served")
             profile_training(stepper, h_train_batch, h_step_ms, what="HTSAT_CNN train")
+    del h_engine, stepper
+    torch.cuda.empty_cache()
+
+    p_engine = p_batches = None
+    if phases & {"pmam_serve", "pmam_parity", "timing", "profile", "pmam_timing"}:
+        t0 = time.perf_counter()
+        p_engine = build_pmam_engine("cuda", torch.bfloat16)
+        p_batches = pmam_serve(p_engine, results)
+        log(f"PMAM serve phase {time.perf_counter() - t0:.1f} s")
+    if "pmam_parity" in phases:
+        t0 = time.perf_counter()
+        parity(p_engine, p_batches, build_pmam_engine, what="PMAM")
+        log(f"PMAM parity phase {time.perf_counter() - t0:.1f} s")
+    p_trainer = p_train_batch = None
+    if phases & {"pmam_train", "timing", "profile", "pmam_timing"}:
+        t0 = time.perf_counter()
+        p_trainer, p_train_batch = pmam_train(results)
+        log(f"PMAM train phase {time.perf_counter() - t0:.1f} s")
+    if "pmam_train_parity" in phases:
+        t0 = time.perf_counter()
+        pmam_train_parity()
+        torch.cuda.empty_cache()
+        log(f"PMAM train parity phase {time.perf_counter() - t0:.1f} s")
+    m_trainer = m_batch = None
+    if phases & {"mlm_train", "timing", "profile", "pmam_timing"}:
+        t0 = time.perf_counter()
+        m_trainer, m_batch = mlm_train()
+        log(f"MLM train phase {time.perf_counter() - t0:.1f} s")
+    if "mlm_train_parity" in phases:
+        t0 = time.perf_counter()
+        mlm_train_parity()
+        torch.cuda.empty_cache()
+        log(f"MLM train parity phase {time.perf_counter() - t0:.1f} s")
+    if phases & {"timing", "pmam_timing"}:
+        t0 = time.perf_counter()
+        if "timing" not in phases:
+            time_hm_kernels(results)
+        p_batch_ms = time_serving(p_engine, p_batches, per_window=40, what="PMAM served")
+        p_step_ms = time_training(p_trainer, p_train_batch, what="PMAM train")
+        m_step_ms = time_training(
+            m_trainer, m_batch, what="MLM train",
+            parts="frontend, augmentation, masked forward and backward, clip, AdamW")
+        log(f"PMAM and MLM timing phase {time.perf_counter() - t0:.1f} s")
+        if phases & {"profile", "pmam_timing"}:
+            profile_serving(p_engine, p_batches, p_batch_ms, what="PMAM served")
+            profile_training(p_trainer, p_train_batch, p_step_ms, what="PMAM train")
+            profile_training(m_trainer, m_batch, m_step_ms, what="MLM train")
     if phases != set(PHASES):
         return 0
 

@@ -303,7 +303,7 @@ def test_tiny_htsat_cnn_train_mode_matches_jax_with_new_statistics(tiny):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(decoder="gru"), "queue 1, item 2"), (dict(decoder="conformer"), "queue 1, item 2"),
-    (dict(mlm_dict={"mask_rate": 0.75}), "queue 1, item 1"),
+    (dict(mlm_dict={"mask_rate": 0.75}), "queue 1, item 10"),
 ])
 def test_unported_htsat_cnn_options_raise_with_their_roadmap_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):

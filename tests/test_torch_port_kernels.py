@@ -118,6 +118,8 @@ def test_kernel_sources_name_their_tpu_kernels():
                           ("flash_attention_bwd", ("_flash_nhd_backward",)),
                           ("xl_attention", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),
                           ("xl_attention_bwd", ("_xl_nhd_backward",)),
+                          ("xl_attention_hm", ("_xl_forward", "_xl_forward_lse")),
+                          ("xl_attention_hm_bwd", ("_xl_backward",)),
                           ("window_attention", ("_window_forward",)),
                           ("window_attention_bwd", ("_window_backward",))):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
@@ -204,7 +206,7 @@ def test_autograd_functions_match_jax_vjp(kind):
     """torch.autograd through FlashAttentionNHD / XLAttentionNHD (plain LSE
     forward, plain backward on the CPU) against jax.vjp of the JAX
     package's differentiable flash_attention_nhd / flash_xl_attention_nhd."""
-    b, t, h, d = 2, 40, 2, 16
+    b, t, h, d = 2, 40, 2, 64  # head dim 64: the heads-in-lanes Functions
     arrays = _xl_data(b, t, h, d, seed=5)
     n_in = 3 if kind == "flash" else 6
     g = np.random.RandomState(6).randn(b, t, h * d).astype(np.float32)
@@ -262,15 +264,160 @@ def test_cpu_training_path_launches_no_kernel():
     counters = (port_flash.flash_attention_nhd, port_flash.flash_attention_nhd_lse,
                 port_flash.flash_attention_nhd_backward, port_xl.flash_xl_attention_nhd,
                 port_xl.flash_xl_attention_nhd_lse, port_xl.flash_xl_attention_nhd_backward,
+                port_xl.flash_xl_attention, port_xl.flash_xl_attention_lse,
+                port_xl.flash_xl_attention_backward,
                 port_window.window_attention, port_window.window_attention_backward)
     before = [f.launches for f in counters]
-    q, k, v, bu, bv, p = (x.requires_grad_() for x in _t(*_xl_data(1, 20, 2, 16, seed=9)))
-    out = port_flash.flash_attention_nhd(q, k, v, 2) + port_xl.flash_xl_attention_nhd(
-        q, k, v, bu, bv, p, 2, 0.25)
-    out.sum().backward()
+    for d in (16, 64):  # the head-major and the heads-in-lanes XL families
+        q, k, v, bu, bv, p = (x.requires_grad_() for x in _t(*_xl_data(1, 20, 2, d, seed=9)))
+        out = port_flash.flash_attention_nhd(q, k, v, 2) + port_xl.flash_xl_attention_nhd(
+            q, k, v, bu, bv, p, 2, 0.25)
+        out.sum().backward()
+        with torch.no_grad():
+            port_xl.flash_xl_attention_nhd(q, k, v, bu, bv, p, 2, 0.25)
     wq, wk, wv, bias, _ = (x.requires_grad_() for x in _t(*_window_data(2, 16, 2, 8, 1, False, 9)))
     port_window.swin_window_attention(wq, wk, wv, bias, None, 1, 0.3).sum().backward()
     assert [f.launches for f in counters] == before
+
+
+# -- head-major XL attention (rows 9, 10 and 11 of the kernel table) -------------------
+
+# the JAX package's own bounds for these kernels in interpret mode against
+# their XLA reference (tests/test_kernels.py:172, :207, :263 and :283): the
+# forward, the log-sum-exp and the five cotangents
+ATOL_HM_LSE = 1e-4
+ATOL_HM_GRAD = 5e-6
+
+
+def _hm_data(b, h, t, d, seed):
+    """qu, qv, k, v [B, H, T, d], p [H, 2T-1, d] and a cotangent g, as
+    tests/test_kernels.py makes them (scaled by 0.3)."""
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: (rng.randn(*shape) * 0.3).astype(np.float32)  # noqa: E731
+    return [f(b, h, t, d) for _ in range(4)] + [f(h, 2 * t - 1, d), f(b, h, t, d)]
+
+
+@pytest.mark.parametrize("t,d,band", [(37, 16, None), (96, 16, (10, 20, 96)), (96, 32, None),
+                                      (130, 32, (9, 1, 260)), (130, 16, None)])
+def test_xl_head_major_plain_versions_match_pallas(t, d, band):
+    """The plain forward, LSE forward and backward of the head-major family
+    against ``_xl_forward`` (its row body), ``_xl_forward_lse`` and
+    ``_xl_backward`` in interpret mode at small blocks
+    (tests/test_kernels.py:164-321): ragged T, with and without a band, the
+    backward fed the JAX forward's own o and lse; all five cotangents."""
+    b, h = 2, 3
+    *arrays, g = _hm_data(b, h, t, d, seed=t + d)
+    kw = dict(block_q=32, block_k=32, group=8, band_widths=band, interpret=True)
+    jarr = [jnp.asarray(a) for a in arrays]
+    fwd = jax_xl._xl_forward(*jarr, 0.25, **kw)
+    o, lse = jax_xl._xl_forward_lse(*jarr, 0.25, **kw)
+    grads = jax_xl._xl_backward(*jarr, o, lse, jnp.asarray(g), 0.25, **kw)
+    tarr = _t(*arrays)
+    ours = port_xl.flash_xl_attention(*tarr, 0.25, band)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(fwd), atol=ATOL)
+    ours_o, ours_lse = port_xl.flash_xl_attention_lse(*tarr, 0.25, band)
+    np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
+    np.testing.assert_allclose(ours_lse.numpy(), np.asarray(lse)[:, :, 0, :t], atol=ATOL_HM_LSE)
+    to, tlse, tg = _t(o, np.asarray(lse)[:, :, 0, :t], g)
+    got = port_xl.flash_xl_attention_backward(*tarr, to, tlse, tg, 0.25, band)
+    for name, a, want in zip(("dqu", "dqv", "dk", "dv", "dp"), got, grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=ATOL_HM_GRAD,
+                                   err_msg=f"T={t} d={d} band={band} {name}")
+
+
+def test_xl_head_major_plain_forward_matches_the_blocked_pallas_body():
+    """``_xl_forward`` takes its blocked online-softmax body (``_xl_kernel``,
+    the long-T one) when ``group`` does not divide ``block_q``; the port's one
+    forward covers it too."""
+    *arrays, _ = _hm_data(2, 2, 100, 16, seed=11)
+    jarr = [jnp.asarray(a) for a in arrays]
+    blocked = jax_xl._xl_forward(*jarr, 0.25, block_q=32, block_k=32, group=128, interpret=True)
+    ours = port_xl.flash_xl_attention(*_t(*arrays), 0.25)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(blocked), atol=ATOL)
+
+
+@pytest.mark.parametrize("band", [None, (9, 14, 40)])
+def test_xl_head_major_function_matches_jax_vjp(band):
+    """torch.autograd through XLAttention (plain LSE forward and backward on
+    the CPU) against jax.vjp of the JAX package's ``flash_xl_attention``: the
+    value and all five cotangents."""
+    *arrays, g = _hm_data(2, 3, 40, 16, seed=12)
+    jfn = lambda *x: jax_xl.flash_xl_attention(*x, 0.25, band)  # noqa: E731
+    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+        jnp.asarray(g), *map(jnp.asarray, arrays))
+    leaves = [x.requires_grad_() for x in _t(*arrays)]
+    ours = port_xl.flash_xl_attention(*leaves, 0.25, band)
+    assert type(ours.grad_fn).__name__.startswith("XLAttentionBackward")
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out), atol=ATOL)
+    got = torch.autograd.grad(ours, leaves, torch.from_numpy(g))
+    for name, a, w in zip(("dqu", "dqv", "dk", "dv", "dp"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL_XL_GRAD, err_msg=name)
+
+
+def test_xl_head_major_cotangents_keep_their_primals_dtypes():
+    """Each gradient of XLAttention comes back in its primal's dtype: f32 qu
+    and qv (as the pos-bias adds leave them in an f32 model) beside bf16 k, v
+    and p, and the reverse."""
+    *arrays, g = _hm_data(1, 2, 24, 16, seed=13)
+    for lo in ((2, 3, 4), (0, 1)):
+        leaves = [(x.bfloat16() if i in lo else x).requires_grad_()
+                  for i, x in enumerate(_t(*arrays))]
+        out = port_xl.flash_xl_attention(*leaves, 0.25)
+        got = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(out.dtype))
+        assert [a.dtype for a in got] == [x.dtype for x in leaves]
+        assert all(torch.isfinite(a.float()).all() for a in got)
+
+
+@pytest.mark.parametrize("band", [None, (6, 10, 6, 10)])
+def test_xl_dispatch_at_head_dim_32_matches_jax(band):
+    """``flash_xl_attention_nhd`` at head dim 32 (the PMAM decoder's): the
+    port sends it through strided head-major views to ``flash_xl_attention``,
+    as the JAX package's fall-back does; the value and all six gradients
+    against jax.vjp of the JAX ``flash_xl_attention_nhd``."""
+    b, t, h, d = 2, 50, 4, 32
+    arrays = _xl_data(b, t, h, d, seed=14)
+    g = np.random.RandomState(15).randn(b, t, h * d).astype(np.float32)
+    scale = d ** -0.5
+    jfn = lambda *x: jax_xl.flash_xl_attention_nhd(*x, h, scale, band)  # noqa: E731
+    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+        jnp.asarray(g), *map(jnp.asarray, arrays))
+    qkv = torch.from_numpy(np.concatenate(arrays[:3], -1)).requires_grad_()
+    bu, bv, p = (x.requires_grad_() for x in _t(*arrays[3:]))
+    c = h * d
+    ours = port_xl.flash_xl_attention_nhd(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                          bu, bv, p, h, scale, band)
+    assert ours.shape == (b, t, c)
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(out), atol=ATOL)
+    dqkv, dbu, dbv, dp = torch.autograd.grad(ours, (qkv, bu, bv, p), torch.from_numpy(g))
+    got = (dqkv[..., :c], dqkv[..., c:2 * c], dqkv[..., 2 * c:], dbu, dbv, dp)
+    for name, a, w in zip(("dq", "dk", "dv", "dbu", "dbv", "dp"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL_XL_GRAD, err_msg=name)
+    with torch.no_grad():  # the no-grad call takes the plain forward, the same value
+        again = port_xl.flash_xl_attention_nhd(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                               bu, bv, p, h, scale, band)
+    np.testing.assert_allclose(again.numpy(), np.asarray(out), atol=ATOL)
+
+
+def test_xl_head_major_takes_strided_views_without_a_copy():
+    """The head-major entry point reads [B, T, H*d] projection slices as
+    [B, H, T, d] views and returns a [B, H, T, d] view of a [B, T, H, d]
+    buffer, so merging the heads is a reshape; the kernels' operand check
+    takes such views at head dim 32 (16-byte aligned rows)."""
+    b, t, h, d = 2, 16, 12, 32
+    qkv = torch.from_numpy(np.random.RandomState(16).randn(b, t, 3 * h * d).astype(np.float32))
+    q, k, v = (port_flash._split_heads(qkv[..., i * h * d:(i + 1) * h * d], h) for i in range(3))
+    assert k.data_ptr() == qkv.data_ptr() + h * d * 4 and k.stride() == (t * 3 * h * d, d,
+                                                                         3 * h * d, 1)
+    port_flash.check_cuda_operands("k", *(x.bfloat16() for x in (q, k, v)))
+    p = torch.zeros(h, 2 * t - 1, d)
+    out = port_xl.flash_xl_attention(q, q, k, v, p, d ** -0.5)
+    ref = port_xl.flash_xl_attention_reference(q.contiguous(), q.contiguous(), k.contiguous(),
+                                               v.contiguous(), p, d ** -0.5)
+    torch.testing.assert_close(out, ref)
+    buf = port_xl._hm_empty((b, h, t, d), torch.float32, "cpu")
+    assert port_flash._merge_heads(buf).data_ptr() == buf.data_ptr()
+    with pytest.raises(ValueError, match="no kernel for device"):
+        port_xl._check_hm("flash_xl_attention", q, q, k, v, p)
 
 
 # -- Swin window attention (rows 14 and 15 of the kernel table) ------------------------

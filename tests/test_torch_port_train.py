@@ -464,6 +464,13 @@ def test_train_forward_draws_the_time_embedding_offset():
 
 
 def test_unported_training_options_raise_with_their_roadmap_item():
-    for kw in (dict(mlm=True), dict(s_patchout_t=1)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    """The MLM mode and patchout are ported (tests/test_torch_port_mlm.py);
+    the head and decoder options and the sliding window still raise."""
+    for kw in (dict(decoder="gru"), dict(decoder_win_len=[9, 17, 33, 60]),
+               dict(f_pool="frequency_wise_tranformer_encoder"), dict(interpolate_mode="nearest")):
+        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
             PaSST_SED(**TINY, device="cpu", **kw)
+    model = PaSST_SED(**TINY, device="cpu", mlm=True, s_patchout_t=1)
+    assert model.masker is not None and model.backbone.s_patchout_t == 1
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        model(torch.zeros(1, 128, 120), encoder_win=True)

@@ -14,7 +14,7 @@ training the keep masks come from the ``torch.Generator`` passed to
 activations' device: a generator that lives elsewhere (a CPU generator,
 whose small draws are the same for a model on any device) only seeds one
 there (:func:`device_generator`). ``DynamicConv2d``, ``FDY_CNN``, ``ResNet`` and
-``DropBlock2D`` come with the PaSST_CNN family (ROADMAP.md, queue 1).
+``DropBlock2D`` are not ported yet (ROADMAP.md, queue 1, item 10).
 """
 
 from __future__ import annotations

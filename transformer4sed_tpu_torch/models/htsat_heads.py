@@ -30,7 +30,7 @@ from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 _DECODERS = "is not ported yet: ROADMAP.md, queue 1, item 2 (head and decoder options)"
-_MLM_SLICE = "is not ported yet: ROADMAP.md, queue 1, item 1 (the MLM pretrain slice)"
+_MLM_MODE = "is not ported yet: ROADMAP.md, queue 1, item 10 (the HTSAT family's remaining parts)"
 
 
 class HTSAT_CNN(nn.Module):
@@ -59,7 +59,7 @@ class HTSAT_CNN(nn.Module):
         if decoder not in ("transformerXL", "no"):
             raise ValueError(f"invalid decoder {decoder!r}")
         if mlm_dict is not None:
-            raise NotImplementedError(f"mlm_dict (masked reconstruction) {_MLM_SLICE}")
+            raise NotImplementedError(f"mlm_dict (masked reconstruction) {_MLM_MODE}")
         device = resolve_device(device)
         self.backbone_upsample_ratio = backbone_upsample_ratio
         self.backbone = create_htsat_model(htsat_config, dtype=dtype, **(htsat_kwargs or {}))

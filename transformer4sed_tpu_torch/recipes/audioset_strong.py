@@ -163,7 +163,7 @@ class SupervisedStep:
         ``grad_norm`` (0-d tensors on the device)."""
         self.model.train()
         loss, metrics = self.loss_fn(batch, generator, draw, dropout_masks)
-        self.optimizer.zero_grad(set_to_none=True)
+        self.model.zero_grad(set_to_none=True)  # frozen params too: they are in no group
         loss.backward()
         # a param the loss does not read (HTSAT's tscam head under HTSAT_CNN)
         # has a zero gradient in the JAX package, where AdamW still decays it

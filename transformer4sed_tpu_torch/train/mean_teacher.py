@@ -5,7 +5,11 @@ The MAT-SED finetune loop body (reference
 fmin/fmax draw, frame shift, per-subset mixup, two augmented views, the
 teacher forward without gradients, the student forward and backward
 through the attention kernels' autograd Functions, six losses, global-norm
-clipping, AdamW, the LR schedule and the EMA teacher update.
+clipping, AdamW, the LR schedule and the EMA teacher update. A model with
+BatchNorm (PaSST_CNN's CNN branch) keeps its running statistics in its
+buffers: the student's move with its forward, the teacher's with the
+teacher's own training-mode forward, and the EMA averages parameters only
+(the JAX package's ``model_state_aware`` step).
 
 The batch is the fixed composition [strong | weak | unlabeled]
 (``ConcatDatasetBatchSampler``), so the reference's boolean index masks are
@@ -196,7 +200,7 @@ class MeanTeacherTrainer:
             tch = self.teacher(tch_mel, train=True, generator=generator, **cfg.tch_kwargs)
         stu = self.student(stu_mel, train=True, generator=generator, **cfg.stu_kwargs)
         total, metrics = mean_teacher_losses(stu, tch, labels, weak_tags, self.step_count, cfg)
-        self.optimizer.zero_grad(set_to_none=True)
+        self.student.zero_grad(set_to_none=True)  # frozen params too: they are in no group
         total.backward()
         metrics["grad_norm"] = global_norm(self.student.parameters())
         return metrics

@@ -1,11 +1,11 @@
 """Weights across the two packages, and a seeded init.
 
 :func:`load_jax_params` fills a port model (:class:`PaSST_SED`,
-:class:`HTSAT_CNN`) from the JAX package's variables, given as nested
+:class:`PaSST_CNN`, :class:`HTSAT_CNN`) from the JAX package's variables, given as nested
 dicts of arrays (numpy, or anything ``np.asarray`` takes): a param tree,
 or ``{'params': ..., 'batch_stats': ...}`` for a model with BatchNorm. It
 is the inverse of the JAX package's ``utils/torch_import.py``
-(``convert_passt_sed``, ``convert_htsat_cnn``):
+(``convert_passt_sed``, ``convert_passt_cnn``, ``convert_htsat_cnn``):
 
   * Dense ``kernel [in, out]`` -> ``weight [out, in]``;
   * Conv ``kernel`` HWIO -> ``weight`` OIHW;
@@ -14,6 +14,7 @@ is the inverse of the JAX package's ``utils/torch_import.py``
     [3D, D]`` and ``out.kernel [H, hd, D]`` -> ``out_proj.weight``;
   * ``blocks_3`` -> ``blocks.3``; ``decoder_module`` -> ``decoder``;
     ``at_pool``/``at_head`` -> ``at_adpater.0``/``at_adpater.1``;
+    ``mlm_fc1``/``mlm_fc2`` -> ``mlm_mlp.0``/``mlm_mlp.2``;
   * HTSAT: ``layers_1_blocks_0`` -> ``layers.1.blocks.0``,
     ``layers_1_downsample`` -> ``layers.1.downsample``,
     ``patch_embed_proj``/``patch_embed_norm`` -> ``patch_embed.proj``/
@@ -41,7 +42,8 @@ import torch.nn as nn
 
 from transformer4sed_tpu_torch.models.norm import RefBatchNorm
 
-_TOP = {"decoder_module": "decoder", "at_pool": "at_adpater.0", "at_head": "at_adpater.1"}
+_TOP = {"decoder_module": "decoder", "at_pool": "at_adpater.0", "at_head": "at_adpater.1",
+        "mlm_fc1": "mlm_mlp.0", "mlm_fc2": "mlm_mlp.2"}
 _MHA_PARTS = ("query", "key", "value", "out")
 _RENAMES = (
     (re.compile(r"(blocks|encoder_blocks)_(\d+)"), r"\1.\2"),
