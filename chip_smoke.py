@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases build,window_kernels  # the Swin window kernels alone
     python3 chip_smoke.py --phases build,hm_kernels      # the head-major XL kernels alone
     python3 chip_smoke.py --phases build,pmam_serve,pmam_train  # the PMAM paths, no timing
+    python3 chip_smoke.py --phases build,flash_hm_kernels  # the head-major flash kernels alone
+    python3 chip_smoke.py --phases build,parallel_train,multichip_dryrun  # the parallel layouts
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, and its
 MLM pretrain step, phases 17 and 18), HTSAT_CNN (phases 9 to 12) and PMAM's
@@ -29,7 +31,12 @@ PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
      cases, at head dim 64 and once at [2, 12, 3000, 64], with five more
      planted faults (qv read for qu, k's head stride taken as its row stride,
      a band one key wider, dqu and dqv swapped, a dP that misses the last
-     batch);
+     batch); the head-major flash forward, LSE forward and backward (rows 3,
+     5 and 6) at [8, 12, 1190, 64] and [24, 12, 1190, 64] (strided views of
+     [B, 1190, 2304] projections), [8, 12, 1190, 32] contiguous and ragged
+     T = 37 and 130, with four more planted faults (k's head stride taken as
+     its row stride, the last key tile dropped, an LSE shifted by log 2 in
+     the backward, dk of head h written to head h+1);
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
      flagship (PaSST 768/12/12 tapped at layer 10, 3-layer Transformer-XL
@@ -49,6 +56,19 @@ PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
      augmentation off on the CPU in f32 and on the card in bf16: loss
      trajectories and the gradient at the CPU's end state held to the JAX
      package's bf16-vs-f32 bounds (tests/test_precision.py:86-138);
+  6a. parallel train: one NCCL rank (MASTER_ADDR 127.0.0.1, a free port),
+     a data x model mesh of 1 x 1, the flagship's mean-teacher step at B=24
+     through ``shard_params`` and the parallel step wrapper, default
+     augmentation: finite losses and per step the teacher's 12 head-major
+     forward launches (row 3), the student's 12 head-major LSE forwards and
+     backwards (rows 5, 6), none of rows 1, 7 and 8, the XL kernels as in
+     phase 5; its 3 steps at B=3 without augmentation step alongside phase 6
+     and are held against the card's single-device trainer and the CPU's f32
+     one with phase 6's bounds;
+  6b. multichip dry run: ``dryrun_multichip(2)`` and ``dryrun_multichip(4)``
+     on the CPU (gloo ranks spawned on localhost): the mean-teacher and
+     BatchNorm phases over 1 rank, dp and dp x tp2 at the JAX harness's
+     tolerances, with the trajectories printed;
   7. time each kernel, its plain version and the one-call library
      equivalent (SDPA forward, SDPA backward through autograd) with CUDA
      events, beside the least time the card could take; time served
@@ -94,8 +114,9 @@ PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
      an unchanged encoder;
  18. MLM train parity: 3 steps at B=3 with shift and views off and the mask
      drawn alike, CPU f32 against card bf16, held as in phase 6;
-then, inside phases 7 and 8, the window and head-major XL kernels' times beside
-their bounds and plain versions (and SDPA for the window kernels), and
+then, inside phases 7 and 8, the window, head-major XL and head-major flash
+kernels' times beside their bounds and plain versions (and SDPA for the window
+and flash kernels), the parallel-layout train steps/s beside phase 7's, and
 HTSAT_CNN's and PMAM's served clips/s, the train steps/s of HTSAT_CNN, PMAM
 and MLM, peak memory and profiles.
 
@@ -114,11 +135,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "htsat_serve",
-          "htsat_parity", "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity",
-          "pmam_train", "pmam_train_parity", "mlm_train", "mlm_train_parity", "timing", "profile")
+PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "parallel_train",
+          "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train", "htsat_train_parity",
+          "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity", "mlm_train",
+          "mlm_train_parity", "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
-SUB_PHASES = ("window_kernels", "hm_kernels", "htsat_timing", "pmam_timing")
+SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "htsat_timing", "pmam_timing")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -261,7 +283,8 @@ def kernel_wrappers():
     fns = (fa.flash_attention_nhd, xa.flash_xl_attention_nhd, fa.flash_attention_nhd_lse,
            fa.flash_attention_nhd_backward, xa.flash_xl_attention_nhd_lse,
            xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward,
-           xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward)
+           xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward,
+           fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_backward)
     return {f.__name__: f for f in fns}
 
 
@@ -363,6 +386,7 @@ def check_kernels(results):
     check_train_kernels(results, rejected)
     check_window_kernels(results, rejected)
     check_hm_kernels(results, rejected)
+    check_flash_hm_kernels(results, rejected)
     check(not any(rejected), "the kernel check let a planted fault through")
     log(f"all {len(rejected)} planted faults fall outside the bound")
 
@@ -831,6 +855,142 @@ def check_hm_kernels(results, rejected):
         torch.cuda.empty_cache()
 
 
+# -- phase 2, rows 3, 5 and 6: head-major flash attention ---------------------------
+
+# the flagship's backbone attention as the sharded blocks run it (tp=1: all 12
+# heads of 64 per rank): served / teacher at B=8, trained at B=24, T=1190
+FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T = 12, 64, 1190
+
+
+def flash_hm_inputs(b, t, h, d, seed, strided=True):
+    """q, k, v [B, H, T, d] bf16: strided views of one [B, T, 3*H*d]
+    projection, as a sharded block hands them to ``tp_flash_attention`` (head
+    stride d, row stride 3*H*d), or contiguous tensors."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import _split_heads
+
+    if strided:
+        return tuple(_split_heads(x, h) for x in flash_inputs(b, t, h * d, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def hm_grad_output(b, t, h, d, seed, strided=True):
+    """dO as autograd hands it over: the gradient of the merged [B, T, H*d]
+    output viewed as [B, H, T, d], or a contiguous tensor."""
+    if strided:
+        return grad_output((b, t, h, d), seed).permute(0, 2, 1, 3)
+    return grad_output((b, h, t, d), seed)
+
+
+def hm_flash_bwd_terms(q, k, v, o, lse, do, scale):
+    """The head-major backward's products on absolute values (the bound of
+    :func:`flash_bwd_terms`): scale |dS||K| for dq, scale |dS|^T |Q| for dk,
+    P^T |dO| for dv."""
+    import torch
+
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    pr = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    delta = (dof * of).sum(-1)[..., None]
+    ads = (pr * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).abs()
+    ads += F32_DOT * pr * (torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+                           + (dof.abs() * of.abs()).sum(-1)[..., None])
+    return (torch.matmul(ads, kf.abs()) * scale,
+            torch.matmul(ads.transpose(-1, -2), qf.abs()) * scale,
+            torch.matmul(pr.transpose(-1, -2), dof.abs()))
+
+
+def check_flash_hm_kernels(results, rejected):
+    """Rows 3, 5 and 6 against their plain versions in f32 on the same bf16
+    inputs: [8, 12, 1190, 64] and [24, 12, 1190, 64] as strided views of
+    [B, 1190, 2304] projections (the sharded flagship's teacher and
+    student), [8, 12, 1190, 32] contiguous, and ragged T = 37 and 130; the
+    backward is fed the kernel forward's own o and lse. Then four planted
+    faults: the head stride taken as the row stride, the last key tile
+    dropped, an LSE shifted by log 2 in the backward, and dk of head h
+    written to head h+1."""
+    import math
+
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_backward_reference,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+        flash_attention_reference,
+    )
+
+    h, d, t = FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T
+    cases = [  # (b, t, h, d, strided, main path?)
+        (8, t, h, d, True, True),
+        (24, t, h, d, True, False),
+        (8, t, h, 32, False, False),
+        (2, 37, 4, 64, True, False),
+        (2, 130, 2, 32, False, False),
+    ]
+    for b, tt, hh, dd, strided, main in cases:
+        tag = f"B={b} H={hh} T={tt} d={dd} {'strided' if strided else 'contiguous'}"
+        q, k, v = flash_hm_inputs(b, tt, hh, dd, seed=tt + dd, strided=strided)
+        scale = dd ** -0.5
+        ref = flash_attention_reference(q.float(), k.float(), v.float(), scale)
+        ref_abs_v = flash_attention_reference(q.float(), k.float(), v.float().abs(), scale)
+        out = flash_attention(q, k, v)
+        check(out.shape == q.shape and out.transpose(1, 2).is_contiguous(),
+              "flash_attention returns a [B, H, T, d] view of a [B, T, H, d] buffer")
+        ok, mx = held(f"kernel flash_attention {tag}", out, ref, ref_abs_v)
+        check(ok, "flash_attention disagrees with its plain version")
+        if main:
+            results["flash_attention"]["max_abs_err"] = mx
+            s = k.stride()  # [B, H, T, d]: the head and the row stride change places
+            bad_k = k.as_strided(k.shape, (s[0], s[2], s[1], s[3]), k.storage_offset())
+            out = flash_attention(q, bad_k, v)
+            rejected.append(held("planted fault: k's head stride taken as its row stride", out,
+                                 ref, ref_abs_v)[0])
+            m = tt // 64 * 64  # a kernel that skipped the ragged last key tile
+            out = flash_attention(q[:, :, :m], k[:, :, :m], v[:, :, :m])
+            rejected.append(held(f"planted fault: last {tt - m} keys dropped", out,
+                                 ref[:, :, :m], ref_abs_v[:, :, :m])[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+
+    names = ("dq", "dk", "dv")
+    cases = [(24, t, h, d, True, True), (8, t, h, 32, False, False),
+             (2, 37, 4, 64, True, False), (2, 130, 2, 32, False, False)]
+    for b, tt, hh, dd, strided, main in cases:
+        tag = f"B={b} H={hh} T={tt} d={dd} {'strided' if strided else 'contiguous'}"
+        q, k, v = flash_hm_inputs(b, tt, hh, dd, seed=tt + dd + 1, strided=strided)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        scale = dd ** -0.5
+        do = hm_grad_output(b, tt, hh, dd, seed=tt + 2, strided=strided)
+        out, lse = flash_attention_lse(q, k, v)
+        ref, ref_lse = flash_attention_lse_reference(qf, kf, vf, scale)
+        ok_o, mx_o = held(f"kernel flash_attention_lse {tag} out", out, ref,
+                          flash_attention_reference(qf, kf, vf.abs(), scale))
+        ok_l, mx_l = lse_held(f"kernel flash_attention_lse {tag}", lse, ref_lse)
+        check(ok_o and ok_l, "flash_attention_lse disagrees with its plain version")
+        del ref, ref_lse
+        refs = flash_attention_backward_reference(qf, kf, vf, out.float(), lse, do.float(), scale)
+        terms = hm_flash_bwd_terms(q, k, v, out, lse, do, scale)
+        grads = flash_attention_backward(q, k, v, out, lse, do)
+        ok, mx = held_all(f"kernel flash_attention_backward {tag}", names, grads, refs, terms)
+        check(ok, "flash_attention_backward disagrees with its plain version")
+        if main:
+            results["flash_attention_lse"]["max_abs_err"] = max(mx_o, mx_l)
+            results["flash_attention_backward"]["max_abs_err"] = mx
+            bad = flash_attention_backward(q, k, v, out, lse + math.log(2.0), do)
+            rejected.append(held_all("planted fault: lse shifted by log 2", names, bad, refs,
+                                     terms)[0])
+            moved = (grads[0], grads[1].roll(1, dims=1), grads[2])
+            rejected.append(held_all("planted fault: dk of head h written to head h+1", names,
+                                     moved, refs, terms)[0])
+        del refs, terms, grads
+        torch.cuda.empty_cache()
+
+
 # -- phases 3 and 4: the served flagship ------------------------------------------
 
 def desed_labels():
@@ -994,14 +1154,18 @@ def synthetic_train_batch(split, seed):
     return {"wav": wav, "labels": labels}
 
 
-def build_trainer(device, dtype, split, augment, state_dict=None):
+def build_trainer(device, dtype, split, augment, state_dict=None, mesh=None):
     """The flagship's mean-teacher trainer as bench.py:measure_train sets it:
     clip 20 then AdamW 1e-4 (optax.adamw's weight decay 1e-4) on every
-    param, EMA 0.999; ``augment=False`` turns mixup, shift and views off."""
+    param, EMA 0.999; ``augment=False`` turns mixup, shift and views off.
+    With a ``mesh``: the parallel layout, params sharded by
+    ``parallel.shard_params`` and the step wrapped by
+    ``parallel.shard_train_step``."""
     import torch
 
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
     from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
+    from transformer4sed_tpu_torch.parallel import shard_params, shard_train_step
     from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherConfig, MeanTeacherTrainer
     from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
     from transformer4sed_tpu_torch.utils.weights import init_weights_
@@ -1012,13 +1176,18 @@ def build_trainer(device, dtype, split, augment, state_dict=None):
     else:
         model.load_state_dict(state_dict)
     model.to(device)
+    if mesh is not None:
+        shard_params(model, mesh)
     s, w, u = split
     off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0, n_transform=0)
     cfg = MeanTeacherConfig(strong_num=s, weak_num=w, unlabel_num=u, **off)
     spec = GroupSpec(lr=1e-4, weight_decay=1e-4)
-    return MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
-                              ParamGroupConfig(encoder=spec, decoder=spec, head=spec,
-                                               clip_grad=20.0))
+    trainer = MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
+                                 ParamGroupConfig(encoder=spec, decoder=spec, head=spec,
+                                                  clip_grad=20.0))
+    if mesh is not None:
+        shard_train_step(trainer, mesh)
+    return trainer
 
 
 def finite_metrics(metrics):
@@ -1063,60 +1232,153 @@ def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
     and on the card in bf16 (kernels), each step's draws from a generator
     seeded alike on both: loss trajectories, then the gradient at the CPU's
     end state in both, held to the JAX package's bf16-vs-f32 bounds.
-    ``modules(trainer)`` lists the modules that hold a trainer's state, the
-    differentiated one first; params the loss does not read have no gradient
-    on either side."""
+    ``card`` may be a dict of named card trainers: each is held against the
+    CPU and against the others with the same bounds. ``modules(trainer)``
+    lists the modules that hold a trainer's state, the differentiated one
+    first; params the loss does not read have no gradient on either side."""
+    import itertools
+
     import numpy as np
     import torch
 
-    losses = {"cpu_f32": [], "card_bf16": []}
+    cards = card if isinstance(card, dict) else {"card_bf16": card}
+    sides = {"cpu_f32": cpu, **cards}
+    pairs = [("cpu_f32", name) for name in cards] + list(itertools.combinations(cards, 2))
+    losses = {name: [] for name in sides}
     for i in range(steps):
-        for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+        for name, trainer in sides.items():
             t0 = time.perf_counter()
             values = finite_metrics(trainer.step(batch, torch.Generator().manual_seed(10 + i)))
             losses[name].append(values[loss_key])
             log(f"{what} parity step {i} {name}: {loss_key} {values[loss_key]:.6f}, grad_norm "
                 f"{values['grad_norm']:.4f} ({time.perf_counter() - t0:.1f} s)")
-    f32, bf16 = np.array(losses["cpu_f32"]), np.array(losses["card_bf16"])
-    rel = np.abs(f32 - bf16) / np.maximum(np.abs(f32), 1e-9)
-    log(f"{what} train parity: relative loss delta per step {np.round(rel, 6).tolist()}, mean "
-        f"{rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), max {rel.max():.5f} "
-        f"(limit {TRAIN_LOSS_REL_MAX})")
-    check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
-          f"{what}: the card's bf16 loss trajectory leaves the f32 one")
+    for a, b in pairs:
+        ref, got = np.array(losses[a]), np.array(losses[b])
+        rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-9)
+        log(f"{what} train parity {b} vs {a}: relative loss delta per step "
+            f"{np.round(rel, 6).tolist()}, mean {rel.mean():.5f} (limit {TRAIN_LOSS_REL_MEAN}), "
+            f"max {rel.max():.5f} (limit {TRAIN_LOSS_REL_MAX})")
+        check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
+              f"{what}: the {b} loss trajectory leaves the {a} one")
 
-    for ours, theirs in zip(modules(card), modules(cpu)):
-        ours.load_state_dict(theirs.state_dict())
-    card.step_count = cpu.step_count
+    for trainer in cards.values():
+        for ours, theirs in zip(modules(trainer), modules(cpu)):
+            ours.load_state_dict(theirs.state_dict())
+        trainer.step_count = cpu.step_count
     grads = {}
-    for name, trainer in (("cpu_f32", cpu), ("card_bf16", card)):
+    for name, trainer in sides.items():
         trainer.forward_backward(batch, torch.Generator().manual_seed(20))
         grads[name] = {k: p.grad.detach().double().flatten().cpu()
                        for k, p in modules(trainer)[0].named_parameters() if p.grad is not None}
-    check(grads["cpu_f32"].keys() == grads["card_bf16"].keys() and grads["cpu_f32"],
-          f"{what}: the two sides give gradients to different params")
-    g32, g16 = (torch.cat(list(grads[name].values())) for name in ("cpu_f32", "card_bf16"))
-    cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
-    ratio = float(g16.norm() / (g32.norm() + 1e-30))
-    log(f"{what} train parity: gradient at the f32 end state over {len(grads['cpu_f32'])} "
-        f"params, cosine {cos:.6f} (limit {TRAIN_GRAD_COS}), norm ratio {ratio:.5f} (limits "
-        f"{TRAIN_GRAD_RATIO}), |g| f32 {float(g32.norm()):.5f}")
-    check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
-          f"{what}: the card's bf16 gradient disagrees with the f32 one")
+    for a, b in pairs:
+        check(grads[a].keys() == grads[b].keys() and grads[a],
+              f"{what}: {a} and {b} give gradients to different params")
+        g32, g16 = (torch.cat(list(grads[name].values())) for name in (a, b))
+        cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
+        ratio = float(g16.norm() / (g32.norm() + 1e-30))
+        log(f"{what} train parity {b} vs {a}: gradient at the f32 end state over "
+            f"{len(grads[a])} params, cosine {cos:.6f} (limit {TRAIN_GRAD_COS}), norm ratio "
+            f"{ratio:.5f} (limits {TRAIN_GRAD_RATIO}), |g| {a} {float(g32.norm()):.5f}")
+        check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
+              f"{what}: the {b} gradient disagrees with the {a} one")
 
 
-def train_parity():
+def train_parity(mesh=None):
     """The flagship's mean-teacher step: PARITY_STEPS steps at B=3 without
-    augmentation, CPU f32 against card bf16 (:func:`trainer_parity`)."""
+    augmentation, CPU f32 against card bf16 (:func:`trainer_parity`). With a
+    ``mesh``, the parallel layout's trainer on the card steps alongside and is
+    held against both (one CPU f32 trajectory serves the two card paths)."""
     import torch
 
     cpu = build_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False)
-    card = build_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
-                         state_dict=cpu.student.state_dict())
+    state = cpu.student.state_dict()
+    cards = {"card_bf16": build_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
+                                        state_dict=state)}
+    if mesh is not None:
+        cards["card_parallel_bf16"] = build_trainer("cuda", torch.bfloat16, PARITY_SPLIT,
+                                                    augment=False, state_dict=state, mesh=mesh)
     params = list(cpu.student.parameters())
-    trainer_parity("flagship", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=4),
+    trainer_parity("flagship", cpu, cards, synthetic_train_batch(PARITY_SPLIT, seed=4),
                    PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
     check(all(p.grad is not None for p in params), "flagship: a param got no gradient")
+
+
+# -- the parallel layout: the flagship's step through torch.distributed ----------------
+
+PARALLEL_LAUNCHES = dict(flash_attention=12, flash_attention_lse=12, flash_attention_backward=12,
+                         flash_xl_attention_nhd=3, flash_xl_attention_nhd_lse=3,
+                         flash_xl_attention_nhd_backward=3)
+
+
+def parallel_init():
+    """One NCCL rank on localhost, through ``parallel.maybe_initialize``
+    (``env://``: MASTER_ADDR 127.0.0.1, a free port); the ``data`` x ``model``
+    mesh of 1 x 1 over it. Fails if NCCL does not come up: nothing runs the
+    phase without a process group."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from transformer4sed_tpu_torch.parallel import make_2d_mesh, maybe_initialize
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1")
+    check(maybe_initialize(backend="nccl", timeout_s=300.0) and dist.get_backend() == "nccl",
+          "the NCCL process group did not come up")
+    mesh = make_2d_mesh(1, model_parallel=1)
+    log(f"process group: {dist.get_backend()}, world {dist.get_world_size()}, mesh {mesh.shape} "
+        f"on {mesh.device}")
+    return mesh
+
+
+def parallel_train(results, mesh):
+    """Mean-teacher steps of the full-width flagship at B=24 (8 | 8 | 8), default
+    augmentation, through ``shard_params`` and the parallel step over the 1 x 1
+    mesh: finite losses and, per step, the teacher's 12 row-3 launches, the
+    student's 12 row-5 and 12 row-6 launches, none of rows 1, 7 and 8, and the
+    XL kernels as in phase 5. Returns (trainer, batch) for the timing phase."""
+    import torch
+
+    from transformer4sed_tpu_torch.parallel.partition import ColumnParallelDense
+
+    t0 = time.perf_counter()
+    trainer = build_trainer("cuda", torch.bfloat16, TRAIN_SPLIT, augment=True, mesh=mesh)
+    attn = trainer.student.backbone.blocks[0].attn
+    check(isinstance(attn.qkv, ColumnParallelDense) and attn.tp is not None
+          and trainer.teacher.backbone.blocks[0].attn.tp is not None,
+          "shard_params left the flagship's blocks unsharded")
+    batch = synthetic_train_batch(TRAIN_SPLIT, seed=3)
+    log(f"built the sharded trainer in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        values = finite_metrics(trainer.step(batch, gen))
+        log(f"parallel train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * TRAIN_STEPS for k, n in PARALLEL_LAUNCHES.items()})
+    log(f"parallel train launches over {TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on the parallel train path, expected "
+                            f"{want}")
+    for name in ("flash_attention", "flash_attention_lse", "flash_attention_backward"):
+        results[name]["launches"] = launches[name]
+    return trainer, batch
+
+
+def multichip_dryrun():
+    """``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the CPU, from one
+    launch of four gloo ranks on localhost (the 2-rank layouts on the first
+    two): both phases at the JAX harness's tolerances; prints each layout's
+    trajectories."""
+    from transformer4sed_tpu_torch.parallel.dryrun import print_report, run_layouts
+
+    reports = run_layouts((2, 4))
+    for n, report in reports.items():
+        print_report(n, report)
 
 
 # -- the HTSAT_CNN family: serving and the supervised train step -------------------
@@ -1643,6 +1905,7 @@ def time_kernels(results):
     time_train_kernels(results)
     time_window_kernels(results)
     time_hm_kernels(results)
+    time_flash_hm_kernels(results)
     for name, r in results.items():
         log(f"time {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms), "
@@ -1832,6 +2095,59 @@ def time_hm_kernels(results):
     # dP); qu, qv, k, v, o, dO, P, lse in, dqu, dqv, dk, dv, dP out
     bound(r, 16.0 * b * h * t * t * d, 10.0 * b * h * t * d * 2 + 2 * p_bytes + b * h * t * 4)
     del o, lse
+    torch.cuda.empty_cache()
+
+
+def time_flash_hm_kernels(results):
+    """Rows 3, 5 and 6 at the sharded flagship's shapes (row 3 at the served
+    and teacher B=8 of row 1's timing, rows 5 and 6 at the trained B=24), q/k/v
+    strided views of [B, 1190, 2304] projections as the sharded blocks hand
+    them over, the backward as the autograd Function calls it (with delta,
+    workspace zeroing and casts); their plain versions; SDPA forward, and
+    its backward through autograd, on the same views. The bounds are rows 1,
+    7 and 8's at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_backward_reference,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+        flash_attention_reference,
+    )
+
+    h, d, n = FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T
+    c = h * d
+    b = 8
+    q, k, v = flash_hm_inputs(b, n, h, d, seed=0)
+    r = results["flash_attention"]
+    r["ms"] = cuda_ms(lambda: flash_attention(q, k, v))
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5)
+    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bound(r, 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2)
+
+    b = sum(TRAIN_SPLIT)
+    q, k, v = flash_hm_inputs(b, n, h, d, seed=1)
+    do = hm_grad_output(b, n, h, d, seed=2)
+    r = results["flash_attention_lse"]
+    r["ms"] = cuda_ms(lambda: flash_attention_lse(q, k, v))
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_lse_reference(q, k, v), iters=3)
+    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bound(r, 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2 + b * h * n * 4)
+    o, lse = flash_attention_lse(q, k, v)
+    r = results["flash_attention_backward"]
+    r["ms"] = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse, do))
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_backward_reference(q, k, v, o, lse, do),
+                            iters=3)
+    qh, kh, vh = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+    r["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(sdpa, (qh, kh, vh), do, retain_graph=True))
+    # five products (S, dO V^T, dV, dK, dQ); q, k, v, o, dO and lse in, dq, dk, dv out
+    bound(r, 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4)
+    del o, lse, sdpa, qh, kh, vh
     torch.cuda.empty_cache()
 
 
@@ -2044,18 +2360,35 @@ def main(argv=None) -> int:
             "source": "transformer4sed_tpu_torch/csrc/xl_attention_hm_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/xl_attention.py:458",
         },
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_hm.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:96",
+        },
+        "flash_attention_lse": {
+            "name": "flash_attention_lse", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_hm.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:368",
+        },
+        "flash_attention_backward": {
+            "name": "flash_attention_backward", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_hm_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:401",
+        },
     }
     if "kernels" in phases:
         t0 = time.perf_counter()
         check_kernels(results)
         torch.cuda.empty_cache()
         log(f"kernel check phase {time.perf_counter() - t0:.1f} s")
-    elif phases & {"window_kernels", "hm_kernels"}:
+    elif phases & {"window_kernels", "hm_kernels", "flash_hm_kernels"}:
         rejected = []
         if "window_kernels" in phases:
             check_window_kernels(results, rejected)
         if "hm_kernels" in phases:
             check_hm_kernels(results, rejected)
+        if "flash_hm_kernels" in phases:
+            check_flash_hm_kernels(results, rejected)
         check(not any(rejected), "the kernel check let a planted fault through")
         log(f"all {len(rejected)} planted faults fall outside the bound")
     engine = batches = None
@@ -2073,22 +2406,42 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         trainer, train_batch = train(results)
         log(f"train phase {time.perf_counter() - t0:.1f} s")
-    if "train_parity" in phases:
+    mesh = parallel_init() if phases & {"parallel_train", "timing"} else None
+    if phases & {"train_parity", "parallel_train"}:
+        # one CPU f32 trajectory holds the single-device and the parallel card paths
         t0 = time.perf_counter()
-        train_parity()
+        train_parity(mesh if "parallel_train" in phases else None)
         torch.cuda.empty_cache()
         log(f"train parity phase {time.perf_counter() - t0:.1f} s")
+    par_trainer = par_batch = None
+    if mesh is not None:
+        t0 = time.perf_counter()
+        par_trainer, par_batch = parallel_train(results, mesh)
+        log(f"parallel train phase {time.perf_counter() - t0:.1f} s")
+    if "multichip_dryrun" in phases:
+        t0 = time.perf_counter()
+        multichip_dryrun()
+        log(f"multichip dry-run phase {time.perf_counter() - t0:.1f} s")
     if "timing" in phases:
         t0 = time.perf_counter()
         time_kernels(results)
         batch_ms = time_serving(engine, batches, per_window=40)
         step_ms = time_training(trainer, train_batch)
+        par_step_ms = time_training(
+            par_trainer, par_batch, what="parallel-layout train",
+            parts="frontend, augmentation, teacher, student forward and backward on the 1 x 1 "
+                  "mesh, gradient all-reduce, clip, AdamW, EMA")
         log(f"flagship timing phase {time.perf_counter() - t0:.1f} s")
         if "profile" in phases:
             profile_serving(engine, batches, batch_ms)
             profile_training(trainer, train_batch, step_ms)
-    del engine, trainer
+            profile_training(par_trainer, par_batch, par_step_ms, what="parallel-layout train")
+    del engine, trainer, par_trainer
     torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
     h_engine = h_batches = None
     if phases & {"htsat_serve", "htsat_parity", "timing", "profile", "htsat_timing"}:

@@ -11,6 +11,8 @@ JAX package's ``convert_torch_checkpoint``. Inputs come from numpy with a
 seed; everything compares in float32.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -263,15 +265,12 @@ class _IdentityFrontend:
         return mel
 
 
-def test_batchnorm_aware_mean_teacher_trajectory_matches_jax(tiny):
-    """Three steps of the port's trainer against
-    ``make_mean_teacher_step(model_state_aware=True)`` with PMAM's loss
-    weights and param groups (augmentation and dropout off, identity
-    frontend, same weights): every step's losses and gradient norm, then
-    both sets of running statistics and the student's and the teacher's
-    parameters through a training-mode forward. The teacher's statistics move with the
-    teacher's own training-mode forward and are not EMA-averaged."""
-    port, variables, jmodel = tiny
+def _trajectory_setup(tiny):
+    """The JAX side of the trajectory test (PMAM's loss weights and param
+    groups, augmentation and dropout off): the compiled step and
+    training-mode forward, the first state, the port's configs and the
+    batch."""
+    _, variables, jmodel = tiny
     common = dict(strong_num=2, weak_num=1, unlabel_num=1, self_loss_warmup_steps=3,
                   cons_scheduler="Linear", w_weak=0.5, w_weak_cons=0.5, w_at=2.0, w_cons_max=2.0,
                   mixup_prob=0.0, max_shift_frame=0, n_transform=0,
@@ -289,6 +288,40 @@ def test_batchnorm_aware_mean_teacher_trajectory_matches_jax(tiny):
     labels = (rng.rand(4, 3, FRAMES) > 0.7).astype(np.float32)
     labels[2, :, 1:] = 0.0  # the weak row holds its tags in frame 0 (data/datasets.py:89)
     batch = {"wav": jnp.asarray(mel), "labels": jnp.asarray(labels)}
+    compiled = step_fn.lower(state, batch, jax.random.PRNGKey(0)).compile(OPT0)
+    # the end parameters are compared through a training-mode forward: batch
+    # statistics cancel the conv biases' noise, which an eval forward would show
+    fwd = jax.jit(lambda v, m: jmodel.apply(v, m, train=True, temp_w=0.5, mutable=["batch_stats"],
+                                            rngs={"patchout": jax.random.PRNGKey(9)})[0])
+    fwd = fwd.lower({"params": state.params, **state.model_state}, batch["wav"]).compile(OPT0)
+    return compiled, fwd, state, pcfg, popt, mel, labels, batch
+
+
+# XLA's lowest backend optimization level: the steps compile in about half
+# the time on the CPU, and the trajectory bounds hold
+OPT0 = {"xla_backend_optimization_level": 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def trajectory_setup(tiny):
+    """:func:`_trajectory_setup` in a worker thread from the module's start:
+    XLA compiles without holding the GIL, alongside the other tests."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(_trajectory_setup, tiny)
+    yield future
+    pool.shutdown(wait=True)
+
+
+def test_batchnorm_aware_mean_teacher_trajectory_matches_jax(tiny, trajectory_setup):
+    """Three steps of the port's trainer against
+    ``make_mean_teacher_step(model_state_aware=True)`` with PMAM's loss
+    weights and param groups (augmentation and dropout off, identity
+    frontend, same weights): every step's losses and gradient norm, then
+    both sets of running statistics and the student's and the teacher's
+    parameters through a training-mode forward. The teacher's statistics move with the
+    teacher's own training-mode forward and are not EMA-averaged."""
+    port = tiny[0]
+    step_fn, fwd, state, pcfg, popt, mel, labels, batch = trajectory_setup.result()
     model = PaSST_CNN(**TINY, device="cpu")
     model.load_state_dict(port.state_dict())
     trainer = mt.MeanTeacherTrainer(model, _IdentityFrontend(), pcfg, popt)
@@ -306,10 +339,6 @@ def test_batchnorm_aware_mean_teacher_trajectory_matches_jax(tiny):
     sides = ((trainer.student, state.params, state.model_state),
              (trainer.teacher, state.teacher_params, state.teacher_model_state))
     start = port.state_dict()
-    # the end parameters are compared through a training-mode forward: batch
-    # statistics cancel the conv biases' noise, which an eval forward would show
-    fwd = jax.jit(lambda v, m: jmodel.apply(v, m, train=True, temp_w=0.5, mutable=["batch_stats"],
-                                            rngs={"patchout": jax.random.PRNGKey(9)})[0])
     stats = []
     for ours, jparams, jstate in sides:
         sd = ours.state_dict()

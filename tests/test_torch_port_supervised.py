@@ -8,6 +8,8 @@ HTSAT_CNN of ``tests/test_torch_port_htsat.py`` against
 ``make_supervised_step``. Everything compares in float32.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,12 +191,11 @@ def _has_a_gradient(name, shape):
     return keep
 
 
-def test_supervised_trajectory_matches_jax(tiny):
-    """Three steps of ``SupervisedStep`` against ``make_supervised_step``
-    (AslLoss, shift + mixup + filt_aug from JAX's draws, dropout off, same
-    weights and optimizer policy with a cnn group and an active step-LR):
-    each step's loss, then the end parameters and running statistics."""
-    port, variables, jmodel = tiny
+def _trajectory_setup(tiny):
+    """The JAX side of the trajectory test (AslLoss, shift + mixup + filt_aug
+    from JAX's draws, dropout off, a cnn group and an active step-LR): the
+    compiled step, its first state, the port's configs and the batch."""
+    _, variables, jmodel = tiny
     kw = dict(loss_name="AslLoss", loss_kwargs=dict(rp=0, rn=4, margin=0.05),
               model_kwargs=dict(temp_w=1.0))
     jcfg, pcfg = jax_recipe.SupervisedConfig(**kw), recipe.SupervisedConfig(**kw)
@@ -207,11 +208,37 @@ def test_supervised_trajectory_matches_jax(tiny):
                      model_state={"batch_stats": variables["batch_stats"]})
     rng = np.random.RandomState(12)
     batch = {"wav": _mel(4, seed=12), "labels": (rng.rand(4, 5, FRAMES) > 0.7).astype(np.float32)}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    compiled = step_fn.lower(state, jbatch, jax.random.PRNGKey(0)).compile(OPT0)
+    return compiled, state, pcfg, popt, batch, jbatch
+
+
+# XLA's lowest backend optimization level: the steps compile in about half
+# the time on the CPU, and the trajectory bounds hold
+OPT0 = {"xla_backend_optimization_level": 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def trajectory_setup(tiny):
+    """:func:`_trajectory_setup` in a worker thread from the module's start:
+    XLA compiles the step without holding the GIL, alongside the other tests."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(_trajectory_setup, tiny)
+    yield future
+    pool.shutdown(wait=True)
+
+
+def test_supervised_trajectory_matches_jax(tiny, trajectory_setup):
+    """Three steps of ``SupervisedStep`` against ``make_supervised_step``
+    (AslLoss, shift + mixup + filt_aug from JAX's draws, dropout off, same
+    weights and optimizer policy with a cnn group and an active step-LR):
+    each step's loss, then the end parameters and running statistics."""
+    port = tiny[0]
+    step_fn, state, pcfg, popt, batch, jbatch = trajectory_setup.result()
     model = HTSAT_CNN(**TINY, device="cpu")
     model.load_state_dict(port.state_dict())
     stepper = recipe.SupervisedStep(model, _IdentityFrontend(), pcfg, popt)
     draws = _jax_draws(pcfg, 4, MEL_F, MEL_T)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     for i in range(3):
         key = jax.random.PRNGKey(i)
         state, jm = step_fn(state, jbatch, key)

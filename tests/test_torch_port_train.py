@@ -9,6 +9,7 @@ model is seeded and its state dict goes through the JAX package's
 ``convert_torch_checkpoint``. Everything compares in float32.
 """
 
+import concurrent.futures
 import functools
 
 import jax
@@ -379,12 +380,11 @@ def _mt_cfgs(**kw):
     return jax_mt.MeanTeacherConfig(**common), mt.MeanTeacherConfig(**common)
 
 
-def test_mean_teacher_trajectory_matches_jax(tiny):
-    """Four steps of the port's trainer against ``make_mean_teacher_step``
-    (augmentation off, identity frontend, same weights, same optimizer
-    policy): every step's losses, then the final student and teacher
-    forwards."""
-    port, params, jmodel = tiny
+def _trajectory_setup(tiny):
+    """The JAX side of the trajectory test (augmentation off, identity
+    frontend): the compiled step and eval forward, the first state, the
+    port's configs and the batch."""
+    _, params, jmodel = tiny
     jcfg, pcfg = _mt_cfgs()
     jopt, popt = _opt_cfgs(clip=20.0, frozen=False)
     tx, _ = jax_optim.build_optimizer(params, jopt)
@@ -398,6 +398,34 @@ def test_mean_teacher_trajectory_matches_jax(tiny):
     step_fn = jax.jit(jax_mt.make_mean_teacher_step(apply, _IdentityFrontend(), tx, jcfg))
     state = jax_mt.create_mean_teacher_state(params, tx)
     batch = {"wav": jnp.asarray(mel), "labels": jnp.asarray(labels)}
+    compiled = step_fn.lower(state, batch, jax.random.PRNGKey(0)).compile(OPT0)
+    fwd = jax.jit(lambda p, m: jmodel.apply({"params": p}, m, temp_w=0.5))
+    fwd = fwd.lower(state.params, batch["wav"]).compile(OPT0)
+    return compiled, fwd, state, pcfg, popt, mel, labels, batch
+
+
+# XLA's lowest backend optimization level: the steps compile in about half
+# the time on the CPU, and the trajectory bounds hold
+OPT0 = {"xla_backend_optimization_level": 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def trajectory_setup(tiny):
+    """:func:`_trajectory_setup` in a worker thread from the module's start:
+    XLA compiles without holding the GIL, alongside the other tests."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(_trajectory_setup, tiny)
+    yield future
+    pool.shutdown(wait=True)
+
+
+def test_mean_teacher_trajectory_matches_jax(tiny, trajectory_setup):
+    """Four steps of the port's trainer against ``make_mean_teacher_step``
+    (augmentation off, identity frontend, same weights, same optimizer
+    policy): every step's losses, then the final student and teacher
+    forwards."""
+    port = tiny[0]
+    step_fn, fwd, state, pcfg, popt, mel, labels, batch = trajectory_setup.result()
     model = PaSST_SED(**TINY, device="cpu")
     model.load_state_dict(port.state_dict())
     trainer = mt.MeanTeacherTrainer(model, _IdentityFrontend(), pcfg, popt)
@@ -411,7 +439,6 @@ def test_mean_teacher_trajectory_matches_jax(tiny):
                                    atol=ATOL_LOSS, rtol=RTOL_LOSS, err_msg=f"step {i}")
         np.testing.assert_allclose(pm["w_cons"], float(jm["w_cons"]), rtol=1e-6)
         np.testing.assert_allclose(float(pm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
-    fwd = jax.jit(lambda p, m: jmodel.apply({"params": p}, m, temp_w=0.5))
     for ours, jparams in ((trainer.student, state.params), (trainer.teacher, state.teacher_params)):
         want = fwd(jparams, jnp.asarray(mel))
         with torch.no_grad():

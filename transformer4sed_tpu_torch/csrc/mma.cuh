@@ -19,6 +19,17 @@ namespace t4s {
 
 typedef __nv_bfloat16 bf16;
 
+// One [B, H, T, d] operand: base pointer and batch / head / row strides in
+// elements (unit stride along d).
+template <typename T>
+struct Rows {
+  T* ptr;
+  long long bs, hs, rs;
+  __host__ __device__ __forceinline__ T* at(int b, int h) const {
+    return ptr + (long long)b * bs + (long long)h * hs;
+  }
+};
+
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -6,7 +6,7 @@
 // per (batch, head), P the projected position table [H, 2T-1, d] (offsets
 // T-1 ... -(T-1)), and an optional per-head band: row i attends
 // [i - w/2, i + w/2) plus i. Every operand comes as a base pointer with
-// batch, head and row strides (Rows), so a [B, T, H*d] projection slice and a
+// batch, head and row strides (Rows, mma.cuh), so a [B, T, H*d] projection slice and a
 // [B, H, T, d] tensor are the same to the kernel. With BIAS, qu and qv are one
 // tensor q and the kernel forms bf16(q + u) and bf16(q + v) from the f32
 // pos_bias_u / pos_bias_v [H, d]; without it, qu and qv are two operands that
@@ -38,17 +38,6 @@
 #include "mma.cuh"
 
 namespace t4s {
-
-// One [B, H, T, d] operand: base pointer and batch / head / row strides in
-// elements (unit stride along d).
-template <typename T>
-struct Rows {
-  T* ptr;
-  long long bs, hs, rs;
-  __host__ __device__ __forceinline__ T* at(int b, int h) const {
-    return ptr + (long long)b * bs + (long long)h * hs;
-  }
-};
 
 constexpr int XL_BQ = 64;
 constexpr int XL_BK = 64;

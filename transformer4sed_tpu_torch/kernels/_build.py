@@ -21,8 +21,9 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "xl_attention", "xl_attention_bwd",
-           "xl_attention_hm", "xl_attention_hm_bwd", "window_attention", "window_attention_bwd")
+SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_hm",
+           "flash_attention_hm_bwd", "xl_attention", "xl_attention_bwd", "xl_attention_hm",
+           "xl_attention_hm_bwd", "window_attention", "window_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,10 +1,11 @@
-"""Heads-in-lanes flash attention: the CUDA kernels and their plain versions.
+"""Flash attention: the CUDA kernels and their plain versions.
 
-Port of the heads-in-lanes path of
-``transformer4sed_tpu/kernels/flash_attention.py`` (the PaSST backbone's
-attention, ``models/vit.py:113-122``): softmax attention with no mask over
-q/k/v given as [B, N, H*d] lane slices of the qkv projection. Three
-kernels, each read by stride so no head transpose is made:
+Port of ``transformer4sed_tpu/kernels/flash_attention.py``: softmax
+attention with no mask, in two layouts, each read by stride so no head
+transpose is made.
+
+Heads in lanes (the PaSST backbone's attention, ``models/vit.py:113-122``),
+q/k/v given as [B, N, H*d] lane slices of the qkv projection, head dim 64:
 
   * ``csrc/flash_attention.cu`` ``t4s_flash_nhd_fwd`` for
     ``_flash_nhd_forward`` (no-grad calls: serving, the mean teacher);
@@ -13,11 +14,24 @@ kernels, each read by stride so no head transpose is made:
   * ``csrc/flash_attention_bwd.cu`` for ``_flash_nhd_backward`` (dq, dk,
     dv from the saved output and log-sum-exp).
 
-:func:`flash_attention_nhd` dispatches like the JAX ``custom_vjp``: with
-autograd recording and an operand that requires grad it runs
-:class:`FlashAttentionNHD` (LSE forward, saved-O/LSE backward), otherwise
-the plain forward kernel. Each wrapper launches its kernel for CUDA
-tensors and uses its plain version only for tensors on the CPU.
+Head major (head-parallel attention, ``parallel/partition.py``, and the
+head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
+[B, H, T, d] tensors of any batch, head and row strides, head dims 32 and 64:
+
+  * ``csrc/flash_attention_hm.cu`` ``t4s_flash_hm_fwd`` for
+    ``_flash_forward`` and ``t4s_flash_hm_fwd_lse`` for
+    ``_flash_forward_lse``;
+  * ``csrc/flash_attention_hm_bwd.cu`` for ``_flash_backward`` (one kernel
+    where the TPU runs two).
+
+:func:`flash_attention_nhd` and :func:`flash_attention` dispatch like the
+JAX ``custom_vjp``: with autograd recording and an operand that requires
+grad they run their autograd Function (LSE forward, saved-O/LSE backward),
+otherwise the plain forward kernel. :func:`flash_attention_nhd` sends any
+head dim other than 64 through strided head-major views to
+:func:`flash_attention`, as the JAX package does. Each wrapper launches its
+kernel for CUDA tensors and uses its plain version only for tensors on the
+CPU.
 """
 
 from __future__ import annotations
@@ -207,11 +221,17 @@ class FlashAttentionNHD(torch.autograd.Function):
 def flash_attention_nhd(q, k, v, num_heads: int, sm_scale: Optional[float] = None):
     """softmax(scale * Q K^T) V per head, q/k/v [B, N, H*d] -> [B, N, H*d].
 
-    Differentiated calls run :class:`FlashAttentionNHD`; others launch the
-    forward kernel for CUDA tensors (bf16, head dim 64) and take the plain
-    version for CPU tensors. Any other case raises.
+    At head dim 64, differentiated calls run :class:`FlashAttentionNHD`;
+    others launch the forward kernel for CUDA tensors (bf16) and take the
+    plain version for CPU tensors. Any other head dim goes, as in the JAX
+    package's fall-back, through strided [B, H, N, d] views (no copy) to
+    :func:`flash_attention`, and the heads are merged back (a reshape of the
+    kernel's [B, N, H, d] buffer). What neither family takes raises.
     """
     scale = _scale(q, num_heads, sm_scale)
+    if q.shape[-1] // num_heads != 64:
+        return _merge_heads(flash_attention(*(_split_heads(x, num_heads) for x in (q, k, v)),
+                                            scale))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionNHD.apply(q, k, v, num_heads, scale)
     if q.device.type == "cpu":
@@ -221,6 +241,184 @@ def flash_attention_nhd(q, k, v, num_heads: int, sm_scale: Optional[float] = Non
     return out
 
 
+# -- the head-major family: any strides, head dims 32 and 64 ----------------------
+
+HM_HEAD_DIMS = (32, 64)  # the head dims csrc/flash_attention_hm*.cu build
+
+
+def _hm_scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _hm_scores(q, k, scale):
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+
+def flash_attention_reference(q, k, v, sm_scale: Optional[float] = None):
+    """Plain PyTorch softmax attention on [B, H, T, d]; scores and softmax in
+    float32 (the reference's ``_xla_attention``)."""
+    s = _hm_scores(q, k, _hm_scale(q, sm_scale))
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+def flash_attention_lse_reference(q, k, v, sm_scale: Optional[float] = None):
+    """Plain version of the head-major LSE forward: (out [B, H, T, d], lse
+    f32 [B, H, T])."""
+    s = _hm_scores(q, k, _hm_scale(q, sm_scale))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.matmul(torch.exp(s - lse[..., None]).to(v.dtype), v), lse
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, sm_scale: Optional[float] = None):
+    """Plain version of the head-major backward from the saved (o, lse): the
+    formulas of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, in float32, with
+    P and dS rounded to v's dtype before their products as the kernels round
+    them. Returns float32 (dq, dk, dv)."""
+    scale = _hm_scale(q, sm_scale)
+    p = torch.exp(_hm_scores(q, k, scale) - lse[..., None])
+    delta = (do.float() * o.float()).sum(-1)
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None])
+    lo = v.dtype
+    p_lo, ds_lo = p.to(lo).float(), ds.to(lo).float()
+    dv = torch.matmul(p_lo.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds_lo.transpose(-1, -2), q.float()) * scale
+    dq = torch.matmul(ds_lo, k.float()) * scale
+    return dq, dk, dv
+
+
+def hm_empty(shape, dtype, device, zero: bool = False) -> torch.Tensor:
+    """A [B, H, T, d] view of a fresh [B, T, H, d] buffer, so that merging
+    the heads of a result back to [B, T, H*d] is a reshape without a copy."""
+    b, h, t, d = shape
+    make = torch.zeros if zero else torch.empty
+    return make((b, t, h, d), dtype=dtype, device=device).permute(0, 2, 1, 3)
+
+
+def hm_strides(*tensors):
+    """Batch, head and row strides of each [B, H, T, d] operand, in order."""
+    return [s for x in tensors for s in x.stride()[:3]]
+
+
+def aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernels can read it in place, else a packed copy."""
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        return x.contiguous()
+    return x
+
+
+def _check_hm(what, q, k, v):
+    """Shapes and operands the head-major kernels take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] not in HM_HEAD_DIMS:
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} (head dims {HM_HEAD_DIMS})")
+    check_cuda_operands(what, q, k, v)
+
+
+def _hm_forward_kernel(q, k, v, scale, with_lse: bool):
+    what = "flash_attention_lse" if with_lse else "flash_attention"
+    _check_hm(what, q, k, v)
+    b, h, t, d = q.shape
+    out = hm_empty(q.shape, q.dtype, q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if with_lse:
+        ptrs.append(lse.data_ptr())
+    symbol = "t4s_flash_hm_fwd_lse" if with_lse else "t4s_flash_hm_fwd"
+    with torch.cuda.device(q.device):
+        status = _build.function("flash_attention_hm", symbol, len(ptrs), 12)(
+            *ptrs, b, t, h, d, *hm_strides(q, k, v, out), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    return out, lse
+
+
+def flash_attention_lse(q, k, v, sm_scale: Optional[float] = None):
+    """(out [B, H, T, d], lse f32 [B, H, T]): the head-major LSE forward
+    kernel for CUDA tensors (bf16, head dim 32 or 64), its plain version for
+    CPU tensors."""
+    scale = _hm_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_lse_reference(q, k, v, scale)
+    out, lse = _hm_forward_kernel(q, k, v, scale, with_lse=True)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, sm_scale: Optional[float] = None):
+    """(dq, dk, dv) from the saved (o, lse): the head-major backward kernel
+    for CUDA tensors (bf16 results; dq summed in float32 and rounded once),
+    its plain version for CPU tensors (float32)."""
+    scale = _hm_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    what = "flash_attention_backward"
+    _check_hm(what, q, k, v)
+    b, h, t, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} vs q {tuple(q.shape)}")
+    check_cuda_operands(what, o, do)
+    check_f32_rows(what, lse, (b, h, t))
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq_acc = hm_empty(q.shape, torch.float32, q.device, zero=True)
+    dk = hm_empty(q.shape, k.dtype, q.device)
+    dv = hm_empty(q.shape, v.dtype, q.device)
+    with torch.cuda.device(q.device):
+        status = _build.function("flash_attention_hm_bwd", "t4s_flash_hm_bwd", 9, 21)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, d, *hm_strides(q, k, v, do, dq_acc, dk, dv), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_attention_backward.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The differentiated head-major path: LSE forward, then the fused
+    backward from the saved q, k, v, output and log-sum-exp; each gradient
+    comes back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_backward(q, k, v, out, lse, aligned_rows(do.to(q.dtype)),
+                                         ctx.scale)
+        return (*(g.to(x.dtype) for g, x in zip(grads, (q, k, v))), None)
+
+
+def flash_attention(q, k, v, sm_scale: Optional[float] = None):
+    """softmax(scale * Q K^T) V on head-major q/k/v [B, H, T, d] with any
+    batch, head and row strides -> [B, H, T, d] (on the card a view of a
+    [B, T, H, d] buffer); the scale defaults to 1/sqrt(d).
+
+    Differentiated calls run :class:`FlashAttention`; others launch the
+    forward kernel for CUDA tensors (bf16, head dim 32 or 64) and take the
+    plain version for CPU tensors. Any other case raises.
+    """
+    scale = _hm_scale(q, sm_scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    out, _ = _hm_forward_kernel(q, k, v, scale, with_lse=False)
+    flash_attention.launches += 1
+    return out
+
+
 flash_attention_nhd.launches = 0
 flash_attention_nhd_lse.launches = 0
 flash_attention_nhd_backward.launches = 0
+flash_attention.launches = 0
+flash_attention_lse.launches = 0
+flash_attention_backward.launches = 0

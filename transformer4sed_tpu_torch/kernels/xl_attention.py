@@ -44,8 +44,11 @@ from transformer4sed_tpu_torch.kernels import _build
 from transformer4sed_tpu_torch.kernels.flash_attention import (
     _merge_heads,
     _split_heads,
+    aligned_rows,
     check_cuda_operands,
     check_f32_rows,
+    hm_empty,
+    hm_strides,
     row_delta,
 )
 
@@ -323,24 +326,12 @@ def _check_hm(what, qu, qv, k, v, p):
     check_cuda_operands(what, qu, qv, k, v, p)
 
 
-def _hm_strides(*tensors):
-    return [s for x in tensors for s in x.stride()[:3]]
-
-
-def _hm_empty(shape, dtype, device, zero: bool = False):
-    """A [B, H, T, d] view of a fresh [B, T, H, d] buffer, so that merging
-    the heads of a result back to [B, T, H*d] is a reshape without a copy."""
-    b, h, t, d = shape
-    make = torch.zeros if zero else torch.empty
-    return make((b, t, h, d), dtype=dtype, device=device).permute(0, 2, 1, 3)
-
-
 def _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse: bool):
     what = "flash_xl_attention_lse" if with_lse else "flash_xl_attention"
     _check_hm(what, qu, qv, k, v, p)
     b, h, t, d = qu.shape
     band = _band_tensor(band_widths, h, qu.device)
-    out = _hm_empty(qu.shape, qu.dtype, qu.device)
+    out = hm_empty(qu.shape, qu.dtype, qu.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=qu.device) if with_lse else None
     ptrs = [qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
             None if band is None else band.data_ptr(), out.data_ptr()]
@@ -349,8 +340,8 @@ def _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse: bool):
     symbol = "t4s_xl_hm_fwd_lse" if with_lse else "t4s_xl_hm_fwd"
     with torch.cuda.device(qu.device):
         status = _build.function("xl_attention_hm", symbol, len(ptrs), 17)(
-            *ptrs, b, t, h, d, *_hm_strides(qu, qv, k, v), p.stride(0), p.stride(1),
-            *_hm_strides(out), float(sm_scale), torch.cuda.current_stream().cuda_stream,
+            *ptrs, b, t, h, d, *hm_strides(qu, qv, k, v), p.stride(0), p.stride(1),
+            *hm_strides(out), float(sm_scale), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
     return out, lse
@@ -386,30 +377,23 @@ def flash_xl_attention_backward(qu, qv, k, v, p, o, lse, do, sm_scale: float,
     check_f32_rows(what, lse, (b, h, t))
     band = _band_tensor(band_widths, h, qu.device)
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    dqu = _hm_empty(qu.shape, torch.float32, qu.device, zero=True)
-    dqv = _hm_empty(qu.shape, torch.float32, qu.device, zero=True)
+    dqu = hm_empty(qu.shape, torch.float32, qu.device, zero=True)
+    dqv = hm_empty(qu.shape, torch.float32, qu.device, zero=True)
     dp = torch.zeros((h, 2 * t - 1, d), dtype=torch.float32, device=qu.device)
-    dk = _hm_empty(qu.shape, k.dtype, qu.device)
-    dv = _hm_empty(qu.shape, v.dtype, qu.device)
+    dk = hm_empty(qu.shape, k.dtype, qu.device)
+    dv = hm_empty(qu.shape, v.dtype, qu.device)
     with torch.cuda.device(qu.device):
         status = _build.function("xl_attention_hm_bwd", "t4s_xl_hm_bwd", 14, 26)(
             qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             p.data_ptr(), None if band is None else band.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dp.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, t, h, d, *_hm_strides(qu, qv, k, v, do), p.stride(0),
-            p.stride(1), *_hm_strides(dqu, dk, dv), float(sm_scale),
+            dv.data_ptr(), b, t, h, d, *hm_strides(qu, qv, k, v, do), p.stride(0),
+            p.stride(1), *hm_strides(dqu, dk, dv), float(sm_scale),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
     flash_xl_attention_backward.launches += 1
     return dqu.to(qu.dtype), dqv.to(qv.dtype), dk, dv, dp.to(p.dtype)
-
-
-def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernels can read it in place, else a packed copy."""
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
-        return x.contiguous()
-    return x
 
 
 class XLAttention(torch.autograd.Function):
@@ -429,7 +413,7 @@ class XLAttention(torch.autograd.Function):
         qu, qv, k, v, p, out, lse = ctx.saved_tensors
         primals = (qu, qv, k, v, p)
         grads = flash_xl_attention_backward(
-            *primals, out, lse, _aligned_rows(do.to(qu.dtype)), ctx.sm_scale, ctx.band_widths)
+            *primals, out, lse, aligned_rows(do.to(qu.dtype)), ctx.sm_scale, ctx.band_widths)
         return (*(g.to(x.dtype) for g, x in zip(grads, primals)), None, None)
 
 

@@ -13,12 +13,16 @@ training the keep masks come from the ``torch.Generator`` passed to
 ``forward``. They are as large as the activations, so they are drawn on the
 activations' device: a generator that lives elsewhere (a CPU generator,
 whose small draws are the same for a model on any device) only seeds one
-there (:func:`device_generator`). ``DynamicConv2d``, ``FDY_CNN``, ``ResNet`` and
-``DropBlock2D`` are not ported yet (ROADMAP.md, queue 1, item 10).
+there (:func:`device_generator`). Under data parallelism each rank draws the
+mask of the whole global batch and keeps its rows (:func:`global_batch_rows`),
+so a mask does not depend on the layout. ``DynamicConv2d``, ``FDY_CNN``,
+``ResNet`` and ``DropBlock2D`` are not ported yet (ROADMAP.md, queue 1, item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -90,10 +94,35 @@ def device_generator(gen: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+# (global row indices of this rank's batch, global batch size) while a
+# data-parallel step runs its forwards; None otherwise
+_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar("global_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_rows(rows: torch.Tensor, global_batch: int):
+    """Within the block, a dropout mask for a batch of ``len(rows)`` rows is
+    drawn for ``global_batch`` rows and these ``rows`` of it are kept: every
+    rank then consumes the generator as one process running the global batch
+    does, and gets the rows that process would give it."""
+    token = _GLOBAL_ROWS.set((rows, global_batch))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
 def draw_dropout(gen: torch.Generator, shape, rate: float, device) -> torch.Tensor:
     """The scaled keep mask of one dropout call: 1 / (1 - rate) where kept, 0
     where dropped (drawn on the generator's device, moved to ``device``)."""
-    keep = torch.rand(tuple(shape), generator=gen, device=gen.device) >= rate
+    shape = tuple(shape)
+    sharded = _GLOBAL_ROWS.get()
+    if sharded is not None and shape[0] == len(sharded[0]):
+        rows, total = sharded
+        keep = torch.rand((total,) + shape[1:], generator=gen, device=gen.device) >= rate
+        keep = keep.index_select(0, rows.to(keep.device))
+    else:
+        keep = torch.rand(shape, generator=gen, device=gen.device) >= rate
     return keep.to(device=device, dtype=torch.float32) / (1.0 - rate)
 
 

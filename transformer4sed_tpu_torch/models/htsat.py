@@ -200,14 +200,22 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index",
                              torch.from_numpy(_relative_position_index(window_size)))
+        # parallel.partition.TPShard once qkv / proj are sharded: this rank's
+        # heads, and their columns of the (replicated) bias table
+        self.tp = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 n_windows: int = 1) -> torch.Tensor:
-        bnw, n, c = x.shape
-        h = self.num_heads
-        hd = c // h
-        q, k, v = self.qkv(x).reshape(bnw, n, 3, h, hd).unbind(2)
+        bnw, n, _ = x.shape
+        qkv = self.qkv(x)
+        c = qkv.shape[-1] // 3  # this rank's width under tensor parallelism
         table = self.relative_position_bias_table
+        h = self.num_heads
+        if self.tp is not None:
+            h = self.tp.heads
+            table = self.tp.local(table, 1)
+        hd = c // h
+        q, k, v = qkv.reshape(bnw, n, 3, h, hd).unbind(2)
         bias = table[self.relative_position_index.reshape(-1)].reshape(n, n, h)
         bias = bias.permute(2, 0, 1).contiguous()  # [H, w², w²]
         n_w = n_windows if mask is None else int(mask.shape[0])

@@ -9,12 +9,21 @@ carry torch's names (``weight``, ``bias``, ``running_mean``,
 ``running_var``, ``num_batches_tracked``), so upstream state dicts load.
 ``self.training`` takes the place of ``use_running_average``; flax's
 "skip the update while initialising" has no counterpart here.
+
+Under data parallelism (``mesh`` set by ``parallel.shard_train_step``) the
+statistics are the global batch's, as GSPMD computes them in the JAX
+package: one all-reduce over the ``data`` group of the count, the sum and the
+sum of squares in float32, differentiated as a sum over ranks, and the
+unbiased running variance from the global count. Per-replica statistics
+(torch ``DataParallel``'s) would differ at the scale of the activations' RMS.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from transformer4sed_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 class RefBatchNorm(nn.Module):
@@ -26,14 +35,28 @@ class RefBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+        self.mesh = None  # a parallel.Mesh: statistics over its data group
+
+    def _batch_stats(self, xf: torch.Tensor):
+        """(mean, biased variance, count) over every axis but the last."""
+        c = xf.shape[-1]
+        if self.mesh is None:
+            axes = tuple(range(xf.ndim - 1))
+            mean = xf.mean(axes)
+            return mean, (xf - mean).square().mean(axes), xf.numel() // c
+        flat = xf.reshape(-1, c)
+        count = flat.new_full((1,), float(flat.shape[0]))
+        sums = all_reduce_sum(torch.cat([flat.sum(0), flat.square().sum(0), count]),
+                              self.mesh.data_group)
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean.square(), min=0.0)
+        return mean, var, int(n.item())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.ndim - 1))
-            n = xf.numel() // xf.shape[-1]
-            mean = xf.mean(axes)
-            var = (xf - mean).square().mean(axes)
+            mean, var, n = self._batch_stats(xf)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

@@ -4,7 +4,10 @@ timm-style blocks the PaSST backbone is built from: Mlp, Attention,
 pre-norm Block, PatchEmbed. Attention runs the heads-in-lanes flash
 kernels on the lane slices of the [B, N, 3C] qkv output, as the
 reference's maskless path does (``models/vit.py:113-122``), through their
-autograd Function when gradients are recorded. Dropout (after fc1, fc2 and
+autograd Function when gradients are recorded. Once ``parallel.shard_params``
+has sharded a block (``tp`` set), its attention runs this rank's heads,
+strided [B, H/tp, N, d] views of the local qkv, through
+``parallel.tp_flash_attention`` (the head-major kernels). Dropout (after fc1, fc2 and
 the attention projection) and DropPath (on both residual branches) are zero
 in every shipped model; in training a non-zero rate draws its scaled keep
 mask from the ``torch.Generator`` passed to ``forward`` (:func:`dropout`: a
@@ -21,7 +24,11 @@ import torch.nn.functional as F
 
 from typing import Optional
 
-from transformer4sed_tpu_torch.kernels.flash_attention import flash_attention_nhd
+from transformer4sed_tpu_torch.kernels.flash_attention import (
+    _merge_heads,
+    _split_heads,
+    flash_attention_nhd,
+)
 from transformer4sed_tpu_torch.models.cnn import device_generator, draw_dropout
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
 
@@ -72,12 +79,21 @@ class Attention(nn.Module):
         self.proj_drop = proj_drop
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.tp = None  # parallel.partition.TPShard once the block is sharded
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        c = x.shape[-1]
         raw = self.qkv(x)
-        out = flash_attention_nhd(raw[..., :c], raw[..., c:2 * c], raw[..., 2 * c:], self.num_heads)
+        c = raw.shape[-1] // 3  # this rank's width under tensor parallelism
+        q, k, v = raw[..., :c], raw[..., c:2 * c], raw[..., 2 * c:]
+        if self.tp is None:
+            out = flash_attention_nhd(q, k, v, self.num_heads)
+        else:
+            from transformer4sed_tpu_torch.parallel.partition import tp_flash_attention
+
+            h = self.tp.heads
+            out = _merge_heads(tp_flash_attention(*(_split_heads(t, h) for t in (q, k, v)),
+                                                  self.tp.mesh))
         return dropout(self.proj(out), self.proj_drop, train, generator)
 
 

@@ -4,7 +4,11 @@
     [T-1 .. 0 .. -(T-1)] (``src/models/transformer/transformerXL.py:40-127``);
     built for ``decoder_pos_emd_len`` and sliced about its centre.
   * ``RelPositionMultiheadAttention``: (q + u)·k content plus (q + v)·P
-    position scores, rel-shifted, through the fused XL kernel.
+    position scores, rel-shifted, through the fused XL kernel. Once
+    ``parallel.shard_params`` has sharded it (``tp`` set), ``in_proj`` and
+    ``out_proj`` hold this rank's heads, ``pos_bias_u``, ``pos_bias_v`` and
+    ``linear_pos`` (replicated) are read for those heads only, and the XL
+    kernels run on the local heads.
   * ``build_band_mask``: the band-diagonal local-attention mask, which the
     XL kernel's plain version uses (the kernel builds it per element).
   * ``TransformerXLBlock`` keeps the reference's residual wiring
@@ -26,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from transformer4sed_tpu_torch.kernels.xl_attention import flash_xl_attention_nhd
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
@@ -75,17 +80,26 @@ class RelPositionMultiheadAttention(nn.Module):
         self.linear_pos = Dense(dim, dim, bias=False, dtype=dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, hd))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, hd))
+        self.tp = None  # parallel.partition.TPShard once in_proj / out_proj are sharded
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor) -> torch.Tensor:
         """x: [B, T, D] (already scaled by sqrt(D)); pos_emb: [1, 2T-1, D]."""
-        d = x.shape[-1]
-        h = self.num_heads
         qkv = self.in_proj(x)
-        p = self.linear_pos(pos_emb)[0]  # [2T-1, D]
+        d = qkv.shape[-1] // 3  # this rank's width under tensor parallelism
+        bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
+        if self.tp is None:
+            h = self.num_heads
+            p = self.linear_pos(pos_emb)[0]  # [2T-1, D]
+        else:
+            h = self.tp.heads
+            bias_u, bias_v = self.tp.local(bias_u, 0), self.tp.local(bias_v, 0)
+            lin = self.linear_pos
+            dt = lin.compute_dtype or torch.promote_types(pos_emb.dtype, lin.weight.dtype)
+            p = F.linear(pos_emb.to(dt), self.tp.local(lin.weight, 0, d // h).to(dt))[0]
         p = p.reshape(p.shape[0], h, d // h).transpose(0, 1)  # [H, 2T-1, hd] view
         out = flash_xl_attention_nhd(
             qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
-            self.pos_bias_u, self.pos_bias_v, p, h, (d // h) ** -0.5,
+            bias_u, bias_v, p, h, (d // h) ** -0.5,
         )
         return self.out_proj(out)
 

@@ -14,6 +14,13 @@ a ``torch.Generator``) and applied second, so a test can feed the draws of
 another implementation. The ``SupervisedTrainer`` epoch loop, the
 weighted sampler, the label tables and validation come with the data and
 eval slices (ROADMAP.md, queue 1, items 3, 4 and 10).
+
+Under data parallelism (``parallel.shard_train_step``) every rank
+preprocesses the global batch with the same generator and keeps its
+contiguous block of rows (as ``train/mean_teacher.py`` does, for the same
+reason: the whole-batch mixup pairs rows across ranks); BatchNorm takes the
+global batch's statistics and the gradients are averaged over the ``data``
+group.
 """
 
 from __future__ import annotations
@@ -23,8 +30,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+import contextlib
+
 from transformer4sed_tpu_torch.core import losses as L
 from transformer4sed_tpu_torch.frontend import augment
+from transformer4sed_tpu_torch.models.cnn import global_batch_rows
+from transformer4sed_tpu_torch.parallel.partition import sharded_param_ids
 from transformer4sed_tpu_torch.train.optim import (
     ParamGroupConfig,
     build_optimizer,
@@ -122,14 +133,21 @@ def make_supervised_preprocess(frontend, cfg: SupervisedConfig, device):
 
 def make_supervised_loss_fn(model: torch.nn.Module, frontend, cfg: SupervisedConfig, device):
     """Loss of the supervised step (preprocess + training-mode forward):
-    ``loss_fn(batch, gen, draw=None, dropout_masks=None) -> (loss, metrics)``."""
+    ``loss_fn(batch, gen, draw=None, dropout_masks=None, rows=None) -> (loss,
+    metrics)``; ``rows`` (global row indices) keeps those rows of the
+    preprocessed global batch."""
     loss_of = L.loss_function_factory(cfg.loss_name, cfg.loss_kwargs)
     preprocess = make_supervised_preprocess(frontend, cfg, device)
 
-    def loss_fn(batch, gen, draw=None, dropout_masks=None):
+    def loss_fn(batch, gen, draw=None, dropout_masks=None, rows=None):
         mel, labels = preprocess(batch, gen, draw)
+        rows_ctx = contextlib.nullcontext()
+        if rows is not None:
+            rows_ctx = global_batch_rows(rows, mel.shape[0])
+            mel, labels = mel.index_select(0, rows), labels.index_select(0, rows)
         extra = {} if dropout_masks is None else {"dropout_masks": dropout_masks}
-        out = model(mel, train=True, generator=gen, **extra, **cfg.model_kwargs)
+        with rows_ctx:
+            out = model(mel, train=True, generator=gen, **extra, **cfg.model_kwargs)
         loss_strong = loss_of(out.strong.float(), labels)
         return loss_strong, {"loss_class_strong": loss_strong.detach()}
 
@@ -154,15 +172,26 @@ class SupervisedStep:
         self.device = next(model.parameters()).device
         self.loss_fn = make_supervised_loss_fn(model, frontend, cfg, self.device)
         self.step_count = 0  # completed optimizer steps
+        self.mesh = None  # a parallel.Mesh, set by parallel.shard_train_step
+        self.sharded = sharded_param_ids(model)
+
+    def models(self):
+        return (self.model,)
 
     def forward_backward(self, batch: Dict[str, Any], generator: Optional[torch.Generator],
                          draw: Optional[SupervisedDraw] = None,
                          dropout_masks=None) -> Dict[str, Any]:
         """Preprocess, the training-mode forward (which moves the running
         statistics) and the backward into ``.grad``; returns the loss and
-        ``grad_norm`` (0-d tensors on the device)."""
+        ``grad_norm`` (0-d tensors on the device). Under a mesh: this rank's
+        rows, the gradients averaged and the loss reported as its mean over
+        the ``data`` group."""
         self.model.train()
-        loss, metrics = self.loss_fn(batch, generator, draw, dropout_masks)
+        rows = None
+        if self.mesh is not None:
+            n = torch.as_tensor(batch["wav"]).shape[0]
+            rows = self.mesh.batch_rows((n,)).to(self.device)
+        loss, metrics = self.loss_fn(batch, generator, draw, dropout_masks, rows)
         self.model.zero_grad(set_to_none=True)  # frozen params too: they are in no group
         loss.backward()
         # a param the loss does not read (HTSAT's tscam head under HTSAT_CNN)
@@ -170,7 +199,10 @@ class SupervisedStep:
         for p in live_params(self.optimizer):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        metrics["grad_norm"] = global_norm(self.model.parameters())
+        if self.mesh is not None:
+            self.mesh.average_gradients(self.model.parameters())
+            metrics = self.mesh.mean_metrics(metrics)
+        metrics["grad_norm"] = global_norm(self.model.parameters(), self.mesh, self.sharded)
         return metrics
 
     def step(self, batch: Dict[str, Any], generator: Optional[torch.Generator],
@@ -179,7 +211,8 @@ class SupervisedStep:
         [B, C, T_lab]): :meth:`forward_backward`, clip, AdamW, the schedule."""
         metrics = self.forward_backward(batch, generator, draw, dropout_masks)
         if self.optim_cfg.clip_grad:
-            clip_by_global_norm(live_params(self.optimizer), self.optim_cfg.clip_grad)
+            clip_by_global_norm(live_params(self.optimizer), self.optim_cfg.clip_grad, self.mesh,
+                                self.sharded)
         self.optimizer.step()
         self.scheduler.step()
         self.step_count += 1

@@ -18,11 +18,24 @@ slices. Random numbers come from the generator passed to
 the same draws whatever device the model is on). Gradient accumulation
 and ``make_multi_step`` (a ``lax.scan`` over steps) have no counterpart
 here yet.
+
+Under data parallelism (``parallel.shard_train_step``) every rank is given
+the global batch and the same generator, runs :func:`preprocess` on the whole
+of it and keeps its rows: an equal share of each subset. Mixup pairs rows
+across a whole subset, so a row's partner may sit on another rank; running
+the augmentation globally keeps every draw (fmin/fmax, shift, mixup, the
+filt_aug views) and every partner as one process would have them, with no
+gather, for the price of the frontend on the global batch. The dropout masks
+are drawn for the global batch too (``models/cnn.py``). The losses are then
+means over the local rows, whose mean over the ``data`` group is the global
+loss, and the gradients are averaged over that group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -32,6 +45,8 @@ import torch
 from transformer4sed_tpu_torch.core import losses as L
 from transformer4sed_tpu_torch.core.ema import ema_update
 from transformer4sed_tpu_torch.frontend import augment
+from transformer4sed_tpu_torch.models.cnn import global_batch_rows
+from transformer4sed_tpu_torch.parallel.partition import sharded_param_ids
 from transformer4sed_tpu_torch.train.optim import (
     ParamGroupConfig,
     build_optimizer,
@@ -187,22 +202,42 @@ class MeanTeacherTrainer:
         self.optimizer, self.scheduler, self.labels = build_optimizer(model, optim_cfg, schedule)
         self.device = next(model.parameters()).device
         self.step_count = 0  # completed optimizer steps
+        self.mesh = None  # a parallel.Mesh, set by parallel.shard_train_step
+        self.sharded = sharded_param_ids(model)
+
+    def models(self):
+        return self.student, self.teacher
 
     def forward_backward(self, batch: Dict[str, Any],
                          generator: torch.Generator) -> Dict[str, Any]:
         """Preprocess, the teacher forward, the student forward and the
         backward of the total loss into the student's ``.grad``; returns the
-        losses (0-d tensors on the device), ``w_cons`` and ``grad_norm``."""
+        losses (0-d tensors on the device), ``w_cons`` and ``grad_norm``.
+        Under a mesh: this rank's rows, the gradients averaged and the losses
+        reported as their mean over the ``data`` group."""
         cfg = self.cfg
         stu_mel, tch_mel, labels, weak_tags = preprocess(self.frontend, cfg, batch, generator,
                                                          self.device)
-        with torch.no_grad():
-            tch = self.teacher(tch_mel, train=True, generator=generator, **cfg.tch_kwargs)
-        stu = self.student(stu_mel, train=True, generator=generator, **cfg.stu_kwargs)
+        rows_ctx = contextlib.nullcontext()
+        if self.mesh is not None:
+            sizes = (cfg.strong_num, cfg.weak_num, cfg.unlabel_num)
+            rows = self.mesh.batch_rows(sizes).to(self.device)
+            rows_ctx = global_batch_rows(rows, stu_mel.shape[0])
+            stu_mel, tch_mel, labels = (x.index_select(0, rows) for x in (stu_mel, tch_mel, labels))
+            s, w, u = self.mesh.local_sizes(sizes)
+            weak_tags = labels[s:s + w].sum(-1)  # this rank's weak rows of the global tags
+            cfg = dataclasses.replace(cfg, strong_num=s, weak_num=w, unlabel_num=u)
+        with rows_ctx:
+            with torch.no_grad():
+                tch = self.teacher(tch_mel, train=True, generator=generator, **cfg.tch_kwargs)
+            stu = self.student(stu_mel, train=True, generator=generator, **cfg.stu_kwargs)
         total, metrics = mean_teacher_losses(stu, tch, labels, weak_tags, self.step_count, cfg)
         self.student.zero_grad(set_to_none=True)  # frozen params too: they are in no group
         total.backward()
-        metrics["grad_norm"] = global_norm(self.student.parameters())
+        if self.mesh is not None:
+            self.mesh.average_gradients(self.student.parameters())
+            metrics = self.mesh.mean_metrics(metrics)
+        metrics["grad_norm"] = global_norm(self.student.parameters(), self.mesh, self.sharded)
         return metrics
 
     def step(self, batch: Dict[str, Any], generator: torch.Generator) -> Dict[str, Any]:
@@ -211,7 +246,8 @@ class MeanTeacherTrainer:
         clip, AdamW, the schedule and the EMA update; returns its metrics."""
         metrics = self.forward_backward(batch, generator)
         if self.optim_cfg.clip_grad:
-            clip_by_global_norm(live_params(self.optimizer), self.optim_cfg.clip_grad)
+            clip_by_global_norm(live_params(self.optimizer), self.optim_cfg.clip_grad, self.mesh,
+                                self.sharded)
         self.optimizer.step()
         self.scheduler.step()
         # the reference's EMA counter is scheduler.step_num = completed

@@ -16,7 +16,10 @@ torch ``state_dict`` names:
 Each live group is ``torch.optim.AdamW`` (betas (0.9, 0.999), eps 1e-8) at
 its own base LR, all scaled by one ``LambdaLR`` schedule. Global-norm
 clipping (:func:`clip_by_global_norm`) runs before the step over the live
-params only, and with optax's arithmetic. The hierarchical HTSAT backbone
+params only, and with optax's arithmetic. Under the parallel layouts the
+global norm is taken after the ``data`` average: the squares of sharded
+gradients are summed over the ``model`` group, replicated ones count once.
+AdamW and the EMA then work on each rank's shards as they are. The hierarchical HTSAT backbone
 names its blocks ``layers.{i}.blocks.{j}`` (``layers_{i}_blocks_{j}`` in
 the JAX package): ``freeze_layer`` and ``step_lr`` count them in depth
 order over the whole network. ``child_tuning``, gradient accumulation,
@@ -29,9 +32,10 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Collection, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 
@@ -145,22 +149,48 @@ def live_params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of the params' gradients (None counts as 0)."""
-    sq = [p.grad.float().square().sum() for p in params if p.grad is not None]
-    if not sq:
-        return torch.zeros(())
-    return torch.stack(sq).sum().sqrt()
+def tensor_norm(tensors: Iterable[torch.Tensor], mesh=None,
+                sharded: Collection[int] = frozenset()) -> torch.Tensor:
+    """sqrt of the sum of squares of ``tensors``; under a mesh the squares of
+    those whose ``id`` is in ``sharded`` (this rank's shards) are summed over
+    the ``model`` group and the others (replicated) count once."""
+    tensors = list(tensors)
+    if mesh is None:
+        sq = [t.float().square().sum() for t in tensors]
+        return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+    zero = torch.zeros((), device=mesh.device)
+    part = {True: [zero], False: [zero]}
+    for t, key in zip(tensors, (id(t) in sharded for t in tensors)):
+        part[key].append(t.float().square().sum())
+    local = torch.stack(part[True]).sum().reshape(1)
+    dist.all_reduce(local, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    return (local[0] + torch.stack(part[False]).sum()).sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def global_norm(params: Iterable[torch.Tensor], mesh=None,
+                sharded: Collection[int] = frozenset()) -> torch.Tensor:
+    """sqrt of the sum of squares of the params' gradients (None counts as
+    0); ``mesh`` and ``sharded`` (ids of the params that hold a shard): see
+    :func:`tensor_norm`."""
+    grads, ids = [], set()
+    for p in params:
+        if p.grad is not None:
+            grads.append(p.grad)
+            if id(p) in sharded:
+                ids.add(id(p.grad))
+    return tensor_norm(grads, mesh, ids)
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float, mesh=None,
+                        sharded: Collection[int] = frozenset()) -> torch.Tensor:
     """optax ``clip_by_global_norm``: when the global norm g reaches
     ``max_norm``, every gradient becomes (grad / g) * max_norm, with no
     epsilon (``torch.nn.utils.clip_grad_norm_`` divides by g + 1e-6).
     Returns g."""
     params = [p for p in params if p.grad is not None]
-    norm = global_norm(params)
+    norm = global_norm(params, mesh, sharded)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for p in params:
         p.grad.mul_(scale.to(p.grad.dtype))
