@@ -118,7 +118,11 @@ then, inside phases 7 and 8, the window, head-major XL and head-major flash
 kernels' times beside their bounds and plain versions (and SDPA for the window
 and flash kernels), the parallel-layout train steps/s beside phase 7's, and
 HTSAT_CNN's and PMAM's served clips/s, the train steps/s of HTSAT_CNN, PMAM
-and MLM, peak memory and profiles.
+and MLM, peak memory and profiles. Phases 7 and 8 time and profile the
+flagship's kernels and single-device paths right after phase 5, before
+phase 6a brings up the process group and builds the sharded trainer; the
+parallel-layout step is timed after phase 6b, and the group is destroyed
+before phase 9.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
@@ -858,7 +862,8 @@ def check_hm_kernels(results, rejected):
 # -- phase 2, rows 3, 5 and 6: head-major flash attention ---------------------------
 
 # the flagship's backbone attention as the sharded blocks run it (tp=1: all 12
-# heads of 64 per rank): served / teacher at B=8, trained at B=24, T=1190
+# heads of 64 per rank) in the parallel train step at B=24, T=1190: the
+# teacher's forward (row 3), the student's LSE forward and backward (5, 6)
 FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T = 12, 64, 1190
 
 
@@ -926,8 +931,8 @@ def check_flash_hm_kernels(results, rejected):
 
     h, d, t = FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T
     cases = [  # (b, t, h, d, strided, main path?)
-        (8, t, h, d, True, True),
-        (24, t, h, d, True, False),
+        (8, t, h, d, True, False),
+        (24, t, h, d, True, True),
         (8, t, h, 32, False, False),
         (2, 37, 4, 64, True, False),
         (2, 130, 2, 32, False, False),
@@ -2099,13 +2104,13 @@ def time_hm_kernels(results):
 
 
 def time_flash_hm_kernels(results):
-    """Rows 3, 5 and 6 at the sharded flagship's shapes (row 3 at the served
-    and teacher B=8 of row 1's timing, rows 5 and 6 at the trained B=24), q/k/v
-    strided views of [B, 1190, 2304] projections as the sharded blocks hand
-    them over, the backward as the autograd Function calls it (with delta,
-    workspace zeroing and casts); their plain versions; SDPA forward, and
-    its backward through autograd, on the same views. The bounds are rows 1,
-    7 and 8's at the same shapes."""
+    """Rows 3, 5 and 6 at the shape the parallel train step gives them (B=24:
+    the sharded teacher's forward, the student's LSE forward and backward),
+    q/k/v strided views of [B, 1190, 2304] projections as the sharded blocks
+    hand them over, the backward as the autograd Function calls it (with
+    delta, workspace zeroing and casts); their plain versions; SDPA forward,
+    and its backward through autograd, on the same views. The bounds are
+    rows 7 and 8's at the same shape (row 3's equals row 5's without the LSE)."""
     import torch
     import torch.nn.functional as F
 
@@ -2120,15 +2125,14 @@ def time_flash_hm_kernels(results):
 
     h, d, n = FLASH_HM_HEADS, FLASH_HM_DIM, FLASH_HM_T
     c = h * d
-    b = 8
+    b = sum(TRAIN_SPLIT)
     q, k, v = flash_hm_inputs(b, n, h, d, seed=0)
     r = results["flash_attention"]
     r["ms"] = cuda_ms(lambda: flash_attention(q, k, v))
-    r["plain_ms"] = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5)
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=3)
     r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     bound(r, 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2)
 
-    b = sum(TRAIN_SPLIT)
     q, k, v = flash_hm_inputs(b, n, h, d, seed=1)
     do = hm_grad_output(b, n, h, d, seed=2)
     r = results["flash_attention_lse"]
@@ -2406,6 +2410,20 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         trainer, train_batch = train(results)
         log(f"train phase {time.perf_counter() - t0:.1f} s")
+    if "timing" in phases:
+        # the single-device paths are timed before the process group and the
+        # sharded trainer exist, as in the runs before the parallel layout
+        t0 = time.perf_counter()
+        time_kernels(results)
+        batch_ms = time_serving(engine, batches, per_window=40)
+        step_ms = time_training(trainer, train_batch)
+        log(f"flagship timing phase {time.perf_counter() - t0:.1f} s")
+        if "profile" in phases:
+            profile_serving(engine, batches, batch_ms)
+            profile_training(trainer, train_batch, step_ms)
+    del engine, trainer
+    torch.cuda.empty_cache()
+
     mesh = parallel_init() if phases & {"parallel_train", "timing"} else None
     if phases & {"train_parity", "parallel_train"}:
         # one CPU f32 trajectory holds the single-device and the parallel card paths
@@ -2424,19 +2442,14 @@ def main(argv=None) -> int:
         log(f"multichip dry-run phase {time.perf_counter() - t0:.1f} s")
     if "timing" in phases:
         t0 = time.perf_counter()
-        time_kernels(results)
-        batch_ms = time_serving(engine, batches, per_window=40)
-        step_ms = time_training(trainer, train_batch)
         par_step_ms = time_training(
             par_trainer, par_batch, what="parallel-layout train",
             parts="frontend, augmentation, teacher, student forward and backward on the 1 x 1 "
                   "mesh, gradient all-reduce, clip, AdamW, EMA")
-        log(f"flagship timing phase {time.perf_counter() - t0:.1f} s")
+        log(f"parallel-layout timing phase {time.perf_counter() - t0:.1f} s")
         if "profile" in phases:
-            profile_serving(engine, batches, batch_ms)
-            profile_training(trainer, train_batch, step_ms)
             profile_training(par_trainer, par_batch, par_step_ms, what="parallel-layout train")
-    del engine, trainer, par_trainer
+    del par_trainer
     torch.cuda.empty_cache()
     import torch.distributed as dist
 

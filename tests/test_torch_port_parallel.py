@@ -34,7 +34,10 @@ from transformer4sed_tpu.parallel.partition import partition_specs as jax_partit
 from transformer4sed_tpu.utils.torch_import import convert_torch_checkpoint
 from transformer4sed_tpu_torch.kernels import _build
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
+from transformer4sed_tpu_torch.models.cnn import BatchRows, draw_dropout
+from transformer4sed_tpu_torch.models.vit import Block
 from transformer4sed_tpu_torch.parallel import Mesh, device_prefetch, dryrun, multihost, put_batch
+from transformer4sed_tpu_torch.parallel.mesh import per_row_draws, shard_train_step
 from transformer4sed_tpu_torch.parallel.partition import partition_specs
 from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherTrainer
 from transformer4sed_tpu_torch.utils.weights import jax_params_to_state_dict
@@ -217,15 +220,17 @@ def test_batch_and_eval_splits_match_jax():
 
 
 def test_batch_rows_give_every_rank_an_equal_share_of_each_subset():
-    """``put_batch`` on rank (data 1 of 2) of a [strong 4 | weak 2 | unlabeled 2]
-    batch, and ``device_prefetch`` keeping order and rows; the mesh is built
-    by hand (the row selection needs no process group)."""
+    """``Mesh.batch_rows`` on rank (data 1 of 2) of a [strong 4 | weak 2 |
+    unlabeled 2] batch, ``put_batch`` keeping the rank's contiguous share, and
+    ``device_prefetch`` keeping order and rows; the mesh is built by hand (the
+    row selection needs no process group)."""
     mesh = Mesh(data=2, model=1, member=True, data_index=1, model_index=0, world_group=None,
                 data_group=None, model_group=None, device=torch.device("cpu"))
+    assert mesh.batch_rows((4, 2, 2)).tolist() == [2, 3, 5, 7]
     batch = {"wav": torch.arange(8.0)[:, None].expand(8, 3), "labels": [np.arange(8)]}
-    got = put_batch(batch, mesh, sizes=(4, 2, 2))
-    assert got["wav"][:, 0].tolist() == [2.0, 3.0, 5.0, 7.0]
-    assert got["labels"][0].tolist() == [2, 3, 5, 7]
+    got = put_batch(batch, mesh)
+    assert got["wav"][:, 0].tolist() == [4.0, 5.0, 6.0, 7.0]
+    assert got["labels"][0].tolist() == [4, 5, 6, 7]
     assert mesh.batch_rows((8,)).tolist() == [4, 5, 6, 7]
     assert mesh.local_sizes((4, 2, 2)) == [2, 1, 1]
     with pytest.raises(ValueError, match="does not split"):
@@ -233,6 +238,41 @@ def test_batch_rows_give_every_rank_an_equal_share_of_each_subset():
     stream = [torch.full((4, 2), float(i)) for i in range(5)]
     out = list(device_prefetch(iter(stream), mesh, size=2))
     assert [x[:, 0].tolist() for x in out] == [[float(i)] * 2 for i in range(5)]
+
+
+def test_dropout_masks_follow_the_global_batch_only_where_drawn_for_it():
+    """A CNN dropout mask drawn with this rank's ``BatchRows`` is those rows
+    of the global batch's mask; a mask that does not lead with those rows
+    raises; ``shard_train_step`` refuses a model with other per-row draws
+    over more than one data rank, and takes it over one."""
+    rows = BatchRows(torch.tensor([2, 3, 5, 7]), 8)
+    whole = draw_dropout(torch.Generator().manual_seed(0), (8, 5, 3), 0.5, "cpu")
+    part = draw_dropout(torch.Generator().manual_seed(0), (4, 5, 3), 0.5, "cpu", rows)
+    assert torch.equal(part, whole[rows.index])
+    with pytest.raises(ValueError, match="rows of the global batch"):
+        draw_dropout(torch.Generator().manual_seed(0), (5, 4, 3), 0.5, "cpu", rows)
+
+    class Trainer:
+        def __init__(self, model):
+            self.model, self.mesh = model, None
+
+        def models(self):
+            return (self.model,)
+
+        def step(self):
+            pass
+
+    def mesh(data):
+        return Mesh(data=data, model=1, member=True, data_index=0, model_index=0,
+                    world_group=None, data_group=None, model_group=None,
+                    device=torch.device("cpu"))
+
+    block = Block(8, 2, drop=0.1)
+    assert per_row_draws(block) == ["attn.proj_drop", "mlp.drop"] and per_row_draws(Block(8, 2)) == []
+    with pytest.raises(NotImplementedError, match="attn.proj_drop"):
+        shard_train_step(Trainer(block), mesh(2))
+    trainer = Trainer(block)
+    assert shard_train_step(trainer, mesh(1)) == trainer.step and trainer.mesh.data == 1
 
 
 # -- the gloo ranks ----------------------------------------------------------------------

@@ -25,7 +25,10 @@
 // operand is padded or copied. This is the plain first version: no TMA,
 // no wgmma, no double buffering of the K/V tiles. The shared-memory pitch
 // HD + 8 keeps the fragment loads conflict-free at HD = 32 (20-word rows) as
-// at 64 (36-word rows).
+// at 64 (36-word rows). Four blocks share an SM (16 warps to hide the mma
+// and exp latencies), which holds the kernel to 128 registers a thread: the
+// batch, head and row strides of four operands took it to 133 otherwise,
+// and three blocks an SM ran it 15 % slower.
 #pragma once
 
 #include "mma.cuh"
@@ -35,10 +38,11 @@ namespace t4s {
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 64;
 constexpr int FA_THREADS = 128;
+constexpr int FA_MIN_BLOCKS = 4;  // per SM: 65536 registers / (4 * 128 threads) = 128 each
 constexpr int FA_PAD = 8;
 
 template <int HD, bool WITH_LSE>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, FA_MIN_BLOCKS)
 flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
                  float* __restrict__ lse, int n, float scale_log2) {
   constexpr int LD = HD + FA_PAD;      // pitch of the Q and K tiles

@@ -13,17 +13,16 @@ training the keep masks come from the ``torch.Generator`` passed to
 ``forward``. They are as large as the activations, so they are drawn on the
 activations' device: a generator that lives elsewhere (a CPU generator,
 whose small draws are the same for a model on any device) only seeds one
-there (:func:`device_generator`). Under data parallelism each rank draws the
-mask of the whole global batch and keeps its rows (:func:`global_batch_rows`),
-so a mask does not depend on the layout. ``DynamicConv2d``, ``FDY_CNN``,
-``ResNet`` and ``DropBlock2D`` are not ported yet (ROADMAP.md, queue 1, item 10).
+there (:func:`device_generator`). Under data parallelism the trainer passes
+this rank's :class:`BatchRows` to ``forward``: each rank then draws the mask
+of the whole global batch and keeps its rows, so a mask does not depend on
+the layout. ``DynamicConv2d``, ``FDY_CNN``, ``ResNet`` and ``DropBlock2D``
+are not ported yet (ROADMAP.md, queue 1, item 10).
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -94,35 +93,31 @@ def device_generator(gen: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-# (global row indices of this rank's batch, global batch size) while a
-# data-parallel step runs its forwards; None otherwise
-_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar("global_rows", default=None)
+class BatchRows(NamedTuple):
+    """This rank's rows of the global batch in a data-parallel step: their
+    global indices and the global batch size."""
+
+    index: torch.Tensor
+    total: int
 
 
-@contextlib.contextmanager
-def global_batch_rows(rows: torch.Tensor, global_batch: int):
-    """Within the block, a dropout mask for a batch of ``len(rows)`` rows is
-    drawn for ``global_batch`` rows and these ``rows`` of it are kept: every
-    rank then consumes the generator as one process running the global batch
-    does, and gets the rows that process would give it."""
-    token = _GLOBAL_ROWS.set((rows, global_batch))
-    try:
-        yield
-    finally:
-        _GLOBAL_ROWS.reset(token)
-
-
-def draw_dropout(gen: torch.Generator, shape, rate: float, device) -> torch.Tensor:
+def draw_dropout(gen: torch.Generator, shape, rate: float, device,
+                 rows: Optional[BatchRows] = None) -> torch.Tensor:
     """The scaled keep mask of one dropout call: 1 / (1 - rate) where kept, 0
-    where dropped (drawn on the generator's device, moved to ``device``)."""
+    where dropped (drawn on the generator's device, moved to ``device``).
+    With ``rows``, ``shape`` leads with those rows: the mask is drawn for the
+    whole global batch and they are kept, so every rank consumes the
+    generator as one process running the global batch does and gets the
+    rows that process would give it."""
     shape = tuple(shape)
-    sharded = _GLOBAL_ROWS.get()
-    if sharded is not None and shape[0] == len(sharded[0]):
-        rows, total = sharded
-        keep = torch.rand((total,) + shape[1:], generator=gen, device=gen.device) >= rate
-        keep = keep.index_select(0, rows.to(keep.device))
-    else:
+    if rows is None:
         keep = torch.rand(shape, generator=gen, device=gen.device) >= rate
+    else:
+        if shape[0] != len(rows.index):
+            raise ValueError(f"a dropout mask of shape {shape} for {len(rows.index)} rows of the "
+                             "global batch")
+        keep = torch.rand((rows.total,) + shape[1:], generator=gen, device=gen.device) >= rate
+        keep = keep.index_select(0, rows.index.to(keep.device))
     return keep.to(device=device, dtype=torch.float32) / (1.0 - rate)
 
 
@@ -160,9 +155,11 @@ class CNN(nn.Module):
             c_in = c_out
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                rows: Optional[BatchRows] = None) -> torch.Tensor:
         """In training with ``conv_dropout`` the keep masks are drawn from
-        ``generator``, or taken from ``dropout_masks`` (one scaled NHWC mask
+        ``generator`` (for the global batch when ``rows`` gives this rank's
+        rows of it), or taken from ``dropout_masks`` (one scaled NHWC mask
         per layer, as :func:`draw_dropout` makes them)."""
         dt = self.compute_dtype
         drop = self.training and self.conv_dropout > 0
@@ -180,7 +177,7 @@ class CNN(nn.Module):
             h = getattr(self.cnn, self._act_names[i])(h)
             if drop:
                 mask = (dropout_masks[i] if dropout_masks is not None
-                        else draw_dropout(generator, h.shape, self.conv_dropout, h.device))
+                        else draw_dropout(generator, h.shape, self.conv_dropout, h.device, rows))
                 h = h * mask.to(h.dtype)
             h = F.avg_pool2d(h.permute(0, 3, 1, 2), (pt, pf))
         return h

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from transformer4sed_tpu_torch.core.pooling_math import linear_softmax_pool
-from transformer4sed_tpu_torch.models.cnn import CNN
+from transformer4sed_tpu_torch.models.cnn import CNN, BatchRows
 from transformer4sed_tpu_torch.models.htsat import create_htsat_model
 from transformer4sed_tpu_torch.models.interpolate import interpolate_time, resize_time
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
@@ -86,18 +86,21 @@ class HTSAT_CNN(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+        rows: Optional[BatchRows] = None,
     ) -> SEDOutput:
         """BatchNorm and dropout follow the module's mode (``model.train()``
         / ``model.eval()``); ``train`` is accepted so the trainers call every
         model alike, and must agree with that mode. The CNN's dropout masks
-        are drawn from ``generator`` (or given as ``dropout_masks``)."""
+        are drawn from ``generator`` (or given as ``dropout_masks``); in a
+        data-parallel step, for the global batch, of which ``rows`` are this
+        rank's."""
         if train != self.training:
             raise ValueError(f"train={train} but the module is in "
                              f"{'training' if self.training else 'eval'} mode")
         feat = self.backbone(mel)["fine_grained_embedding"]  # [B, T', C]
         x = interpolate_time(feat, self.backbone_upsample_ratio, "linear")
         if self.cnn is not None:
-            cnn_feat = self.cnn(mel, generator=generator, dropout_masks=dropout_masks)
+            cnn_feat = self.cnn(mel, generator=generator, dropout_masks=dropout_masks, rows=rows)
             assert cnn_feat.shape[-1] == 1  # [B, C, T'', 1]
             cnn_feat = resize_time(cnn_feat[:, :, :, 0].transpose(1, 2), x.shape[1], "linear")
             x = self.transformer_projector(x) + self.merge_weight * self.cnn_projector(cnn_feat)

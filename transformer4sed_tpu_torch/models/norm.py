@@ -12,9 +12,11 @@ carry torch's names (``weight``, ``bias``, ``running_mean``,
 
 Under data parallelism (``mesh`` set by ``parallel.shard_train_step``) the
 statistics are the global batch's, as GSPMD computes them in the JAX
-package: one all-reduce over the ``data`` group of the count, the sum and the
-sum of squares in float32, differentiated as a sum over ranks, and the
-unbiased running variance from the global count. Per-replica statistics
+package: one all-reduce over the ``data`` group of the sum and the sum of
+squares in float32, differentiated as a sum over ranks, and the unbiased
+running variance from the global count, which is the local count times the
+``data`` size (every rank holds an equal share of the global batch,
+``Mesh.batch_rows``), so no count is read back to the host. Per-replica statistics
 (torch ``DataParallel``'s) would differ at the scale of the activations' RMS.
 """
 
@@ -45,13 +47,12 @@ class RefBatchNorm(nn.Module):
             mean = xf.mean(axes)
             return mean, (xf - mean).square().mean(axes), xf.numel() // c
         flat = xf.reshape(-1, c)
-        count = flat.new_full((1,), float(flat.shape[0]))
-        sums = all_reduce_sum(torch.cat([flat.sum(0), flat.square().sum(0), count]),
+        n = flat.shape[0] * self.mesh.data  # equal shares on every rank
+        sums = all_reduce_sum(torch.cat([flat.sum(0), flat.square().sum(0)]),
                               self.mesh.data_group)
-        n = sums[-1]
         mean = sums[:c] / n
-        var = torch.clamp(sums[c:2 * c] / n - mean.square(), min=0.0)
-        return mean, var, int(n.item())
+        var = torch.clamp(sums[c:] / n - mean.square(), min=0.0)
+        return mean, var, n
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from transformer4sed_tpu_torch.models.cnn import CNN
+from transformer4sed_tpu_torch.models.cnn import CNN, BatchRows
 from transformer4sed_tpu_torch.models.interpolate import resize_time
 from transformer4sed_tpu_torch.models.layers import Dense
 from transformer4sed_tpu_torch.models.passt_sed import _LATER, PaSST_SED
@@ -66,10 +66,12 @@ class PaSST_CNN(PaSST_SED):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+        rows: Optional[BatchRows] = None,
     ) -> SEDOutput:
         """``train`` must agree with the module's mode, which BatchNorm and the
         CNN's dropout follow. The CNN's dropout masks are drawn from
-        ``generator`` (or given as ``dropout_masks``)."""
+        ``generator`` (or given as ``dropout_masks``); in a data-parallel
+        step, for the global batch, of which ``rows`` are this rank's."""
         if encoder_win:
             raise NotImplementedError(f"encoder_win (sliding-window fusion) {_LATER}")
         if self.cnn is not None and train != self.training:
@@ -78,7 +80,7 @@ class PaSST_CNN(PaSST_SED):
         x, backbone_out = self._encode_frames(mel, train, generator)
         if self.cnn is not None:
             cnn_feat = self.cnn(mel.transpose(1, 2)[:, None], generator=generator,
-                                dropout_masks=dropout_masks)  # [B, C, T', F']
+                                dropout_masks=dropout_masks, rows=rows)  # [B, C, T', F']
             if cnn_feat.shape[-1] != 1:
                 raise ValueError("the CNN branch must pool frequency to 1, got "
                                  f"{tuple(cnn_feat.shape)}")

@@ -11,11 +11,12 @@ rank needs for that: the world group, the process group of its ``data`` axis
 its device. The model axis is innermost, so a model group is consecutive
 ranks, as in the JAX layout.
 
-  * :func:`put_batch` keeps this rank's rows of a global batch. A batch made
-    of subsets (the mean teacher's [strong | weak | unlabeled]) gives each
-    rank an equal share of every subset, so that every mean-form loss is the
-    mean of the ranks' local means, which is what averaging the gradients over
-    the ``data`` group computes.
+  * :func:`put_batch` keeps this rank's contiguous share of a global batch.
+    For a batch made of subsets (the mean teacher's [strong | weak |
+    unlabeled]) the trainers keep :meth:`Mesh.batch_rows`, an equal share of
+    every subset, so that every mean-form loss is the mean of the ranks'
+    local means, which is what averaging the gradients over the ``data``
+    group computes.
   * :func:`shard_train_step` attaches the mesh to a trainer. Its step then
     keeps the rank's rows after the augmentation, averages the gradients over
     the ``data`` group after the backward, clips by the global norm of the
@@ -124,8 +125,7 @@ class Mesh:
         return {**metrics, **{k: vals[i] for i, k in enumerate(keys)}}
 
 
-def build_mesh(data: int, model: int, device: Optional[torch.device] = None,
-               first_rank: int = 0) -> Mesh:
+def build_mesh(data: int, model: int, first_rank: int = 0) -> Mesh:
     """The data x model layout of ranks [first_rank, first_rank + data*model),
     the model axis innermost. Every rank of the world must call it, in the
     same order (torch.distributed builds groups collectively)."""
@@ -147,35 +147,33 @@ def build_mesh(data: int, model: int, device: Optional[torch.device] = None,
                 world_group=world_group if member else None,
                 data_group=data_groups[m_idx] if member else None,
                 model_group=model_groups[d_idx] if member else None,
-                device=device if device is not None else _default_device())
+                device=_default_device())
 
 
-def make_mesh(n_devices: Optional[int] = None, device: Optional[torch.device] = None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     """All ``n_devices`` ranks (default: the world) on the ``data`` axis, a
     ``model`` axis of one. Fails loudly on a short world."""
     n = n_devices if n_devices is not None else dist.get_world_size()
-    return build_mesh(n, 1, device)
+    return build_mesh(n, 1)
 
 
-def make_2d_mesh(n_devices: Optional[int] = None, model_parallel: int = 2,
-                 device: Optional[torch.device] = None) -> Mesh:
+def make_2d_mesh(n_devices: Optional[int] = None, model_parallel: int = 2) -> Mesh:
     """('data', 'model') layout of ``n_devices`` ranks (default: the world),
     the model axis innermost."""
     n = n_devices if n_devices is not None else dist.get_world_size()
     if n % model_parallel:
         raise ValueError(f"{n} ranks not divisible by model_parallel={model_parallel}")
-    return build_mesh(n // model_parallel, model_parallel, device)
+    return build_mesh(n // model_parallel, model_parallel)
 
 
-def put_batch(batch: Any, mesh: Mesh, sizes: Optional[Sequence[int]] = None) -> Any:
+def put_batch(batch: Any, mesh: Mesh) -> Any:
     """This rank's rows of a global batch (a tensor, or a dict / list /
-    tuple of them, each with the batch leading): an equal share of each
-    subset of ``sizes`` (default: the whole batch as one subset)."""
+    tuple of them, each with the batch leading): its contiguous share. A
+    trainer whose batch is made of subsets keeps an equal share of each
+    through :meth:`Mesh.batch_rows` itself."""
 
     def rows_of(x):
-        n = x.shape[0]
-        idx = mesh.batch_rows(sizes if sizes is not None else (n,)).to(x.device)
-        return x.index_select(0, idx)
+        return x.index_select(0, mesh.batch_rows((x.shape[0],)).to(x.device))
 
     return _tree_map(rows_of, batch)
 
@@ -207,27 +205,47 @@ def shard_train_step(trainer, mesh: Mesh):
     trainer, so that its optimizer holds the shards."""
     if not mesh.member:
         raise ValueError("this rank is outside the mesh")
+    for model in trainer.models():
+        drawn = per_row_draws(model)
+        if drawn and mesh.data > 1:
+            raise NotImplementedError(
+                f"{drawn} draw per row, and the data-parallel step draws only the CNN branch's "
+                "dropout for the global batch: each rank would draw its own")
     trainer.mesh = mesh
     for model in trainer.models():
         attach_mesh(model, mesh)
     return trainer.step
 
 
-def device_prefetch(iterator, mesh: Optional[Mesh] = None, size: int = 2,
-                    device: Optional[torch.device] = None):
-    """Batches moved to the device ``size`` steps ahead (non-blocking copies
-    from pinned memory where the device is a card); with a mesh, this rank's
-    rows only."""
+def per_row_draws(model: torch.nn.Module) -> List[str]:
+    """What in ``model`` makes random draws row by row other than the CNN
+    branch's dropout (which the trainers draw for the global batch): ViT
+    dropout and DropPath, PaSST's token dropout at non-zero rates, and the
+    MLM masker."""
+    from transformer4sed_tpu_torch.models.passt import PaSST
+    from transformer4sed_tpu_torch.models.vit import Attention, Block, Mlp
+
+    rates = ((Mlp, "drop"), (Attention, "proj_drop"), (Block, "drop_path"), (PaSST, "drop_rate"))
+    found = []
+    for name, m in model.named_modules():
+        found += [f"{name}.{attr}" for cls, attr in rates if isinstance(m, cls) and getattr(m, attr)]
+        if getattr(m, "masker", None) is not None:
+            found.append(f"{name}.masker" if name else "masker")
+    return found
+
+
+def device_prefetch(iterator, mesh: Optional[Mesh] = None, size: int = 2):
+    """Batches moved ``size`` steps ahead to the mesh's device (without a
+    mesh, the card), by non-blocking copies from pinned memory where that
+    device is a card; with a mesh, this rank's rows only."""
     import collections
     import itertools
 
-    dev = device if device is not None else (mesh.device if mesh is not None else None)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
 
     def put(batch):
         if mesh is not None:
             batch = put_batch(batch, mesh)
-        if dev is None:
-            return batch
         return _tree_map(lambda x: (x.pin_memory() if dev.type == "cuda" else x).to(
             dev, non_blocking=True), batch)
 

@@ -121,10 +121,10 @@ def shard_eval_items(items: Sequence, pi: Optional[int] = None,
     return list(items[pi::pc])
 
 
-def make_global_batch(local_batch: Any, mesh, sizes: Optional[Sequence[int]] = None) -> Any:
+def make_global_batch(local_batch: Any, mesh) -> Any:
     """This rank's rows of a global batch: :func:`parallel.mesh.put_batch`.
     Each rank computes on its own rows, so no global array is assembled."""
-    return put_batch(local_batch, mesh, sizes)
+    return put_batch(local_batch, mesh)
 
 
 # -- host-object gathering (eval scores) ------------------------------------------

@@ -30,11 +30,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-import contextlib
 
 from transformer4sed_tpu_torch.core import losses as L
 from transformer4sed_tpu_torch.frontend import augment
-from transformer4sed_tpu_torch.models.cnn import global_batch_rows
+from transformer4sed_tpu_torch.models.cnn import BatchRows
 from transformer4sed_tpu_torch.parallel.partition import sharded_param_ids
 from transformer4sed_tpu_torch.train.optim import (
     ParamGroupConfig,
@@ -135,19 +134,19 @@ def make_supervised_loss_fn(model: torch.nn.Module, frontend, cfg: SupervisedCon
     """Loss of the supervised step (preprocess + training-mode forward):
     ``loss_fn(batch, gen, draw=None, dropout_masks=None, rows=None) -> (loss,
     metrics)``; ``rows`` (global row indices) keeps those rows of the
-    preprocessed global batch."""
+    preprocessed global batch, and the model draws its CNN dropout masks for
+    the global batch and keeps them too."""
     loss_of = L.loss_function_factory(cfg.loss_name, cfg.loss_kwargs)
     preprocess = make_supervised_preprocess(frontend, cfg, device)
 
     def loss_fn(batch, gen, draw=None, dropout_masks=None, rows=None):
         mel, labels = preprocess(batch, gen, draw)
-        rows_ctx = contextlib.nullcontext()
+        batch_rows = None
         if rows is not None:
-            rows_ctx = global_batch_rows(rows, mel.shape[0])
+            batch_rows = BatchRows(rows, mel.shape[0])
             mel, labels = mel.index_select(0, rows), labels.index_select(0, rows)
         extra = {} if dropout_masks is None else {"dropout_masks": dropout_masks}
-        with rows_ctx:
-            out = model(mel, train=True, generator=gen, **extra, **cfg.model_kwargs)
+        out = model(mel, train=True, generator=gen, rows=batch_rows, **extra, **cfg.model_kwargs)
         loss_strong = loss_of(out.strong.float(), labels)
         return loss_strong, {"loss_class_strong": loss_strong.detach()}
 

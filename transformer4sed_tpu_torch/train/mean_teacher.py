@@ -25,15 +25,15 @@ of it and keeps its rows: an equal share of each subset. Mixup pairs rows
 across a whole subset, so a row's partner may sit on another rank; running
 the augmentation globally keeps every draw (fmin/fmax, shift, mixup, the
 filt_aug views) and every partner as one process would have them, with no
-gather, for the price of the frontend on the global batch. The dropout masks
-are drawn for the global batch too (``models/cnn.py``). The losses are then
+gather, for the price of the frontend on the global batch. The CNN branch's
+dropout masks are drawn for the global batch too: the step passes the
+models this rank's ``BatchRows`` (``models/cnn.py``). The losses are then
 means over the local rows, whose mean over the ``data`` group is the global
 loss, and the gradients are averaged over that group.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import math
@@ -45,7 +45,7 @@ import torch
 from transformer4sed_tpu_torch.core import losses as L
 from transformer4sed_tpu_torch.core.ema import ema_update
 from transformer4sed_tpu_torch.frontend import augment
-from transformer4sed_tpu_torch.models.cnn import global_batch_rows
+from transformer4sed_tpu_torch.models.cnn import BatchRows
 from transformer4sed_tpu_torch.parallel.partition import sharded_param_ids
 from transformer4sed_tpu_torch.train.optim import (
     ParamGroupConfig,
@@ -218,19 +218,22 @@ class MeanTeacherTrainer:
         cfg = self.cfg
         stu_mel, tch_mel, labels, weak_tags = preprocess(self.frontend, cfg, batch, generator,
                                                          self.device)
-        rows_ctx = contextlib.nullcontext()
+        draws = {}
         if self.mesh is not None:
             sizes = (cfg.strong_num, cfg.weak_num, cfg.unlabel_num)
             rows = self.mesh.batch_rows(sizes).to(self.device)
-            rows_ctx = global_batch_rows(rows, stu_mel.shape[0])
+            if getattr(self.student, "cnn", None) is not None:
+                # the CNN branch's dropout: the per-row draw these models make
+                # (shard_train_step refuses models with others)
+                draws["rows"] = BatchRows(rows, stu_mel.shape[0])
             stu_mel, tch_mel, labels = (x.index_select(0, rows) for x in (stu_mel, tch_mel, labels))
             s, w, u = self.mesh.local_sizes(sizes)
             weak_tags = labels[s:s + w].sum(-1)  # this rank's weak rows of the global tags
             cfg = dataclasses.replace(cfg, strong_num=s, weak_num=w, unlabel_num=u)
-        with rows_ctx:
-            with torch.no_grad():
-                tch = self.teacher(tch_mel, train=True, generator=generator, **cfg.tch_kwargs)
-            stu = self.student(stu_mel, train=True, generator=generator, **cfg.stu_kwargs)
+        with torch.no_grad():
+            tch = self.teacher(tch_mel, train=True, generator=generator, **draws,
+                               **cfg.tch_kwargs)
+        stu = self.student(stu_mel, train=True, generator=generator, **draws, **cfg.stu_kwargs)
         total, metrics = mean_teacher_losses(stu, tch, labels, weak_tags, self.step_count, cfg)
         self.student.zero_grad(set_to_none=True)  # frozen params too: they are in no group
         total.backward()
