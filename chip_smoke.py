@@ -8,10 +8,14 @@
     python3 chip_smoke.py --phases build,pmam_serve,pmam_train  # the PMAM paths, no timing
     python3 chip_smoke.py --phases build,flash_hm_kernels  # the head-major flash kernels alone
     python3 chip_smoke.py --phases build,parallel_train,multichip_dryrun  # the parallel layouts
+    python3 chip_smoke.py --phases build,bias_kernels,variant_kernels,masked_decoder  # rows 4, 16
+    python3 chip_smoke.py --phases build,finetune2_serve,finetune2_train  # the sliding windows
 
-Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, and its
-MLM pretrain step, phases 17 and 18), HTSAT_CNN (phases 9 to 12) and PMAM's
-PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
+Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
+MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
+19, and finetune2's sliding windows, phases 20 to 23), HTSAT_CNN (phases 9 to
+12) and PMAM's PaSST_CNN (phases 13 to 16, and its finetune2 step in 22 and
+23). Phases, in order (19 runs right after 2); any failure exits non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
@@ -36,7 +40,15 @@ PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
      [B, 1190, 2304] projections), [8, 12, 1190, 32] contiguous and ragged
      T = 37 and 130, with four more planted faults (k's head stride taken as
      its row stride, the last key tile dropped, an LSE shifted by log 2 in
-     the backward, dk of head h written to head h+1);
+     the backward, dk of head h written to head h+1); the biased flash
+     forward (row 4) at [8, 12, 1000, 64] and [8, 12, 1000, 32] with a banded,
+     key-masked bias and a fully masked row, ragged T = 37 and 130 (one with
+     a batch-expanded bias), four more planted faults (bias dropped, read
+     transposed, last key tile dropped, -inf for -1e30) and its backward
+     against autograd of the plain version; the flash variants (row 16, A
+     and B) at the entry point's [64, 12, 1190, 64] and ragged T, one more
+     planted fault (the padded tail counted), then the entry point at [64, 12,
+     1190, 64];
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
      flagship (PaSST 768/12/12 tapped at layer 10, 3-layer Transformer-XL
@@ -114,11 +126,34 @@ PaSST_CNN (phases 13 to 16). Phases, in order; any failure exits non-zero:
      an unchanged encoder;
  18. MLM train parity: 3 steps at B=3 with shift and views off and the mask
      drawn alike, CPU f32 against card bf16, held as in phase 6;
-then, inside phases 7 and 8, the window, head-major XL and head-major flash
-kernels' times beside their bounds and plain versions (and SDPA for the window
-and flash kernels), the parallel-layout train steps/s beside phase 7's, and
-HTSAT_CNN's and PMAM's served clips/s, the train steps/s of HTSAT_CNN, PMAM
-and MLM, peak memory and profiles. Phases 7 and 8 time and profile the
+ 19. masked decoder: the flagship's 3-layer XL decoder at B=8, T=1000, with
+     a per-head band (DECODER_BANDS) given as band widths (row 2; rows 12
+     and 13 with gradients) and as an explicit [H, T, T] mask (row 4, its
+     backward by recompute): outputs and gradients agree, the launch
+     counters show which kernel ran, and three planted faults in the masked
+     path (the position scores one key off, pos_bias_u and pos_bias_v
+     swapped, the gradients 5 % large) fall outside the agreement's limits;
+ 20. finetune2 served: the flagship with config/mat-sed/finetune2.yaml's
+     windows (512 frames at a step of 31: 17 windows in two width groups)
+     serving the clips of phase 3, row 1 once per block of the clip's
+     backbone call and once per block up to the tap layer of each window
+     group's;
+ 21. the same weights on the short clip, CPU f32 against card bf16;
+ 22. finetune2 train: mean-teacher steps with student and teacher windowed
+     at the shipped batch (4 | 4 | 4), then PMAM's finetune2 step (teacher
+     windowed at [512, 49], student not) at 6 | 6 | 6: finite losses and the
+     launches of rows 1, 7, 8 per backbone call (a window group's stops at
+     the tap layer);
+ 23. finetune2 train parity: both steps, 2 steps at B=3 with windows of 512
+     at a step of 490 (two width groups), CPU f32 against card bf16, held as
+     in phase 6;
+then, inside phases 7 and 8, the window, head-major XL, head-major flash,
+biased and variant flash kernels' times beside their bounds and plain versions
+(and SDPA for the window and flash kernels, with the bias as a float mask for
+row 4), rows 1, 7 and 8 at the window shape, the parallel-layout train steps/s
+beside phase 7's, and HTSAT_CNN's, PMAM's and finetune2's served clips/s, the
+train steps/s of HTSAT_CNN, PMAM, MLM and both finetune2 steps, peak memory
+and profiles. Phases 7 and 8 time and profile the
 flagship's kernels and single-device paths right after phase 5, before
 phase 6a brings up the process group and builds the sharded trainer; the
 parallel-layout step is timed after phase 6b, and the group is destroyed
@@ -132,6 +167,7 @@ line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -142,9 +178,11 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "parallel_train",
           "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train", "htsat_train_parity",
           "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity", "mlm_train",
-          "mlm_train_parity", "timing", "profile")
+          "mlm_train_parity", "masked_decoder", "finetune2_serve", "finetune2_parity",
+          "finetune2_train", "finetune2_train_parity", "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
-SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "htsat_timing", "pmam_timing")
+SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
+              "variant_kernels", "htsat_timing", "pmam_timing")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -284,11 +322,14 @@ def kernel_wrappers():
     from transformer4sed_tpu_torch.kernels import window_attention as wa
     from transformer4sed_tpu_torch.kernels import xl_attention as xa
 
+    from transformer4sed_tpu_torch.exps import flash_variants as fv
+
     fns = (fa.flash_attention_nhd, xa.flash_xl_attention_nhd, fa.flash_attention_nhd_lse,
            fa.flash_attention_nhd_backward, xa.flash_xl_attention_nhd_lse,
            xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward,
            xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward,
-           fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_backward)
+           fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_backward,
+           fa.flash_attention_bias, fv.flash_a)
     return {f.__name__: f for f in fns}
 
 
@@ -391,6 +432,8 @@ def check_kernels(results):
     check_window_kernels(results, rejected)
     check_hm_kernels(results, rejected)
     check_flash_hm_kernels(results, rejected)
+    check_bias_kernels(results, rejected)
+    check_variant_kernels(results, rejected)
     check(not any(rejected), "the kernel check let a planted fault through")
     log(f"all {len(rejected)} planted faults fall outside the bound")
 
@@ -1062,7 +1105,10 @@ def build_engine(device, dtype, state_dict=None):
     return engine
 
 
-def serve(engine, results):
+def serve(engine, results, per_batch=None, what="served"):
+    """Three host batches through ``engine``: launches per batch as
+    ``per_batch`` says (the flagship's 12 and 3 by default, then recorded),
+    shapes, finiteness, events, zero padded frames."""
     import numpy as np
 
     clips = synthetic_clips(20, seed=1)
@@ -1071,14 +1117,15 @@ def serve(engine, results):
     reset_launches()
     served = list(engine.score_batches(batches))
     launches = read_launches()
-    log(f"served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
+    log(f"{what} {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
         f"launches {launches}")
     want = {name: 0 for name in launches}
-    want.update(flash_attention_nhd=12 * len(batches), flash_xl_attention_nhd=3 * len(batches))
-    check(launches == want,
-          f"kernel launches {launches} on the served path, expected {want} (12 and 3 per batch)")
-    results["flash_attention_nhd"]["launches"] = launches["flash_attention_nhd"]
-    results["flash_xl_attention_nhd"]["launches"] = launches["flash_xl_attention_nhd"]
+    want.update({k: n * len(batches) for k, n in
+                 (per_batch or dict(flash_attention_nhd=12, flash_xl_attention_nhd=3)).items()})
+    check(launches == want, f"kernel launches {launches} on the {what} path, expected {want}")
+    if per_batch is None:
+        results["flash_attention_nhd"]["launches"] = launches["flash_attention_nhd"]
+        results["flash_xl_attention_nhd"]["launches"] = launches["flash_xl_attention_nhd"]
 
     t_frames = engine.codec.n_frames
     n_events = 0
@@ -1100,21 +1147,22 @@ def serve(engine, results):
     return batches
 
 
-def parity(card_engine, batches, build=None, what="flagship"):
-    """The same weights on 2 clips in eval mode: CPU f32 (plain versions)
-    against the card's bf16 (kernels), on strong, weak and at_out."""
+def parity(card_engine, batches, build=None, what="flagship", clips=slice(4, 6)):
+    """The same weights on ``clips`` of the first batch (clip 5 is the short
+    one) in eval mode, with the engine's forward kwargs: CPU f32 (plain
+    versions) against the card's bf16 (kernels), on strong, weak and at_out."""
     import numpy as np
     import torch
 
     state = {k: v.detach().cpu() for k, v in card_engine.model.state_dict().items()}
     cpu_engine = (build or build_engine)("cpu", torch.float32, state_dict=state)
-    wav = torch.from_numpy(batches[0]["wav"][4:6].copy())  # clip 5 is the short one
-    pm = torch.from_numpy(batches[0]["pad_mask"][4:6].copy())
+    wav = torch.from_numpy(batches[0]["wav"][clips].copy())
+    pm = torch.from_numpy(batches[0]["pad_mask"][clips].copy())
     outs = {}
     for name, engine in (("cpu_f32", cpu_engine), ("card_bf16", card_engine)):
         with torch.no_grad():
             mel = engine.frontend.normalize(engine.frontend(wav.to(engine.device)))
-            out = engine.model(mel, pad_mask=pm.to(engine.device), temp_w=0.5)
+            out = engine.model(mel, pad_mask=pm.to(engine.device), **engine.model_kwargs)
         outs[name] = {k: getattr(out, k).float().cpu().numpy() for k in ("strong", "weak", "at_out")}
     worst = 0.0
     for key in ("strong", "weak", "at_out"):
@@ -1704,10 +1752,12 @@ def pmam_serve(engine, results):
     return batches
 
 
-def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None):
+def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None,
+                       tch_kwargs=None):
     """The recipe's mean-teacher trainer over PaSST_CNN: the config's loss
     weights, transform and param groups, clip 20; ``augment=False`` turns mixup,
-    shift and views off, ``dropout=False`` the CNN's conv_dropout."""
+    shift and views off, ``dropout=False`` the CNN's conv_dropout; ``tch_kwargs``
+    replaces the teacher's forward kwargs."""
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
     from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherConfig, MeanTeacherTrainer
     from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
@@ -1717,6 +1767,8 @@ def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None):
     s, w, u = split
     off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0, n_transform=0)
     cfg = MeanTeacherConfig(strong_num=s, weak_num=w, unlabel_num=u, **{**PMAM_MT, **off})
+    if tch_kwargs is not None:
+        cfg = dataclasses.replace(cfg, tch_kwargs=dict(tch_kwargs))
     groups = {k: GroupSpec(**v) for k, v in PMAM_OPT.items()}
     return MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
                               ParamGroupConfig(**groups, clip_grad=20.0))
@@ -1869,6 +1921,406 @@ def mlm_train_parity():
     trainer_parity("MLM", cpu, card, batch, PARITY_STEPS, "loss_mlm", lambda t: (t.model,))
 
 
+# -- row 4: flash attention with an additive score bias -------------------------------
+
+BIAS_HEADS, BIAS_T = 12, 1000
+# the masked and the band-width decoder, both bf16, compute one function
+# through two kernels that differ only in f32 sums; an output's bf16 rounding
+# can flip, and each of the three blocks carries its residual on: 8 ulps of
+# the largest output
+MASKED_OUT_REL = 2.0 ** -5
+# the same two decoders' gradients over the input and every param: one
+# function through two bf16 kernels read cosine 0.999986 and norm ratio
+# 0.99996 on the card (PERF.md section 2); the limits sit between that and the
+# planted faults' readings
+MASKED_GRAD_COS = 0.9999
+MASKED_GRAD_RATIO_TOL = 1e-3
+# per-head band widths of the masked-decoder phase (no shipped config sets
+# decoder_win_len): narrow to wider than the sequence
+DECODER_BANDS = (8, 16, 32, 48, 64, 96, 128, 200, 256, 400, 640, 2000)
+MASKED_BATCH = 8
+
+
+def bias_inputs(b, t, h, d, seed, expand_batch=False):
+    """(q, k, v, bias, mask) as the XL attention's masked branch hands them
+    to row 4: q, k, v [B, H, T, d] strided views of a [B, T, 3*H*d]
+    projection, and an f32 bias [B, H, T, T] of position-like scores with
+    -1e30 where blocked. Blocked: a per-head band, the last keys of batch 0
+    (a key mask), and every key of row 3 (a fully masked row). With
+    ``expand_batch`` the bias is one batch's expanded (batch stride 0)."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.xl import build_band_mask
+
+    q, k, v = flash_hm_inputs(b, t, h, d, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    widths = [DECODER_BANDS[i % len(DECODER_BANDS)] for i in range(h)]
+    mask = torch.as_tensor(build_band_mask(t, widths), device="cuda")[None].repeat(b, 1, 1, 1)
+    mask[0, :, :, t - t // 8:] = True
+    mask[:, :, 3, :] = True
+    scores = torch.randn(1 if expand_batch else b, h, t, t, generator=gen, device="cuda")
+    bias = torch.where(mask[:1] if expand_batch else mask, -1e30, scores)
+    if expand_batch:
+        bias, mask = bias.expand(b, h, t, t), mask[:1].expand(b, h, t, t)
+    return q, k, v, bias, mask
+
+
+def check_bias_kernels(results, rejected):
+    """Row 4 against its plain version in f32 on the same bf16 inputs: the
+    masked decoder's [8, 12, 1000, 64] (main path) and PMAM's [8, 12, 1000,
+    32], ragged T = 37 and 130 (the latter with a batch-expanded bias); a
+    per-head band, a key mask and a fully masked row in each. Then four
+    planted faults: the bias dropped, the bias read transposed, the last key
+    tile dropped, -inf in place of -1e30. Then the autograd Function's
+    gradients against autograd of the plain version."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention_bias,
+        flash_attention_bias_reference,
+    )
+
+    cases = [  # (b, h, t, d, expand the batch?, main path?)
+        (MASKED_BATCH, BIAS_HEADS, BIAS_T, 64, False, True),
+        (MASKED_BATCH, BIAS_HEADS, BIAS_T, 32, False, False),
+        (2, 4, 37, 64, False, False),
+        (3, 2, 130, 32, True, False),
+    ]
+    for b, h, t, d, expand, main in cases:
+        tag = f"B={b} H={h} T={t} d={d}{' batch-expanded bias' if expand else ''}"
+        q, k, v, bias, mask = bias_inputs(b, t, h, d, seed=t + d, expand_batch=expand)
+        scale = d ** -0.5
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = flash_attention_bias_reference(qf, kf, vf, bias, scale)
+        ref_abs_v = flash_attention_bias_reference(qf, kf, vf.abs(), bias, scale)
+        out = flash_attention_bias(q, k, v, bias, scale)
+        check(out.shape == q.shape, "flash_attention_bias keeps the shape")
+        ok, mx = held(f"kernel flash_attention_bias {tag}", out, ref, ref_abs_v)
+        check(ok, "flash_attention_bias disagrees with its plain version")
+        if main:
+            results["flash_attention_bias"]["max_abs_err"] = mx
+            out = flash_attention_bias(q, k, v, torch.zeros_like(bias), scale)
+            rejected.append(held("planted fault: bias dropped", out, ref, ref_abs_v)[0])
+            out = flash_attention_bias(q, k, v, bias.transpose(-1, -2).contiguous(), scale)
+            rejected.append(held("planted fault: bias read transposed", out, ref,
+                                 ref_abs_v)[0])
+            m = t // 64 * 64  # a kernel that skipped the ragged last key tile
+            out = flash_attention_bias(q[:, :, :m], k[:, :, :m], v[:, :, :m],
+                                       bias[:, :, :m, :m], scale)
+            rejected.append(held(f"planted fault: last {t - m} keys dropped", out,
+                                 ref[:, :, :m], ref_abs_v[:, :, :m])[0])
+            out = flash_attention_bias(q, k, v, bias.masked_fill(mask, float("-inf")), scale)
+            rejected.append(held("planted fault: -inf in place of -1e30 (the fully masked row)",
+                                 out, ref, ref_abs_v)[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+
+    # the backward: the Function's gradients against autograd of the plain version
+    b, h, t, d = 2, 4, 130, 64
+    q, k, v, bias, _ = bias_inputs(b, t, h, d, seed=5)
+    do = grad_output((b, h, t, d), seed=6)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+    flash_attention_bias(*leaves, d ** -0.5).backward(do)
+    got = [x.grad for x in leaves]
+    plain = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+    flash_attention_bias_reference(*plain, d ** -0.5).backward(do)
+    for name, g, x, want in zip(("dq", "dk", "dv", "dbias"), got, leaves, plain):
+        diff = float((g.float() - want.grad.float()).abs().max())
+        log(f"FlashAttentionBias backward {name} ({g.dtype}) against autograd of the plain "
+            f"version: max_abs_diff {diff:.3e}")
+        check(g.dtype == x.dtype and diff == 0.0,
+              f"FlashAttentionBias's {name} differs from the plain version's gradient")
+
+
+# -- row 16: the flash variants' experiment ---------------------------------------------
+
+VARIANT_SHAPE = (64, 12, 1190, 64)  # exps/flash_variants.py's default
+
+
+def check_variant_kernels(results, rejected):
+    """Row 16, variants A and B, against the plain version in f32 on the
+    same bf16 inputs, at the entry point's VARIANT_SHAPE [64, 12, 1190, 64]
+    (main path; the plain version's f32 scores take 4.4 GB) and ragged T = 37
+    and 130; one planted fault at the main shape (the zero keys of the padded
+    tail counted in the row sum: the inputs padded to whole tiles). Then the
+    experiment's entry point at its default [64, 12, 1190, 64]; its launches
+    are the path's count."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.exps import flash_variants as fv
+    from transformer4sed_tpu_torch.kernels.flash_attention import flash_attention_reference
+
+    cases = [(*VARIANT_SHAPE, True), (2, 4, 37, 64, False), (2, 2, 130, 32, False)]
+    for b, h, t, d, main in cases:
+        q, k, v = flash_hm_inputs(b, t, h, d, seed=t + d + 2, strided=False)
+        scale = d ** -0.5
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = flash_attention_reference(qf, kf, vf, scale)
+        ref_abs_v = flash_attention_reference(qf, kf, vf.abs(), scale)
+        for use_exp2 in (False, True):
+            tag = f"{'B tail+exp2' if use_exp2 else 'A tail-mask'} B={b} H={h} T={t} d={d}"
+            out = fv.flash_a(q, k, v, scale, use_exp2)
+            ok, mx = held(f"kernel flash_a {tag}", out, ref, ref_abs_v)
+            check(ok, "flash_a disagrees with its plain version")
+            if main:
+                r = results["flash_a"]
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), mx)
+        if main:
+            pad = (0, 0, 0, -t % 64)
+            out = fv.flash_a(*(F.pad(x, pad) for x in (q, k, v)), scale)[:, :, :t]
+            rejected.append(held("planted fault: the padded tail's zero keys counted", out, ref,
+                                 ref_abs_v)[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+    reset_launches()
+    got = fv.main([str(VARIANT_SHAPE[0]), str(VARIANT_SHAPE[2])])
+    launches = read_launches()
+    log(f"flash_variants main launches: {launches}")
+    check(launches["flash_a"] > 0 and launches["flash_attention"] > 0,
+          "the experiment's entry point did not launch row 16 and row 3")
+    results["flash_a"]["launches"] = launches["flash_a"]
+    results["flash_a"]["ms"] = got["A tail-mask"]["ms"]
+
+
+def masked_decoder(results):
+    """The flagship's 3-layer XL decoder at full width (B=8, T=1000, 12 heads
+    of 64), bf16, with the per-head band DECODER_BANDS given two ways: as
+    band widths (row 2 without gradients, rows 12 and 13 with) and as an
+    explicit [H, T, T] mask through the masked branch (row 4, its backward
+    by recompute). Outputs and gradients (input and every param) agree
+    within MASKED_OUT_REL, MASKED_GRAD_COS and MASKED_GRAD_RATIO_TOL; the
+    launch counters show which kernel ran. Then three planted faults in the
+    masked path must each fall outside one of those limits: the position
+    scores one key off (rel_shift rolled), pos_bias_u and pos_bias_v swapped,
+    the gradients 5 % large."""
+    import contextlib
+
+    import torch
+
+    from transformer4sed_tpu_torch.models import xl
+    from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder, build_band_mask
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    b, t, c, h = MASKED_BATCH, BIAS_T, 768, BIAS_HEADS
+    dec = init_weights_(TransformerXLDecoder(c, 3, h, 1000, window_len=DECODER_BANDS,
+                                             dtype=torch.bfloat16), seed=3).cuda()
+    mask = torch.as_tensor(build_band_mask(t, list(DECODER_BANDS)), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(b, t, c, generator=gen, device="cuda")
+    g = torch.randn(b, t, c, generator=gen, device="cuda")
+    n_params = len(list(dec.parameters()))
+
+    def masked(inp):  # the decoder's forward, the band handed in as a mask
+        pos_emb = dec.pos_emb(t)
+        inp = inp * c ** 0.5
+        for blk in dec.encoder_blocks:
+            inp = blk(inp, pos_emb, mask=mask)
+        return inp
+
+    def run(name, fn):
+        """(output f32, gradient over input and params as one f64 vector);
+        logs and returns the launches without and with gradients."""
+        reset_launches()
+        with torch.no_grad():
+            out = fn(x).float()
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        xi = x.clone().requires_grad_()
+        dec.zero_grad(set_to_none=True)
+        fn(xi).float().backward(g)
+        grad = torch.cat([xi.grad.flatten().double()]
+                         + [p.grad.flatten().double() for p in dec.parameters()])
+        torch.cuda.synchronize()
+        train = {k: n - fwd[k] for k, n in read_launches().items()}
+        log(f"masked decoder, {name}: launches without grad {fwd}, with grad {train}")
+        return out, grad, fwd, train
+
+    def agree(what, a, ga, m, gm):
+        rel = float((a - m).abs().max() / a.abs().max())
+        cos = float(ga @ gm / (ga.norm() * gm.norm()))
+        ratio = float(gm.norm() / ga.norm())
+        ok = (rel <= MASKED_OUT_REL and cos > MASKED_GRAD_COS
+              and abs(ratio - 1.0) <= MASKED_GRAD_RATIO_TOL)
+        log(f"{what}: output max_abs_diff / max|out| {rel:.4e} (limit {MASKED_OUT_REL}); "
+            f"gradient over input and {n_params} params cosine {cos:.6f} (limit "
+            f"{MASKED_GRAD_COS}), norm ratio {ratio:.6f} (limit 1 +- {MASKED_GRAD_RATIO_TOL}): "
+            f"{'within' if ok else 'OUTSIDE'}")
+        return ok
+
+    @contextlib.contextmanager
+    def planted(attr, fn):  # the masked branch with one of its helpers replaced
+        orig = getattr(xl, attr)
+        setattr(xl, attr, fn(orig))
+        try:
+            yield
+        finally:
+            setattr(xl, attr, orig)
+
+    a, ga, band_fwd, band_train = run("band widths", dec)
+    m, gm, mask_fwd, mask_train = run("explicit mask", masked)
+    want = {k: 0 for k in band_fwd}
+    check(band_fwd == dict(want, flash_xl_attention_nhd=3)
+          and band_train == dict(want, flash_xl_attention_nhd_lse=3,
+                                 flash_xl_attention_nhd_backward=3)
+          and mask_fwd == dict(want, flash_attention_bias=3)
+          and mask_train == dict(want, flash_attention_bias=3),
+          "the masked decoder's paths launched other kernels than rows 2 / 12, 13 / 4")
+    results["flash_attention_bias"]["launches"] = mask_fwd["flash_attention_bias"]
+    check(agree("masked decoder: explicit mask vs band widths", a, ga, m, gm),
+          "the masked decoder disagrees with the band-width decoder")
+
+    rejected = []
+    with planted("rel_shift", lambda f: lambda s: f(s).roll(1, dims=-1)):
+        fm, fgm = run("planted fault: position scores one key off", masked)[:2]
+    rejected.append(agree("planted fault: position scores one key off", a, ga, fm, fgm))
+    with planted("add_pos_bias", lambda f: lambda q, u, v, heads: f(q, u, v, heads)[::-1]):
+        fm, fgm = run("planted fault: pos_bias_u and pos_bias_v swapped", masked)[:2]
+    rejected.append(agree("planted fault: pos_bias_u and pos_bias_v swapped", a, ga, fm, fgm))
+    rejected.append(agree("planted fault: the masked path's gradients 5 % large", a, ga, m,
+                          gm * 1.05))
+    check(not any(rejected), "the masked-decoder check let a planted fault through")
+    log(f"all {len(rejected)} masked-decoder planted faults fall outside the limits")
+
+
+# -- finetune2: the sliding-window encoder ------------------------------------------
+
+# the blocks a window group's backbone call runs: it stops at the tap layer
+# (PaSST 768/12/12 tapped at layer 10, the flagship's and PMAM's)
+TAP = FLAGSHIP["passt_feature_layer"]
+# config/mat-sed/finetune2.yaml: train_stu_kwargs, train_tch_kwargs, test_kwargs
+FT2 = dict(encoder_win=True, win_param=(512, 31), mix_rate=0.5)
+# training.batch_size [3, 1, 4, 4] (finetune1's): strong 3 + synth 1 | weak 4 | unlabeled 4
+FT2_SPLIT = (4, 4, 4)
+FT2_TRAIN_STEPS = 2
+# the CPU f32 parity windows 512 frames at a step of 490: two windows a clip
+# (512 and a ragged 511, two width groups) where the config's step of 31
+# makes 17; each step's CPU time stays near twice the plain flagship's
+FT2_PARITY = dict(FT2, win_param=(512, 490))
+FT2_PARITY_STEPS = 2
+# config/pmam/finetune2.yaml: the teacher windowed at [512, 49], the student not;
+# training.batch_size [4, 2, 6, 6]: strong 6 | weak 6 | unlabeled 6
+PMAM_FT2_TCH = dict(encoder_win=True, win_param=(512, 49), mix_rate=0.5, temp_w=1)
+PMAM_FT2_SPLIT = (6, 6, 6)
+MEL_FRAMES = 1001  # PasstFrontend: 10-s clips at hop 320, centred
+
+
+def window_groups(win_param):
+    """The number of backbone calls a clip's windows take (width groups)."""
+    from transformer4sed_tpu_torch.models.slide import width_groups
+
+    return len(width_groups(MEL_FRAMES, *win_param))
+
+
+def build_ft2_engine(device, dtype, state_dict=None):
+    engine = build_engine(device, dtype, state_dict)
+    engine.model_kwargs.update(FT2)
+    return engine
+
+
+def finetune2_serve(results):
+    """The flagship served with finetune2's windows (B=8; 20 clips, 8, 8 and a
+    ragged 4): shapes, finiteness, events, and per batch row 1 in each of the
+    clip's 12 blocks and in each window group's blocks up to the tap layer
+    (TAP), row 2 three times."""
+    import torch
+
+    t0 = time.perf_counter()
+    engine = build_ft2_engine("cuda", torch.bfloat16)
+    per_batch = dict(flash_attention_nhd=12 + TAP * window_groups(FT2["win_param"]),
+                     flash_xl_attention_nhd=3)
+    batches = serve(engine, results, per_batch=per_batch,
+                    what="finetune2 served")
+    log(f"finetune2 serve phase {time.perf_counter() - t0:.1f} s")
+    return engine, batches
+
+
+def build_ft2_trainer(device, dtype, split, augment, state_dict=None, kwargs=FT2):
+    trainer = build_trainer(device, dtype, split, augment, state_dict)
+    trainer.cfg = dataclasses.replace(trainer.cfg, stu_kwargs=dict(kwargs),
+                                      tch_kwargs=dict(kwargs))
+    return trainer
+
+
+def finetune2_train(results):
+    """Mean-teacher steps of the full-width flagship with finetune2's windows
+    for student and teacher at the shipped batch (4 | 4 | 4), default
+    augmentation; per step row 1 (the teacher) and row 7 in each of the
+    clip's 12 blocks and each window group's TAP blocks (a window's backbone
+    call stops at the tap layer), row 8 in the blocks that feed an output
+    (the clip's 12, each window group's TAP), rows 2, 12, 13 three times;
+    then PMAM's finetune2 step (teacher windowed at [512, 49], student not) at
+    6 | 6 | 6. Returns both (trainer, batch) pairs for the timing phase."""
+    import torch
+
+    n_win = window_groups(FT2["win_param"])
+    t0 = time.perf_counter()
+    trainer = build_ft2_trainer("cuda", torch.bfloat16, FT2_SPLIT, augment=True)
+    batch = synthetic_train_batch(FT2_SPLIT, seed=16)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(FT2_TRAIN_STEPS):
+        values = finite_metrics(trainer.step(batch, gen))
+        log(f"finetune2 train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    per_step = dict(flash_attention_nhd=12 + TAP * n_win, flash_xl_attention_nhd=3,
+                    flash_attention_nhd_lse=12 + TAP * n_win,
+                    flash_attention_nhd_backward=12 + TAP * n_win,
+                    flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
+    want = {name: 0 for name in launches}
+    want.update({k: n * FT2_TRAIN_STEPS for k, n in per_step.items()})
+    log(f"finetune2 train launches over {FT2_TRAIN_STEPS} steps: {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(launches == want, f"kernel launches {launches} on the finetune2 path, expected {want}")
+    log(f"finetune2 train phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    p_trainer = build_pmam_trainer("cuda", torch.bfloat16, PMAM_FT2_SPLIT, augment=True,
+                                   dropout=True, tch_kwargs=PMAM_FT2_TCH)
+    p_batch = synthetic_train_batch(PMAM_FT2_SPLIT, seed=17)
+    reset_launches()
+    for i in range(FT2_TRAIN_STEPS):
+        values = finite_metrics(p_trainer.step(p_batch, gen))
+        log(f"PMAM finetune2 train step {i}: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    per_step = dict(PMAM_TRAIN_LAUNCHES, flash_attention_nhd=(
+        PMAM_TRAIN_LAUNCHES["flash_attention_nhd"]
+        + TAP * window_groups(PMAM_FT2_TCH["win_param"])))
+    want = {name: 0 for name in launches}
+    want.update({k: n * FT2_TRAIN_STEPS for k, n in per_step.items()})
+    log(f"PMAM finetune2 train launches over {FT2_TRAIN_STEPS} steps: {launches}")
+    check(launches == want, f"kernel launches {launches} on PMAM's finetune2 path, expected {want}")
+    log(f"PMAM finetune2 train phase {time.perf_counter() - t0:.1f} s")
+    return (trainer, batch), (p_trainer, p_batch)
+
+
+def finetune2_train_parity():
+    """Both finetune2 steps, FT2_PARITY_STEPS steps at B=3 (1 | 1 | 1) without
+    augmentation (and PMAM without dropout), CPU f32 against card bf16
+    (:func:`trainer_parity`), windowed as FT2_PARITY says: the flagship's
+    student and teacher, PMAM's teacher."""
+    import torch
+
+    cpu = build_ft2_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False,
+                            kwargs=FT2_PARITY)
+    card = build_ft2_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
+                             state_dict=cpu.student.state_dict(), kwargs=FT2_PARITY)
+    trainer_parity("finetune2", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=18),
+                   FT2_PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
+    del cpu, card
+    tch = dict(PMAM_FT2_TCH, win_param=FT2_PARITY["win_param"])
+    cpu = build_pmam_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, dropout=False,
+                             tch_kwargs=tch)
+    card = build_pmam_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
+                              dropout=False, state_dict=cpu.student.state_dict(), tch_kwargs=tch)
+    trainer_parity("PMAM finetune2", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=19),
+                   FT2_PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
+
+
 # -- phase 7: timing ------------------------------------------------------------
 
 def time_kernels(results):
@@ -1911,6 +2363,9 @@ def time_kernels(results):
     time_window_kernels(results)
     time_hm_kernels(results)
     time_flash_hm_kernels(results)
+    time_bias_kernels(results)
+    time_variant_kernels(results)
+    time_window_shape_kernels()
     for name, r in results.items():
         log(f"time {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms), "
@@ -2155,6 +2610,87 @@ def time_flash_hm_kernels(results):
     torch.cuda.empty_cache()
 
 
+def time_bias_kernels(results):
+    """Row 4 at the masked decoder's shape (B=8, 12 heads, T=1000, d=64) with
+    its banded, key-masked bias; its plain version; SDPA with the bias as a
+    float ``attn_mask`` (in q's dtype, as SDPA takes it)."""
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention_bias,
+        flash_attention_bias_reference,
+    )
+
+    b, h, t, d = MASKED_BATCH, BIAS_HEADS, BIAS_T, 64
+    q, k, v, bias, _ = bias_inputs(b, t, h, d, seed=0)
+    scale = d ** -0.5
+    r = results["flash_attention_bias"]
+    r["ms"] = cuda_ms(lambda: flash_attention_bias(q, k, v, bias, scale))
+    r["plain_ms"] = cuda_ms(lambda: flash_attention_bias_reference(q, k, v, bias, scale), iters=3)
+    mask = bias.to(q.dtype)
+    r["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+    # q, k, v, the f32 bias in, o out
+    bound(r, 4.0 * b * h * t * t * d, 4.0 * b * h * t * d * 2 + b * h * t * t * 4)
+
+
+def time_variant_kernels(results):
+    """Row 16 at the experiment's [64, 12, 1190, 64] bf16: its time is the
+    entry point's own (variant A, phase 2), beside its plain version and
+    plain SDPA on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer4sed_tpu_torch.exps.flash_variants import flash_a_reference
+
+    b, h, n, d = VARIANT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    r = results["flash_a"]
+    r["plain_ms"] = cuda_ms(lambda: flash_a_reference(q, k, v, d ** -0.5), iters=3, warmup=1)
+    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bound(r, 4.0 * b * h * n * n * d, 4.0 * b * h * n * d * 2)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def time_window_shape_kernels():
+    """Rows 1, 7 and 8 at the shapes finetune2's window groups give them: the
+    served batch's 16 windows of 512 frames (B=8: 128 images of 602 tokens)
+    for row 1, the train step's (12 clips: 192 images) for rows 7 and 8;
+    logged beside their bounds (the record keeps the clip's shapes)."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        flash_attention_nhd,
+        flash_attention_nhd_backward,
+        flash_attention_nhd_lse,
+    )
+
+    n, c, h = 602, 768, 12
+    d = c // h
+    for b, name in ((8 * 16, "flash_attention_nhd"), (sum(FT2_SPLIT) * 16, "flash_attention_nhd_lse"),
+                    (sum(FT2_SPLIT) * 16, "flash_attention_nhd_backward")):
+        q, k, v = flash_inputs(b, n, c, seed=b)
+        if name == "flash_attention_nhd":
+            ms = cuda_ms(lambda: flash_attention_nhd(q, k, v, h))
+            flops, nbytes = 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2
+        elif name == "flash_attention_nhd_lse":
+            ms = cuda_ms(lambda: flash_attention_nhd_lse(q, k, v, h))
+            flops, nbytes = 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2 + b * h * n * 4
+        else:
+            o, lse = flash_attention_nhd_lse(q, k, v, h)
+            do = grad_output((b, n, c), seed=b + 1)
+            ms = cuda_ms(lambda: flash_attention_nhd_backward(q, k, v, o, lse, do, h))
+            flops, nbytes = 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4
+        t_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        log(f"time {name} at the window shape [{b}, {n}, {c}]: {ms:.4f} ms, bound "
+            f"{t_bound:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def bound(r, flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     r["bound_ms"] = max(t_ops, t_bytes)
@@ -2379,13 +2915,24 @@ def main(argv=None) -> int:
             "source": "transformer4sed_tpu_torch/csrc/flash_attention_hm_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/flash_attention.py:401",
         },
+        "flash_attention_bias": {
+            "name": "flash_attention_bias", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_bias.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:183",
+        },
+        "flash_a": {
+            "name": "flash_a", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_variants.cu",
+            "replaces": "exps/flash_variants.py:62",
+        },
     }
     if "kernels" in phases:
         t0 = time.perf_counter()
         check_kernels(results)
         torch.cuda.empty_cache()
         log(f"kernel check phase {time.perf_counter() - t0:.1f} s")
-    elif phases & {"window_kernels", "hm_kernels", "flash_hm_kernels"}:
+    elif phases & {"window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
+                   "variant_kernels"}:
         rejected = []
         if "window_kernels" in phases:
             check_window_kernels(results, rejected)
@@ -2393,8 +2940,17 @@ def main(argv=None) -> int:
             check_hm_kernels(results, rejected)
         if "flash_hm_kernels" in phases:
             check_flash_hm_kernels(results, rejected)
+        if "bias_kernels" in phases:
+            check_bias_kernels(results, rejected)
+        if "variant_kernels" in phases:
+            check_variant_kernels(results, rejected)
         check(not any(rejected), "the kernel check let a planted fault through")
         log(f"all {len(rejected)} planted faults fall outside the bound")
+    if "masked_decoder" in phases:
+        t0 = time.perf_counter()
+        masked_decoder(results)
+        torch.cuda.empty_cache()
+        log(f"masked decoder phase {time.perf_counter() - t0:.1f} s")
     engine = batches = None
     if phases & {"serve", "parity", "timing", "profile"}:
         t0 = time.perf_counter()
@@ -2535,6 +3091,37 @@ def main(argv=None) -> int:
             profile_serving(p_engine, p_batches, p_batch_ms, what="PMAM served")
             profile_training(p_trainer, p_train_batch, p_step_ms, what="PMAM train")
             profile_training(m_trainer, m_batch, m_step_ms, what="MLM train")
+    del p_engine, p_trainer, m_trainer
+    torch.cuda.empty_cache()
+
+    f_engine = f_batches = None
+    if phases & {"finetune2_serve", "finetune2_parity", "timing", "profile"}:
+        f_engine, f_batches = finetune2_serve(results)
+    if "finetune2_parity" in phases:
+        t0 = time.perf_counter()
+        parity(f_engine, f_batches, build_ft2_engine, what="finetune2", clips=slice(5, 6))
+        log(f"finetune2 parity phase {time.perf_counter() - t0:.1f} s")
+    if phases & {"timing", "profile"}:
+        f_batch_ms = time_serving(f_engine, f_batches, per_window=16, what="finetune2 served")
+        if "profile" in phases:
+            profile_serving(f_engine, f_batches, f_batch_ms, what="finetune2 served")
+    del f_engine
+    torch.cuda.empty_cache()
+    if phases & {"finetune2_train", "timing", "profile"}:
+        (f_trainer, f_batch), (pf_trainer, pf_batch) = finetune2_train(results)
+        if phases & {"timing", "profile"}:
+            f_step_ms = time_training(f_trainer, f_batch, what="finetune2 train")
+            pf_step_ms = time_training(pf_trainer, pf_batch, what="PMAM finetune2 train")
+            if "profile" in phases:
+                profile_training(f_trainer, f_batch, f_step_ms, what="finetune2 train")
+                profile_training(pf_trainer, pf_batch, pf_step_ms, what="PMAM finetune2 train")
+        del f_trainer, pf_trainer
+        torch.cuda.empty_cache()
+    if "finetune2_train_parity" in phases:
+        t0 = time.perf_counter()
+        finetune2_train_parity()
+        torch.cuda.empty_cache()
+        log(f"finetune2 train parity phase {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
         return 0
 

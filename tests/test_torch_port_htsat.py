@@ -9,7 +9,6 @@ state dict goes through the JAX package's ``convert_torch_checkpoint``.
 Inputs come from numpy with a seed; everything compares in float32.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +38,7 @@ from transformer4sed_tpu_torch.utils.weights import (
     jax_params_to_state_dict,
     load_jax_params,
 )
+from tests.torch_port_jax import jit0
 
 # the sizes of tests/test_htsat.py:tiny_htsat, with two blocks in stage 0 so
 # that one of them is shifted (resolution 16, window 4: 16 windows an image)
@@ -119,7 +119,7 @@ def test_htsat_frontend_matches_jax():
                     for i in range(2)]).astype(np.float32)
     fe = htsat.HTSATFrontend(device="cpu")
     got = fe.normalize(fe(torch.from_numpy(wav)))
-    want = jax.jit(lambda w: jax_htsat.HTSATFrontend()(w))(jnp.asarray(wav))
+    want = jit0(lambda w: jax_htsat.HTSATFrontend()(w))(jnp.asarray(wav))
     assert got.shape == (2, 1, 51, 64) and fe.draw_fminmax(torch.Generator()) is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_MEL_DB)
 
@@ -175,7 +175,7 @@ def test_tiny_htsat_matches_jax_all_outputs():
     assert port.layers[0].blocks[0].attn_mask is None and port.layers[1].blocks[0].shift_size == 0
     mel = _mel(2, seed=3)
     jmodel = jax_htsat.HTSAT(**TINY_HTSAT)
-    want = jax.jit(lambda v, m: jmodel.apply(v, m))(variables, jnp.asarray(mel))
+    want = jit0(lambda v, m: jmodel.apply(v, m))(variables, jnp.asarray(mel))
     with torch.no_grad():
         got = reloaded(torch.from_numpy(mel))
     assert got["latent_t"] == want["latent_t"] == 32
@@ -240,7 +240,7 @@ def tiny():
 @pytest.fixture(scope="module")
 def jax_eval(tiny):
     _, variables, jmodel = tiny
-    return jax.jit(lambda v, mel, pm: jmodel.apply(v, mel, pad_mask=pm, temp_w=0.5))
+    return jit0(lambda v, mel, pm: jmodel.apply(v, mel, pad_mask=pm, temp_w=0.5))
 
 
 def test_htsat_cnn_weights_round_trip_and_key_checks(tiny):
@@ -285,7 +285,7 @@ def test_tiny_htsat_cnn_train_mode_matches_jax_with_new_statistics(tiny):
     model = HTSAT_CNN(**TINY, device="cpu").train()
     model.load_state_dict(port.state_dict())
     mel = _mel(3, seed=7)
-    want, new = jax.jit(lambda v, m: jmodel.apply(v, m, train=True, temp_w=1.0,
+    want, new = jit0(lambda v, m: jmodel.apply(v, m, train=True, temp_w=1.0,
                                                   mutable=["batch_stats"]))(variables,
                                                                             jnp.asarray(mel))
     got = model(torch.from_numpy(mel), temp_w=1.0, train=True)
@@ -302,8 +302,8 @@ def test_tiny_htsat_cnn_train_mode_matches_jax_with_new_statistics(tiny):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(decoder="gru"), "queue 1, item 2"), (dict(decoder="conformer"), "queue 1, item 2"),
-    (dict(mlm_dict={"mask_rate": 0.75}), "queue 1, item 10"),
+    (dict(decoder="gru"), "queue 1, item 12"), (dict(decoder="conformer"), "queue 1, item 12"),
+    (dict(mlm_dict={"mask_rate": 0.75}), "queue 1, item 9"),
 ])
 def test_unported_htsat_cnn_options_raise_with_their_roadmap_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -315,7 +315,7 @@ def test_htsat_cnn_decoder_no_and_no_cnn_branch_match_jax():
     port = init_weights_(HTSAT_CNN(**cfg, device="cpu"), seed=2).eval()
     params, model_state = convert_torch_checkpoint(_np_state(port), "HTSAT_CNN")
     mel = _mel(2, seed=8)
-    want = jax.jit(lambda v, m: JaxHTSATCNN(**cfg).apply(v, m, temp_w=0.5))(
+    want = jit0(lambda v, m: JaxHTSATCNN(**cfg).apply(v, m, temp_w=0.5))(
         {"params": params, **model_state}, jnp.asarray(mel))
     with torch.no_grad():
         got = port(torch.from_numpy(mel), temp_w=0.5)
@@ -349,7 +349,7 @@ def test_inference_engine_serves_htsat_cnn_like_the_jax_pipeline(tiny, jax_eval)
                 "pad_mask": np.stack([c[1] for c in clips[i:i + 2]]),
                 "filename": [f"clip{j}.wav" for j in range(i, min(i + 2, 3))]} for i in (0, 2)]
     fe = htsat.HTSATFrontend(n_mels=MEL_F, device="cpu")
-    jfe = jax.jit(lambda w: jax_htsat.HTSATFrontend(n_mels=MEL_F)(w))
+    jfe = jit0(lambda w: jax_htsat.HTSATFrontend(n_mels=MEL_F)(w))
     engine = InferenceEngine(port, fe, codec, median_filter=7, batch_size=2,
                              model_kwargs={"temp_w": 0.5}, device="cpu")
     served = list(engine.score_batches(batches))

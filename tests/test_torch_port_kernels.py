@@ -22,6 +22,7 @@ from transformer4sed_tpu.models.htsat import _shift_attn_mask
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
 from transformer4sed_tpu_torch.kernels import window_attention as port_window
 from transformer4sed_tpu_torch.kernels import xl_attention as port_xl
+from tests.torch_port_jax import interpret0, jit0
 
 # the modules themselves (the package re-exports functions of the same names)
 jax_flash = importlib.import_module("transformer4sed_tpu.kernels.flash_attention")
@@ -45,16 +46,6 @@ ATOL_WINDOW = 2e-5
 ATOL_WINDOW_GRAD = 3e-5
 
 
-def _interpret(fn, *arrays, **static):
-    """``fn(*arrays, **static)`` with its Pallas kernels in interpret mode,
-    compiled as one program at XLA's lowest backend optimization level: that
-    takes about a third less time on the CPU than the default, and the
-    tolerances above hold."""
-    call = jax.jit(functools.partial(fn, interpret=True, **static))
-    return call.lower(*arrays).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*arrays)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     old = torch.get_num_threads()
@@ -73,7 +64,7 @@ def _qkv(b, t, c, seed):
 def test_flash_plain_matches_pallas(t, h, d):
     q, k, v = _qkv(2, t, h * d, seed=t + d)
     scale = d ** -0.5
-    ref = _interpret(_flash_nhd_forward, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    ref = interpret0(_flash_nhd_forward, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      heads=h, sm_scale=scale)
     ours = port_flash.flash_attention_nhd_reference(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), h, scale)
@@ -95,7 +86,7 @@ def test_xl_plain_matches_pallas(band):
     b, t, h, d = 2, 200, 4, 32
     arrays = _xl_data(b, t, h, d)
     scale = d ** -0.5
-    ref = _interpret(_xl_nhd_forward, *map(jnp.asarray, arrays), num_heads=h, sm_scale=scale,
+    ref = interpret0(_xl_nhd_forward, *map(jnp.asarray, arrays), num_heads=h, sm_scale=scale,
                      block_q=128, band_widths=band)
     ours = port_xl.xl_attention_nhd_reference(*map(torch.from_numpy, arrays), h, scale, band)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL)
@@ -132,7 +123,9 @@ def test_kernel_sources_name_their_tpu_kernels():
                           ("xl_attention_hm", ("_xl_forward", "_xl_forward_lse")),
                           ("xl_attention_hm_bwd", ("_xl_backward",)),
                           ("window_attention", ("_window_forward",)),
-                          ("window_attention_bwd", ("_window_backward",))):
+                          ("window_attention_bwd", ("_window_backward",)),
+                          ("flash_attention_bias", ("_flash_bias_forward",)),
+                          ("flash_variants", ("flash_a",))):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert all(f in src for f in tpu_fns) and "What bounds it" in src and 'extern "C"' in src
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
@@ -173,9 +166,9 @@ def test_flash_lse_and_backward_plain_match_pallas(t):
     g = np.random.RandomState(t).randn(b, t, h * d).astype(np.float32)
     scale = d ** -0.5
     jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
-    o, lse = _interpret(jax_flash._flash_nhd_forward_lse, jq, jk, jv, heads=h, sm_scale=scale,
+    o, lse = interpret0(jax_flash._flash_nhd_forward_lse, jq, jk, jv, heads=h, sm_scale=scale,
                         block_q=128)
-    grads = _interpret(jax_flash._flash_nhd_backward, jq, jk, jv, o, lse, jg, heads=h,
+    grads = interpret0(jax_flash._flash_nhd_backward, jq, jk, jv, o, lse, jg, heads=h,
                        sm_scale=scale, block_q=128)
     tq, tk, tv, tg = _t(q, k, v, g)
     ours_o, ours_lse = port_flash.flash_attention_nhd_lse(tq, tk, tv, h, scale)
@@ -199,8 +192,8 @@ def test_xl_lse_and_backward_plain_match_pallas(t, band):
     scale = d ** -0.5
     jarr = [jnp.asarray(a) for a in arrays]
     kw = dict(num_heads=h, sm_scale=scale, block_q=32, group=8, band_widths=band)
-    o, lse = _interpret(jax_xl._xl_nhd_forward_lse, *jarr, **kw)
-    grads = _interpret(jax_xl._xl_nhd_backward, *jarr, o, lse, jnp.asarray(g), **kw)
+    o, lse = interpret0(jax_xl._xl_nhd_forward_lse, *jarr, **kw)
+    grads = interpret0(jax_xl._xl_nhd_backward, *jarr, o, lse, jnp.asarray(g), **kw)
     tarr = _t(*arrays)
     ours_o, ours_lse = port_xl.flash_xl_attention_nhd_lse(*tarr, h, scale, band)
     np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
@@ -228,7 +221,7 @@ def test_autograd_functions_match_jax_vjp(kind):
     else:
         jfn = lambda *x: jax_xl.flash_xl_attention_nhd(*x, h, scale, (9, 14))  # noqa: E731
         tfn = lambda *x: port_xl.flash_xl_attention_nhd(*x, h, scale, (9, 14))  # noqa: E731
-    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+    out, want = jit0(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
         jnp.asarray(g), *map(jnp.asarray, arrays[:n_in]))
     leaves = [x.requires_grad_() for x in _t(*arrays[:n_in])]
     ours = tfn(*leaves)
@@ -320,9 +313,9 @@ def test_xl_head_major_plain_versions_match_pallas(t, d, band):
     *arrays, g = _hm_data(b, h, t, d, seed=t + d)
     kw = dict(sm_scale=0.25, block_q=32, block_k=32, group=8, band_widths=band)
     jarr = [jnp.asarray(a) for a in arrays]
-    fwd = _interpret(jax_xl._xl_forward, *jarr, **kw)
-    o, lse = _interpret(jax_xl._xl_forward_lse, *jarr, **kw)
-    grads = _interpret(jax_xl._xl_backward, *jarr, o, lse, jnp.asarray(g), **kw)
+    fwd = interpret0(jax_xl._xl_forward, *jarr, **kw)
+    o, lse = interpret0(jax_xl._xl_forward_lse, *jarr, **kw)
+    grads = interpret0(jax_xl._xl_backward, *jarr, o, lse, jnp.asarray(g), **kw)
     tarr = _t(*arrays)
     ours = port_xl.flash_xl_attention(*tarr, 0.25, band)
     np.testing.assert_allclose(ours.numpy(), np.asarray(fwd), atol=ATOL)
@@ -342,7 +335,7 @@ def test_xl_head_major_plain_forward_matches_the_blocked_pallas_body():
     forward covers it too."""
     *arrays, _ = _hm_data(2, 2, 100, 16, seed=11)
     jarr = [jnp.asarray(a) for a in arrays]
-    blocked = _interpret(jax_xl._xl_forward, *jarr, sm_scale=0.25, block_q=32, block_k=32,
+    blocked = interpret0(jax_xl._xl_forward, *jarr, sm_scale=0.25, block_q=32, block_k=32,
                          group=128)
     ours = port_xl.flash_xl_attention(*_t(*arrays), 0.25)
     np.testing.assert_allclose(ours.numpy(), np.asarray(blocked), atol=ATOL)
@@ -355,7 +348,7 @@ def test_xl_head_major_function_matches_jax_vjp(band):
     value and all five cotangents."""
     *arrays, g = _hm_data(2, 3, 40, 16, seed=12)
     jfn = lambda *x: jax_xl.flash_xl_attention(*x, 0.25, band)  # noqa: E731
-    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+    out, want = jit0(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
         jnp.asarray(g), *map(jnp.asarray, arrays))
     leaves = [x.requires_grad_() for x in _t(*arrays)]
     ours = port_xl.flash_xl_attention(*leaves, 0.25, band)
@@ -391,7 +384,7 @@ def test_xl_dispatch_at_head_dim_32_matches_jax(band):
     g = np.random.RandomState(15).randn(b, t, h * d).astype(np.float32)
     scale = d ** -0.5
     jfn = lambda *x: jax_xl.flash_xl_attention_nhd(*x, h, scale, band)  # noqa: E731
-    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
+    out, want = jit0(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(jfn, *x)))(
         jnp.asarray(g), *map(jnp.asarray, arrays))
     qkv = torch.from_numpy(np.concatenate(arrays[:3], -1)).requires_grad_()
     bu, bv, p = (x.requires_grad_() for x in _t(*arrays[3:]))
@@ -468,8 +461,8 @@ def test_window_plain_versions_match_pallas(bnw, n, h, d, n_windows, shifted):
     jshift = jnp.asarray(shift) if shifted else None
     jq, jk, jv, jbias, jg = map(jnp.asarray, (q, k, v, bias, g))
     kw = dict(n_windows=n_windows, sm_scale=scale)
-    out = _interpret(jax_window._window_forward, jq, jk, jv, jbias, jshift, **kw)
-    want = _interpret(jax_window._window_backward, jq, jk, jv, out, jg, jbias, jshift, **kw)
+    out = interpret0(jax_window._window_forward, jq, jk, jv, jbias, jshift, **kw)
+    want = interpret0(jax_window._window_backward, jq, jk, jv, out, jg, jbias, jshift, **kw)
     tq, tk, tv, tbias, tg, tout = _t(q, k, v, bias, g, out)
     tshift = torch.from_numpy(shift) if shifted else None
     ours = port_window.window_attention(tq, tk, tv, tbias, tshift, n_windows, scale)
@@ -492,7 +485,7 @@ def test_window_function_matches_jax_vjp_with_mask_gradient():
     g = np.random.RandomState(6).randn(bnw, n, h, d).astype(np.float32)
     scale = d ** -0.5
     fn = lambda *x: jax_window._xla_window_attention(*x, n_windows, scale)  # noqa: E731
-    out, want = jax.jit(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(fn, *x)))(
+    out, want = jit0(lambda g_, *x: (lambda o, f: (o, f(g_)))(*jax.vjp(fn, *x)))(
         jnp.asarray(g), *map(jnp.asarray, arrays))
     leaves = [x.requires_grad_() for x in _t(*arrays)]
     ours = port_window.swin_window_attention(*leaves, n_windows, scale)
@@ -532,3 +525,106 @@ def test_window_bf16_cotangents_keep_their_dtypes_and_bad_periods_raise():
     with pytest.raises(ValueError, match="multiple of n_windows"):
         jax_window._window_forward(*map(jnp.asarray, (q[:6], k[:6], v[:6], bias, shift)),
                                    n_windows, d ** -0.5, interpret=True)
+
+
+# -- row 4: flash attention with an additive score bias ---------------------------------
+
+
+def _bias_data(b, h, t, d, seed):
+    """q, k, v [B, H, T, d] and an f32 bias [B, H, T, T] with -1e30 where
+    blocked: a per-head band, the last keys of batch 0 and every key of row 1
+    (a fully masked row attends every real key alike)."""
+    from transformer4sed_tpu.models.xl import build_band_mask
+
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(b, h, t, d).astype(np.float32) for _ in range(3))
+    bias = rng.randn(b, h, t, t).astype(np.float32)
+    mask = np.broadcast_to(build_band_mask(t, [3, 9, 1, 40][:h]), bias.shape).copy()
+    mask[0, :, :, t - 5:] = True
+    mask[:, :, 1, :] = True
+    return q, k, v, np.where(mask, np.float32(-1e30), bias)
+
+
+@pytest.mark.parametrize("t", [37, 130])
+def test_bias_plain_matches_pallas_and_xla(t):
+    """Row 4's plain version against the reference's ``_xla_attention_bias``
+    and against ``_flash_bias_forward`` in interpret mode (T padded to its
+    blocks, three key blocks at T=130). A fully masked row (row 1, and the
+    narrow bands' last rows in batch 0) attends its T keys alike, as
+    ``_xla_attention_bias`` and the JAX backward have it; the Pallas kernel
+    masks its padded keys with the same -1e30 as a blocked one
+    (``_NEG_INF``), so there it averages over T_pad keys, the pad's V rows
+    zero: T / T_pad times the row's mean of V."""
+    arrays = _bias_data(2, 4, t, 16, seed=t)
+    scale = 16 ** -0.5
+    pallas = np.asarray(interpret0(jax_flash._flash_bias_forward, *map(jnp.asarray, arrays),
+                                   sm_scale=scale, block_q=64, block_k=64))
+    xla = jax_flash._xla_attention_bias(*map(jnp.asarray, arrays), scale)
+    ours = port_flash.flash_attention_bias_reference(*map(torch.from_numpy, arrays), scale)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(xla), atol=ATOL)
+    full = (arrays[3] <= -1e30).all(-1)  # row 1, and narrow bands in batch 0's masked tail
+    t_pad = -(-t // 64) * 64
+    want = np.where(full[..., None], pallas * t_pad / t, pallas)
+    np.testing.assert_allclose(ours.numpy(), want, atol=ATOL)
+    q, k, v, bias = map(torch.from_numpy, arrays)
+    before = port_flash.flash_attention_bias.launches
+    torch.testing.assert_close(port_flash.flash_attention_bias(q, k, v, bias, scale), ours)
+    assert port_flash.flash_attention_bias.launches == before  # CPU tensors: no kernel
+
+
+def test_bias_autograd_matches_jax_vjp():
+    """:class:`FlashAttentionBias` (the plain forward on the CPU, the backward
+    by recompute) against ``jax.vjp`` of ``flash_attention_bias``: dq, dk, dv
+    and dbias, zero where the bias blocks (but in a fully masked row, whose
+    keys all take part)."""
+    arrays = _bias_data(2, 4, 37, 16, seed=3)
+    g = np.random.RandomState(4).randn(2, 4, 37, 16).astype(np.float32)
+    scale = 16 ** -0.5
+    _, pull = jax.vjp(lambda q, k, v, b: jax_flash.flash_attention_bias(q, k, v, b, scale),
+                      *map(jnp.asarray, arrays))
+    want = pull(jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    port_flash.flash_attention_bias(*leaves, scale).backward(torch.from_numpy(g))
+    for name, leaf, w in zip(("dq", "dk", "dv", "dbias"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL_FLASH_GRAD,
+                                   err_msg=name)
+    blocked = arrays[3] <= -1e30
+    blocked &= ~blocked.all(-1, keepdims=True)
+    assert float(leaves[3].grad[blocked].abs().max()) == 0.0
+
+
+# -- row 16: the flash variants' experiment ---------------------------------------------
+
+
+class _InterpretPallas:
+    """``exps/flash_variants.py``'s ``pl`` with every ``pallas_call`` in
+    interpret mode (``flash_a`` takes no ``interpret`` argument)."""
+
+    def __init__(self, pl):
+        self.BlockSpec = pl.BlockSpec
+        self.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+
+
+@pytest.mark.parametrize("use_exp2", [False, True])
+def test_flash_variant_plain_matches_pallas(use_exp2, monkeypatch):
+    """Row 16's plain version against ``flash_a`` (variant A, and B with exp2)
+    run in interpret mode through a ``pl`` stand-in, at a T whose tail crosses
+    a 128-lane group."""
+    import importlib.util
+    from pathlib import Path
+
+    from transformer4sed_tpu_torch.exps import flash_variants as port_variants
+
+    path = Path(__file__).resolve().parents[1] / "exps" / "flash_variants.py"
+    spec = importlib.util.spec_from_file_location("jax_flash_variants", path)
+    jax_variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_variants)
+    monkeypatch.setattr(jax_variants, "pl", _InterpretPallas(jax_variants.pl))
+    q, k, v = (np.random.RandomState(9 + i).randn(1, 2, 150, 16).astype(np.float32)
+               for i in range(3))
+    scale = 16 ** -0.5
+    want = jit0(functools.partial(jax_variants.flash_a, sm_scale=scale,
+                                     use_exp2=use_exp2))(*map(jnp.asarray, (q, k, v)))
+    ours = port_variants.flash_a(*map(torch.from_numpy, (q, k, v)), scale, use_exp2)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), atol=ATOL)
+    assert port_variants.flash_a.launches == 0

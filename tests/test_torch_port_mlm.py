@@ -34,6 +34,7 @@ from transformer4sed_tpu_torch.utils.weights import (
     jax_params_to_state_dict,
     load_jax_params,
 )
+from tests.torch_port_jax import jit0
 
 # the tiny config of tests/test_torch_port_train.py in MLM mode (the pretrain
 # recipe's: no AT adapter, block masking of 75 % of the 10-frame segments)
@@ -263,7 +264,7 @@ def test_tiny_mlm_forward_matches_jax_on_its_draws(tiny, mask_keys):
     port, params, jmodel = tiny
     mel = (np.random.RandomState(8).randn(3, 128, FRAMES) * 0.5).astype(np.float32)
     rngs = {k: jax.random.PRNGKey(i) for i, k in enumerate(("patchout", "dropout", "mlm"))}
-    want = jax.jit(lambda p, m: jmodel.apply({"params": p}, m, train=True, rngs=rngs))(
+    want = jit0(lambda p, m: jmodel.apply({"params": p}, m, train=True, rngs=rngs))(
         params, jnp.asarray(mel))
     jax.effects_barrier()
     draws = _jax_mask_draws(jnp.asarray(mask_keys[-1]), port.masker, 3, FRAMES)
@@ -318,7 +319,7 @@ def test_mlm_trajectory_matches_jax_with_a_frozen_encoder(tiny, mask_keys):
     def apply(p, m, train=False, rngs=None, **kw):
         return jmodel.apply({"params": p}, m, train=train, rngs=rngs, **kw)
 
-    step_fn = jax.jit(jax_train_mlm.make_mlm_step(apply, _IdentityFrontend(), tx,
+    step_fn = jit0(jax_train_mlm.make_mlm_step(apply, _IdentityFrontend(), tx,
                                                   jax_train_mlm.MLMConfig(**off)))
     state = jax_train_mlm.create_mlm_state(params, tx)
     mel = (np.random.RandomState(9).randn(3, 128, FRAMES) * 0.5).astype(np.float32)

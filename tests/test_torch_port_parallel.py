@@ -12,14 +12,13 @@ against the JAX package on the CPU.
     phases over 2 ranks (1 / dp2 / dp1 x tp2) and over 4 (1 / dp4 /
     dp2 x tp2) at the JAX harness's tolerances, head-parallel attention
     gathered over the heads, the state dict gathered after ``shard_params``,
-    and the one-rank trajectory against the port's plain
-    ``MeanTeacherTrainer``.
+    global-batch BatchNorm statistics against the JAX ``RefBatchNorm``, and
+    the one-rank trajectory against the port's plain ``MeanTeacherTrainer``.
 
 Inputs come from numpy or torch with a seed; everything is float32.
 """
 
 import concurrent.futures
-import functools
 import importlib
 
 import flax
@@ -29,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from transformer4sed_tpu.models.norm import RefBatchNorm as JaxRefBatchNorm
 from transformer4sed_tpu.parallel import multihost as jax_multihost
 from transformer4sed_tpu.parallel.partition import partition_specs as jax_partition_specs
 from transformer4sed_tpu.utils.torch_import import convert_torch_checkpoint
@@ -41,6 +41,7 @@ from transformer4sed_tpu_torch.parallel.mesh import per_row_draws, shard_train_s
 from transformer4sed_tpu_torch.parallel.partition import partition_specs
 from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherTrainer
 from transformer4sed_tpu_torch.utils.weights import jax_params_to_state_dict
+from tests.torch_port_jax import interpret0, jit0
 
 jax_flash = importlib.import_module("transformer4sed_tpu.kernels.flash_attention")
 
@@ -52,6 +53,10 @@ RTOL, ATOL = 1e-5, 1e-6
 ATOL_GRAD = 1e-5
 # the one-rank layout runs the plain trainer's code with one-rank collectives
 RTOL_SAME_CODE = 1e-6
+# BatchNorm statistics, two-pass f32 on both sides, the sums split over ranks
+# here: a few ulps. On inputs with |mean| / std near 10 the one-pass
+# E[x^2] - E[x]^2 misses the variance by 1.7e-5 to 1.9e-5 relative (dp2, dp4)
+BN_STAT_RTOL = 2e-6
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,16 +76,6 @@ def ranks():
 # -- rows 3, 5 and 6: the head-major plain versions against Pallas -------------------
 
 
-def _interpret(fn, *arrays, **static):
-    """``fn(*arrays, **static)`` with its Pallas kernels in interpret mode,
-    compiled as one program at XLA's lowest backend optimization level (about
-    a third less time on the CPU than the default; the tolerances above
-    hold)."""
-    call = jax.jit(functools.partial(fn, interpret=True, **static))
-    return call.lower(*arrays).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*arrays)
-
-
 def _hm(b, h, t, d, seed):
     rng = np.random.RandomState(seed)
     return [rng.randn(b, h, t, d).astype(np.float32) for _ in range(4)]
@@ -95,9 +90,9 @@ def test_head_major_plain_versions_match_pallas(t, h, d):
     q, k, v, g = _hm(2, h, t, d, seed=t + d)
     scale = d ** -0.5
     jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
-    ref = _interpret(jax_flash._flash_forward, jq, jk, jv, sm_scale=scale)
-    o, lse = _interpret(jax_flash._flash_forward_lse, jq, jk, jv, sm_scale=scale, block_q=128)
-    grads = _interpret(jax_flash._flash_backward, jq, jk, jv, o, lse, jg, sm_scale=scale,
+    ref = interpret0(jax_flash._flash_forward, jq, jk, jv, sm_scale=scale)
+    o, lse = interpret0(jax_flash._flash_forward_lse, jq, jk, jv, sm_scale=scale, block_q=128)
+    grads = interpret0(jax_flash._flash_backward, jq, jk, jv, o, lse, jg, sm_scale=scale,
                        block_q=128)
     tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
     np.testing.assert_allclose(port_flash.flash_attention_reference(tq, tk, tv).numpy(),
@@ -126,7 +121,7 @@ def test_flash_attention_nhd_at_head_dim_32_takes_the_head_major_family():
         out = jax_flash.flash_attention_nhd(x[..., :c], x[..., c:2 * c], x[..., 2 * c:], h)
         return jnp.sum(out * g), out
 
-    (_, want), want_grad = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(jnp.asarray(qkv))
+    (_, want), want_grad = jit0(jax.value_and_grad(jax_loss, has_aux=True))(jnp.asarray(qkv))
     x = torch.from_numpy(qkv).requires_grad_()
     before = [f.launches for f in (port_flash.flash_attention, port_flash.flash_attention_lse,
                                    port_flash.flash_attention_nhd)]
@@ -327,3 +322,21 @@ def test_one_rank_trajectory_equals_the_plain_trainer(ranks):
     got = ranks.result()[2]["mean_teacher"]["1dev"]
     np.testing.assert_allclose(got["losses"], losses, rtol=RTOL_SAME_CODE)
     np.testing.assert_allclose(got["p_norm"], float(params.norm()), rtol=RTOL_SAME_CODE)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_global_batch_norm_statistics_match_jax_far_from_zero(ranks, n):
+    """RefBatchNorm over dp=n ranks, each with its share of a batch whose
+    channels have |mean| / std near 10: the global mean and biased variance
+    (the running statistics at momentum 1, the variance made unbiased)
+    against the JAX ``RefBatchNorm``'s two-pass batch statistics."""
+    r = ranks.result()[n]["batch_norm"]
+    x = r["x"]
+    _, state = JaxRefBatchNorm(use_running_average=False, momentum=1.0).apply(
+        {"params": {"scale": jnp.ones(x.shape[1]), "bias": jnp.zeros(x.shape[1])},
+         "batch_stats": {"mean": jnp.zeros(x.shape[1]), "var": jnp.ones(x.shape[1])}},
+        jnp.asarray(x), mutable=["batch_stats"])
+    np.testing.assert_allclose(r["mean"], np.asarray(state["batch_stats"]["mean"]),
+                               rtol=BN_STAT_RTOL)
+    np.testing.assert_allclose(r["var"], np.asarray(state["batch_stats"]["var"]),
+                               rtol=BN_STAT_RTOL)

@@ -37,6 +37,7 @@ from transformer4sed_tpu_torch.utils.weights import (
     jax_params_to_state_dict,
     load_jax_params,
 )
+from tests.torch_port_jax import OPT0, jit0
 
 # PMAM's shape in small (config/pmam/finetune1.yaml): a backbone 48 wide
 # (divisible by the f-pool's 6 heads) tapped at its last layer, a decoder 32
@@ -90,7 +91,7 @@ def tiny():
 @pytest.fixture(scope="module")
 def jax_eval(tiny):
     _, _, jmodel = tiny
-    return jax.jit(lambda v, mel, pm: jmodel.apply(v, mel, pad_mask=pm, temp_w=0.5))
+    return jit0(lambda v, mel, pm: jmodel.apply(v, mel, pad_mask=pm, temp_w=0.5))
 
 
 def test_passt_cnn_weights_round_trip_and_key_checks(tiny):
@@ -138,7 +139,7 @@ def test_tiny_passt_cnn_train_mode_matches_jax_with_new_statistics(tiny):
     model = PaSST_CNN(**TINY, device="cpu").train()
     model.load_state_dict(port.state_dict())
     mel = _mel(3, seed=2)
-    want, new = jax.jit(lambda v, m: jmodel.apply(
+    want, new = jit0(lambda v, m: jmodel.apply(
         v, m, train=True, temp_w=1.0, mutable=["batch_stats"],
         rngs={"patchout": jax.random.PRNGKey(0)}))(variables, jnp.asarray(mel))
     got = model(torch.from_numpy(mel), temp_w=1.0, train=True,
@@ -165,7 +166,7 @@ def test_passt_sed_attention_f_pool_matches_jax():
     port = init_weights_(PaSST_SED(**cfg, device="cpu"), seed=3).eval()
     params, _ = convert_torch_checkpoint(_np_state(port), "PaSST_SED", init_kwargs=cfg)
     mel = _mel(2, seed=3)
-    want = jax.jit(lambda p, m: JaxSED(**cfg).apply({"params": p}, m, temp_w=0.5))(
+    want = jit0(lambda p, m: JaxSED(**cfg).apply({"params": p}, m, temp_w=0.5))(
         params, jnp.asarray(mel))
     with torch.no_grad():
         got = port(torch.from_numpy(mel), temp_w=0.5)
@@ -180,7 +181,7 @@ def test_passt_cnn_without_a_cnn_branch_projects_onto_the_decoder_width():
     assert port.cnn is None and "merge_weight" not in port.state_dict()
     params, model_state = convert_torch_checkpoint(_np_state(port), "PaSST_CNN", init_kwargs=cfg)
     mel = _mel(2, seed=4)
-    want = jax.jit(lambda v, m: JaxPaSSTCNN(**cfg).apply(v, m, temp_w=0.5))(
+    want = jit0(lambda v, m: JaxPaSSTCNN(**cfg).apply(v, m, temp_w=0.5))(
         {"params": params, **model_state}, jnp.asarray(mel))
     with torch.no_grad():
         got = port(torch.from_numpy(mel), temp_w=0.5, train=False)
@@ -188,12 +189,12 @@ def test_passt_cnn_without_a_cnn_branch_projects_onto_the_decoder_width():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(cnn_name="FDY-CNN"), NotImplementedError, "queue 1, item 10"),
-    (dict(cnn_name="resnet"), NotImplementedError, "queue 1, item 10"),
+    (dict(cnn_name="FDY-CNN"), NotImplementedError, "queue 1, item 9"),
+    (dict(cnn_name="resnet"), NotImplementedError, "queue 1, item 9"),
     (dict(cnn_name="tdnn"), NotImplementedError, "unknown cnn encoder"),
-    (dict(mlm=True), NotImplementedError, "queue 1, item 12"),
-    (dict(f_pool="frequency_wise_tranformer_encoder"), NotImplementedError, "queue 1, item 2"),
-    (dict(decoder="conformer"), NotImplementedError, "queue 1, item 2"),
+    (dict(mlm=True), NotImplementedError, "queue 1, item 8"),
+    (dict(f_pool="frequency_wise_tranformer_encoder"), NotImplementedError, "queue 1, item 12"),
+    (dict(decoder="conformer"), NotImplementedError, "queue 1, item 12"),
 ])
 def test_unported_passt_cnn_options_raise_with_their_roadmap_item(kw, exc, match):
     with pytest.raises(exc, match=match):
@@ -201,9 +202,13 @@ def test_unported_passt_cnn_options_raise_with_their_roadmap_item(kw, exc, match
 
 
 def test_passt_cnn_forward_options_that_raise_and_the_card_default(tiny):
+    """A forward whose ``train`` disagrees with the module's mode raises (the
+    sliding window no longer does: tests/test_torch_port_options.py), as do
+    a PaSST_SED whose decoder is narrower than the backbone and, without a
+    card, the default device."""
     port = tiny[0]
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        port.eval()(torch.zeros(1, 128, FRAMES), encoder_win=True)
+    with pytest.raises(ValueError, match="train=True but the module is in eval mode"):
+        port.eval()(torch.zeros(1, 128, FRAMES), encoder_win=True, train=True)
     with pytest.raises(ValueError, match="decoder_dim must equal embed_dim"):
         PaSST_SED(**{k: v for k, v in TINY.items() if k not in ("cnn_name", "cnn_param")},
                   device="cpu")
@@ -299,7 +304,6 @@ def _trajectory_setup(tiny):
 
 # XLA's lowest backend optimization level: the steps compile in about half
 # the time on the CPU, and the trajectory bounds hold
-OPT0 = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -12,7 +12,6 @@ come from numpy with a seed; everything compares in float32.
 import ast
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +30,7 @@ from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
 from transformer4sed_tpu_torch.utils.device import resolve_device
 from transformer4sed_tpu_torch.utils.weights import init_weights_, load_jax_params
+from tests.torch_port_jax import jit0
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(
@@ -71,13 +71,13 @@ def jax_forward(tiny):
     """JAX mel [2, 128, 120] + pad mask -> SEDOutput, jitted once for the
     module (eager flax apply compiles op by op, ~10x slower here)."""
     _, _, params, jmodel = tiny
-    return jax.jit(lambda mel, pm: jmodel.apply({"params": params}, mel, pad_mask=pm, temp_w=0.5))
+    return jit0(lambda mel, pm: jmodel.apply({"params": params}, mel, pad_mask=pm, temp_w=0.5))
 
 
 @pytest.fixture(scope="module")
 def jax_logmel():
     fe = JaxFrontend()
-    return jax.jit(lambda wav: fe.normalize(fe(wav)))
+    return jit0(lambda wav: fe.normalize(fe(wav)))
 
 
 def _waves(n, seed):

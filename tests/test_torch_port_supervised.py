@@ -31,6 +31,7 @@ from transformer4sed_tpu_torch.models.htsat_heads import HTSAT_CNN
 from transformer4sed_tpu_torch.recipes import audioset_strong as recipe
 from transformer4sed_tpu_torch.train import optim
 from transformer4sed_tpu_torch.utils.weights import init_weights_, jax_params_to_state_dict
+from tests.torch_port_jax import OPT0, jit0
 
 # elementwise f32 functions and small sums: a few ulps
 ATOL_ELEM = 1e-6
@@ -124,7 +125,7 @@ def _jax_draws(cfg, b, n_freq, t):
     """The draws ``make_supervised_preprocess`` makes from a step key, as a
     port SupervisedDraw (one jitted function of the key)."""
 
-    @jax.jit
+    @jit0
     def raw(key):
         kpre, _ = jax.random.split(key)
         _, kshift, kmix, kmixp, ktrans = jax.random.split(kpre, 5)
@@ -156,7 +157,7 @@ def test_supervised_preprocess_matches_jax_with_its_draws():
     jcfg, pcfg = jax_recipe.SupervisedConfig(**kw), recipe.SupervisedConfig(**kw)
     rng = np.random.RandomState(11)
     batch = {"wav": _mel(4, seed=11), "labels": (rng.rand(4, 5, FRAMES) > 0.7).astype(np.float32)}
-    jpre = jax.jit(jax_recipe.make_supervised_preprocess(_IdentityFrontend(), jcfg))
+    jpre = jit0(jax_recipe.make_supervised_preprocess(_IdentityFrontend(), jcfg))
     ppre = recipe.make_supervised_preprocess(_IdentityFrontend(), pcfg, "cpu")
     draws = _jax_draws(pcfg, 4, MEL_F, MEL_T)
     for seed in range(2):
@@ -215,7 +216,6 @@ def _trajectory_setup(tiny):
 
 # XLA's lowest backend optimization level: the steps compile in about half
 # the time on the CPU, and the trajectory bounds hold
-OPT0 = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(scope="module", autouse=True)

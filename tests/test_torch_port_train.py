@@ -36,6 +36,7 @@ from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 from transformer4sed_tpu_torch.train import mean_teacher as mt
 from transformer4sed_tpu_torch.train import optim
 from transformer4sed_tpu_torch.utils.weights import init_weights_, jax_params_to_state_dict
+from tests.torch_port_jax import OPT0, jit0
 
 # the tiny config of tests/test_torch_port_slice.py, with the backbone's
 # nominal time grid equal to the 120-frame input's, so that train=True
@@ -137,7 +138,7 @@ def test_mel_training_path_matches_jax_draw():
     wav = (0.1 * rng.randn(2, 9600)).astype(np.float32)
     jfe = JaxFrontend()
 
-    @jax.jit
+    @jit0
     def ref(w, key):
         kmin, kmax = jax.random.split(key)
         draws = (jax.random.randint(kmin, (), 0, jfe.fmin_aug_range),
@@ -163,7 +164,7 @@ def test_frame_shift_matches_jax(net_pooling):
     b, t = 5, 40
     mel = rng.randn(b, 6, t).astype(np.float32)
     lab = rng.rand(b, 3, t // net_pooling).astype(np.float32)
-    @jax.jit
+    @jit0
     def ref(m, lb, key):
         return (jax_aug.frame_shift(key, m, lb, net_pooling=net_pooling, max_shift_frame=9),
                 (jax.random.normal(key, (b,)) * 9).astype(jnp.int32))
@@ -182,7 +183,7 @@ def test_mixup_matches_jax():
     mel, lab = rng.randn(6, 4, 10).astype(np.float32), rng.rand(6, 2, 10).astype(np.float32)
     kinds = ("soft", "hard")
 
-    @jax.jit
+    @jit0
     def ref(m, lb, key):
         kperm, kc = jax.random.split(key)
         return ([jax_aug.mixup(key, m, lb, 0.2, 0.2, kind) for kind in kinds],
@@ -230,7 +231,7 @@ def _filt_draws(key, b, n_freq, lo, hi, min_bw, linear):
 @pytest.mark.parametrize("filter_type", ["step", "linear"])
 def test_filt_aug_matches_jax(filter_type):
     mel = np.random.RandomState(6).randn(3, 40, 8).astype(np.float32)
-    ref = jax.jit(lambda m, k: jax_aug.filt_aug(k, m, min_bw=6, filter_type=filter_type))
+    ref = jit0(lambda m, k: jax_aug.filt_aug(k, m, min_bw=6, filter_type=filter_type))
     for seed in range(3):
         key = jax.random.PRNGKey(seed)
         want = ref(jnp.asarray(mel), key)
@@ -248,7 +249,7 @@ def test_feature_transformation_matches_jax():
     kw = dict(filter_db_range=(-0.5, 0.5), filter_bands=(3, 6), filter_minimum_bandwidth=6,
               filter_type="step", freq_mask_ratio=6, noise_snrs=(15, 30))
 
-    @jax.jit
+    @jit0
     def ref(m, key):
         k0, k1, k2, k3, k4 = jax.random.split(jax.random.fold_in(key, 0), 5)
         kmw, kms = jax.random.split(k1)
@@ -345,8 +346,11 @@ def test_build_optimizer_matches_jax_two_steps(tiny):
         grads = jax.tree_util.tree_map(lambda p: rng.randn(*np.shape(p)).astype(np.float32),
                                        params)
         jparams, state = update(grads, state, jparams)
+        # copies: on the CPU the dispatched update may still read these numpy
+        # buffers (zero-copy, asynchronous), and the clip below scales the
+        # port's gradients in place
         for name, g in _as_torch_names(grads).items():
-            named[name].grad = torch.from_numpy(np.ascontiguousarray(g))
+            named[name].grad = torch.tensor(g)
         norm = optim.clip_by_global_norm(optim.live_params(opt), pcfg.clip_grad)
         assert float(norm) > pcfg.clip_grad  # the clip is active
         opt.step()
@@ -406,7 +410,6 @@ def _trajectory_setup(tiny):
 
 # XLA's lowest backend optimization level: the steps compile in about half
 # the time on the CPU, and the trajectory bounds hold
-OPT0 = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -491,13 +494,19 @@ def test_train_forward_draws_the_time_embedding_offset():
 
 
 def test_unported_training_options_raise_with_their_roadmap_item():
-    """The MLM mode and patchout are ported (tests/test_torch_port_mlm.py);
-    the head and decoder options and the sliding window still raise."""
-    for kw in (dict(decoder="gru"), dict(decoder_win_len=[9, 17, 33, 60]),
-               dict(f_pool="frequency_wise_tranformer_encoder"), dict(interpolate_mode="nearest")):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    """The MLM mode and patchout are ported (tests/test_torch_port_mlm.py),
+    and so are local attention, nearest interpolation and the sliding window
+    (tests/test_torch_port_options.py); the other decoders and the
+    frequency-wise pooling still raise."""
+    for kw in (dict(decoder="gru"), dict(f_pool="frequency_wise_tranformer_encoder")):
+        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
             PaSST_SED(**TINY, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown interpolation mode"):
+        PaSST_SED(**TINY, device="cpu", interpolate_mode="cubic")
+    model = PaSST_SED(**TINY, device="cpu", decoder_win_len=[9, 17, 33, 60],
+                      interpolate_mode="nearest")
+    assert model.decoder.band_widths == (9, 17, 33, 60) and model.interpolate_mode == "nearest"
     model = PaSST_SED(**TINY, device="cpu", mlm=True, s_patchout_t=1)
     assert model.masker is not None and model.backbone.s_patchout_t == 1
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        model(torch.zeros(1, 128, 120), encoder_win=True)
+    with pytest.raises(ValueError, match="pass a torch.Generator"):
+        model(torch.zeros(1, 128, 120), encoder_win=True, win_param=(64, 20))

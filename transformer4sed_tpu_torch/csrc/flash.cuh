@@ -1,8 +1,9 @@
 // Flash attention forward for Hopper (sm_90a): the device code shared by the
-// heads-in-lanes entry points (flash_attention.cu) and the head-major ones
-// (flash_attention_hm.cu).
+// heads-in-lanes entry points (flash_attention.cu), the head-major ones
+// (flash_attention_hm.cu), the biased one (flash_attention_bias.cu) and the
+// experiment's variants (flash_variants.cu).
 //
-//   softmax(scale * Q K^T) V  per (batch, head), no mask
+//   softmax(scale * Q K^T [+ bias]) V  per (batch, head)
 // Every operand comes as a base pointer with batch, head and row strides
 // (Rows, mma.cuh), so a [B, N, H*d] projection slice (head stride d) and a
 // [B, H, T, d] tensor, contiguous or a strided view of a [B, T, 3*H*d]
@@ -41,13 +42,38 @@ constexpr int FA_THREADS = 128;
 constexpr int FA_MIN_BLOCKS = 4;  // per SM: 65536 registers / (4 * 128 threads) = 128 each
 constexpr int FA_PAD = 8;
 
-template <int HD, bool WITH_LSE>
-__global__ void __launch_bounds__(FA_THREADS, FA_MIN_BLOCKS)
-flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
-                 float* __restrict__ lse, int n, float scale_log2) {
+// What the scores get besides scale * q.k, chosen at compile time; rows 1,
+// 3, 5 and 7 (FA_PLAIN) compile to the code they had before the others.
+//   FA_PLAIN:      the ragged key tail masked element by element in every tile;
+//   FA_BIAS:       plus an f32 bias element read from global memory (row 4,
+//                  flash_attention_bias.cu);
+//   FA_TAIL_EXP2:  the ragged key tail masked in the last tile only (row 16,
+//                  flash_variants.cu, variant B: exp2 with log2(e) folded
+//                  into the scale, as FA_PLAIN does);
+//   FA_TAIL_EXP:   the same with the natural exp (variant A).
+enum FaScores { FA_PLAIN, FA_BIAS, FA_TAIL_EXP2, FA_TAIL_EXP };
+
+template <int MODE>
+__device__ __forceinline__ float fa_exp(float x) {
+  if constexpr (MODE == FA_TAIL_EXP) return expf(x);
+  return exp2f(x);
+}
+
+template <int HD>
+__host__ __device__ constexpr int fa_smem_bytes() {
+  return (2 * FA_BQ * (HD + FA_PAD) + HD * (FA_BK + FA_PAD)) * sizeof(bf16);
+}
+
+// One block's 64 query rows of one (batch, head). `scale` is in the exp's
+// domain: sm_scale * log2(e) for exp2, sm_scale for FA_TAIL_EXP. bias (FA_BIAS
+// only) is read in the exp2 domain as bias * log2(e).
+template <int HD, bool WITH_LSE, int MODE>
+__device__ __forceinline__ void flash_fwd_body(unsigned char* smem, Rows<const bf16> q,
+                                               Rows<const bf16> k, Rows<const bf16> v,
+                                               Rows<bf16> o, float* __restrict__ lse,
+                                               Rows<const float> bias, int n, float scale) {
   constexpr int LD = HD + FA_PAD;      // pitch of the Q and K tiles
   constexpr int LDV = FA_BK + FA_PAD;  // pitch of the transposed V tile
-  __shared__ __align__(16) unsigned char smem[(2 * FA_BQ * LD + HD * LDV) * sizeof(bf16)];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + FA_BQ * LD;
   bf16* sVt = sK + FA_BK * LD;
@@ -70,6 +96,14 @@ flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Row
     qf[kk][2] = ld_b32(&sQ[r0 * LD + c0 + 8]);
     qf[kk][3] = ld_b32(&sQ[(r0 + 8) * LD + c0 + 8]);
   }
+  // FA_BIAS: this thread's two bias rows (rows past n read row n - 1; their
+  // outputs are never written)
+  const float* brow[2] = {nullptr, nullptr};
+  if constexpr (MODE == FA_BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bias.at(b, h) + (long long)min(i0 + r0 + 8 * r, n - 1) * bias.rs + 2 * t;
+  }
 
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float acc[HD / 8][4];
@@ -81,6 +115,19 @@ flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Row
     load_rows<HD, FA_THREADS>(sK, LD, kb + (long long)j0 * k.rs, k.rs, FA_BK, n - j0);
     load_rows_transposed<HD, FA_THREADS>(sVt, LDV, vb + (long long)j0 * v.rs, v.rs, FA_BK,
                                          n - j0);
+    // FA_BIAS: the tile's bias elements in the score fragments' layout, read
+    // while the tiles land: each warp load covers 8 rows of 32 bytes
+    float bs[MODE == FA_BIAS ? FA_BK / 8 : 1][4];
+    if constexpr (MODE == FA_BIAS) {
+#pragma unroll
+      for (int nt = 0; nt < FA_BK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + nt * 8 + 2 * t + (e & 1);
+          bs[nt][e] = col < n ? brow[e >> 1][j0 + nt * 8 + (e & 1)] * 1.4426950408889634f : 0.f;
+        }
+      }
+    }
     __syncthreads();
 
     float s[FA_BK / 8][4];
@@ -93,14 +140,21 @@ flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Row
         mma_16816(s[nt], qf[kk], ld_b32(kr + kk * 16), ld_b32(kr + kk * 16 + 8));
     }
 
-    // scale into the exp2 domain, mask the ragged key tail, row maxima
+    // scale into the exp's domain, add the bias, mask the ragged key tail
+    // (every tile, or the last one only), row maxima
+    const bool ragged = j0 + FA_BK > n;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < FA_BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = col < n ? s[nt][e] * scale_log2 : -INFINITY;
+        if constexpr (MODE == FA_PLAIN)
+          s[nt][e] = col < n ? s[nt][e] * scale : -INFINITY;
+        else if constexpr (MODE == FA_BIAS)
+          s[nt][e] = col < n ? s[nt][e] * scale + bs[nt][e] : -INFINITY;
+        else
+          s[nt][e] = !ragged || col < n ? s[nt][e] * scale : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     }
@@ -109,14 +163,14 @@ flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Row
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
       base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // rows with no valid key yet
-      alpha[r] = exp2f(m_run[r] - base[r]);
+      alpha[r] = fa_exp<MODE>(m_run[r] - base[r]);
       m_run[r] = mx[r];
     }
 #pragma unroll
     for (int nt = 0; nt < FA_BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
+        s[nt][e] = fa_exp<MODE>(s[nt][e] - base[e >> 1]);
         rs[e >> 1] += s[nt][e];
       }
     }
@@ -162,6 +216,16 @@ flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Row
       lse[((long long)b * gridDim.y + h) * n + row] =
           l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f : -INFINITY;
   }
+}
+
+// Rows 1, 3, 5 and 7: no mask but the ragged key tail.
+template <int HD, bool WITH_LSE>
+__global__ void __launch_bounds__(FA_THREADS, FA_MIN_BLOCKS)
+flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
+                 float* __restrict__ lse, int n, float scale_log2) {
+  __shared__ __align__(16) unsigned char smem[fa_smem_bytes<HD>()];
+  flash_fwd_body<HD, WITH_LSE, FA_PLAIN>(smem, q, k, v, o, lse, Rows<const float>{nullptr, 0, 0, 0},
+                                         n, scale_log2);
 }
 
 // Launch on `stream`: lse null for the plain forward. Returns

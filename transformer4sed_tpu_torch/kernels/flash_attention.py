@@ -22,7 +22,12 @@ head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
     ``_flash_forward`` and ``t4s_flash_hm_fwd_lse`` for
     ``_flash_forward_lse``;
   * ``csrc/flash_attention_hm_bwd.cu`` for ``_flash_backward`` (one kernel
-    where the TPU runs two).
+    where the TPU runs two);
+  * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: the same
+    forward with an additive float32 score bias [B, H, T, T] of any batch,
+    head and row strides (:func:`flash_attention_bias`, the XL attention's
+    explicitly masked branch). Its backward, like the JAX custom VJP's, is
+    autograd through the plain version (:class:`FlashAttentionBias`).
 
 :func:`flash_attention_nhd` and :func:`flash_attention` dispatch like the
 JAX ``custom_vjp``: with autograd recording and an operand that requires
@@ -416,9 +421,89 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None):
     return out
 
 
+# -- row 4: the head-major forward with an additive score bias --------------------------
+
+
+def flash_attention_bias_reference(q, k, v, bias, sm_scale: float):
+    """Plain PyTorch attention with an additive score bias (the reference's
+    ``_xla_attention_bias``): f32 scores plus the bias, softmax, the product
+    with the probabilities rounded to v's dtype; q/k/v [B, H, T, d], bias
+    [B, H, T, T] (or any shape that broadcasts to it)."""
+    s = _hm_scores(q, k, sm_scale) + bias.float()
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+def _check_bias(what, q, bias):
+    b, h, t, _ = q.shape
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (b, h, t, t):
+        raise ValueError(f"{what}: expected a float32 bias {(b, h, t, t)}, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    if bias.device != q.device or bias.stride(-1) != 1:
+        raise ValueError(f"{what}: the bias needs unit column stride on {q.device}, got strides "
+                         f"{bias.stride()} on {bias.device}")
+
+
+def _bias_forward(q, k, v, bias, scale):
+    """The row-4 kernel for CUDA tensors, the plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_reference(q, k, v, bias, scale)
+    what = "flash_attention_bias"
+    _check_hm(what, q, k, v)
+    _check_bias(what, q, bias)
+    b, h, t, d = q.shape
+    out = hm_empty(q.shape, q.dtype, q.device)
+    with torch.cuda.device(q.device):
+        status = _build.function("flash_attention_bias", "t4s_flash_bias_fwd", 5, 15)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, t, h, d, *hm_strides(q, k, v, bias, out), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_attention_bias.launches += 1
+    return out
+
+
+class FlashAttentionBias(torch.autograd.Function):
+    """Row 4 differentiated as the JAX package does it (``_bias_bwd``, no
+    backward kernel): the forward kernel (the plain version on the CPU), then
+    the gradients of the plain version, recomputed under autograd, for the
+    cotangent cast to the output's dtype: dq, dk, dv and dbias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale: float):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _bias_forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        primals = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_bias_reference(*primals, ctx.scale)
+            grads = torch.autograd.grad(out, primals, do.to(out.dtype))
+        return (*grads, None)
+
+
+def flash_attention_bias(q, k, v, bias, sm_scale: float = 1.0):
+    """softmax(scale * Q K^T + bias) V on head-major q/k/v [B, H, T, d] (any
+    batch, head and row strides) with a float32 bias [B, H, T, T] (any batch,
+    head and row strides, 0 for an expanded axis) -> [B, H, T, d] (on the card
+    a view of a [B, T, H, d] buffer). A blocked score is -1e30, not -inf: a
+    row blocked everywhere attends every key alike, as in JAX.
+
+    Differentiated calls run :class:`FlashAttentionBias`; others launch the
+    kernel for CUDA tensors (bf16, head dim 32 or 64) and take the plain
+    version for CPU tensors.
+    """
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias)):
+        return FlashAttentionBias.apply(q, k, v, bias, sm_scale)
+    return _bias_forward(q, k, v, bias, sm_scale)
+
+
 flash_attention_nhd.launches = 0
 flash_attention_nhd_lse.launches = 0
 flash_attention_nhd_backward.launches = 0
 flash_attention.launches = 0
 flash_attention_lse.launches = 0
 flash_attention_backward.launches = 0
+flash_attention_bias.launches = 0

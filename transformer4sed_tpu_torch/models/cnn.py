@@ -17,7 +17,7 @@ there (:func:`device_generator`). Under data parallelism the trainer passes
 this rank's :class:`BatchRows` to ``forward``: each rank then draws the mask
 of the whole global batch and keeps its rows, so a mask does not depend on
 the layout. ``DynamicConv2d``, ``FDY_CNN``, ``ResNet`` and ``DropBlock2D``
-are not ported yet (ROADMAP.md, queue 1, item 10).
+are not ported yet (ROADMAP.md, queue 1, item 9).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ pad-mask zeroing, clipping to [1e-7, 1], linear-softmax weak pooling.
 Params keep the upstream state-dict names (``backbone``, ``cnn.cnn``,
 ``cnn_projector``, ``transformer_projector``, ``merge_weight``,
 ``norm_after_merge``, ``sed_decoder``, ``sed_head``). ``CLAP_SED`` and
-``DASM_HTSAT`` come with their recipes (ROADMAP.md, queue 1, items 10-11).
+``DASM_HTSAT`` come with their recipes (ROADMAP.md, queue 1, items 9 and 10).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from transformer4sed_tpu_torch.models.sed_model import SEDOutput
 from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
-_DECODERS = "is not ported yet: ROADMAP.md, queue 1, item 2 (head and decoder options)"
-_MLM_MODE = "is not ported yet: ROADMAP.md, queue 1, item 10 (the HTSAT family's remaining parts)"
+_DECODERS = "is not ported yet: ROADMAP.md, queue 1, item 12 (head and decoder options)"
+_MLM_MODE = "is not ported yet: ROADMAP.md, queue 1, item 9 (the HTSAT family's remaining parts)"
 
 
 class HTSAT_CNN(nn.Module):

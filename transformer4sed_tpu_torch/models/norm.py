@@ -12,8 +12,11 @@ carry torch's names (``weight``, ``bias``, ``running_mean``,
 
 Under data parallelism (``mesh`` set by ``parallel.shard_train_step``) the
 statistics are the global batch's, as GSPMD computes them in the JAX
-package: one all-reduce over the ``data`` group of the sum and the sum of
-squares in float32, differentiated as a sum over ranks, and the unbiased
+package: in two passes, as the JAX ``RefBatchNorm`` takes them, an
+all-reduce over the ``data`` group of the sums for the mean, then one of the
+centred squares for the variance (E[x^2] - E[x]^2 in one pass loses digits
+as (|mean| / std)^2 grows: bn0's log-mel bins reach 9), both in float32 and
+differentiated as sums over ranks, and the unbiased
 running variance from the global count, which is the local count times the
 ``data`` size (every rank holds an equal share of the global batch,
 ``Mesh.batch_rows``), so no count is read back to the host. Per-replica statistics
@@ -48,10 +51,8 @@ class RefBatchNorm(nn.Module):
             return mean, (xf - mean).square().mean(axes), xf.numel() // c
         flat = xf.reshape(-1, c)
         n = flat.shape[0] * self.mesh.data  # equal shares on every rank
-        sums = all_reduce_sum(torch.cat([flat.sum(0), flat.square().sum(0)]),
-                              self.mesh.data_group)
-        mean = sums[:c] / n
-        var = torch.clamp(sums[c:] / n - mean.square(), min=0.0)
+        mean = all_reduce_sum(flat.sum(0), self.mesh.data_group) / n
+        var = all_reduce_sum((flat - mean).square().sum(0), self.mesh.data_group) / n
         return mean, var, n
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -99,10 +99,12 @@ class PaSST(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                patchout_draws: Optional[PatchoutDraws] = None) -> Dict[str, torch.Tensor]:
+                patchout_draws: Optional[PatchoutDraws] = None,
+                upto_tap: bool = False) -> Dict[str, torch.Tensor]:
         """x: [B, 1, F, T] normalised log-mel. Returns ``layer{k}_out``
         [B, P+2, D] (f32) for the tap layer k, ``frame`` (final-norm tokens,
-        f32) and the grid sizes ``f_dim``/``t_dim``. In training,
+        f32; not with ``upto_tap``, which stops after the tap layer) and the
+        grid sizes ``f_dim``/``t_dim``. In training,
         ``generator`` draws the time-embedding offset, the patchout subsets
         (unless ``patchout_draws`` gives them) and the dropout masks."""
         out: Dict[str, torch.Tensor] = {}
@@ -135,11 +137,13 @@ class PaSST(nn.Module):
         h = dropout(torch.cat([cls, dist, seq], dim=1), self.drop_rate, train, generator)
         h = h.to(self.dtype)
 
+        out["f_dim"] = f_dim
+        out["t_dim"] = t_dim
         for i, blk in enumerate(self.blocks):
             h = blk(h, train, generator)
             if i + 1 == self.tap_layer:
                 out[f"layer{i + 1}_out"] = h.float()
+                if upto_tap:
+                    return out
         out["frame"] = self.norm(h)
-        out["f_dim"] = f_dim
-        out["t_dim"] = t_dim
         return out

@@ -9,16 +9,18 @@ decoder's width, which may differ from the backbone's (PMAM: 768 -> 384,
 12 decoder heads of 32). The CNN's BatchNorm and dropout follow the module's
 mode (``model.train()`` / ``model.eval()``), like ``HTSAT_CNN``'s. Params
 keep the upstream names (``cnn.cnn.*``, ``cnn_projector``,
-``transformer_projector``, ``merge_weight``).
+``transformer_projector``, ``merge_weight``). With ``encoder_win`` (PMAM's
+finetune2) only the PaSST branch is windowed (``PaSST_SED._encode_frames``);
+the CNN branch sees the whole clip.
 
 Not ported yet: the ``FDY-CNN`` and ``resnet`` branches (ROADMAP.md, queue 1,
-item 10), ``PasstComplexCNN``, ``PaSST_CNN(mlm=True)`` with the prototype
-loss of the post-pretrain stage (item 12) and ``encoder_win`` (item 2).
+item 9), ``PasstComplexCNN`` and ``PaSST_CNN(mlm=True)`` with the prototype
+loss of the post-pretrain stage (item 8).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,12 +28,13 @@ import torch.nn as nn
 from transformer4sed_tpu_torch.models.cnn import CNN, BatchRows
 from transformer4sed_tpu_torch.models.interpolate import resize_time
 from transformer4sed_tpu_torch.models.layers import Dense
-from transformer4sed_tpu_torch.models.passt_sed import _LATER, PaSST_SED
+from transformer4sed_tpu_torch.models.passt import PatchoutDraws
+from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 from transformer4sed_tpu_torch.models.sed_model import SEDOutput
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
-_CNN_FAMILY = "is not ported yet: ROADMAP.md, queue 1, item 10 (the rest of models/cnn.py)"
-_PMAM = "is not ported yet: ROADMAP.md, queue 1, item 12 (PMAM's post-pretrain stage)"
+_CNN_FAMILY = "is not ported yet: ROADMAP.md, queue 1, item 9 (the rest of models/cnn.py)"
+_PMAM = "is not ported yet: ROADMAP.md, queue 1, item 8 (PMAM's post-pretrain stage)"
 
 
 class PaSST_CNN(PaSST_SED):
@@ -63,28 +66,33 @@ class PaSST_CNN(PaSST_SED):
         temp_w: float = 1.0,
         pad_mask: Optional[torch.Tensor] = None,
         encoder_win: bool = False,
+        mix_rate: float = 0.5,
+        win_param: Tuple[int, int] = (512, 49),
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
         rows: Optional[BatchRows] = None,
+        window_draws: Optional[Sequence[PatchoutDraws]] = None,
     ) -> SEDOutput:
         """``train`` must agree with the module's mode, which BatchNorm and the
         CNN's dropout follow. The CNN's dropout masks are drawn from
         ``generator`` (or given as ``dropout_masks``); in a data-parallel
-        step, for the global batch, of which ``rows`` are this rank's."""
-        if encoder_win:
-            raise NotImplementedError(f"encoder_win (sliding-window fusion) {_LATER}")
+        step, for the global batch, of which ``rows`` are this rank's. The
+        window groups' backbone draws come after the clip's and before the
+        CNN's (or are given as ``window_draws``, as in PaSST_SED)."""
         if self.cnn is not None and train != self.training:
             raise ValueError(f"train={train} but the module is in "
                              f"{'training' if self.training else 'eval'} mode")
-        x, backbone_out = self._encode_frames(mel, train, generator)
+        x, backbone_out = self._encode_frames(mel, train, generator, None, encoder_win, mix_rate,
+                                              win_param, window_draws)
         if self.cnn is not None:
             cnn_feat = self.cnn(mel.transpose(1, 2)[:, None], generator=generator,
                                 dropout_masks=dropout_masks, rows=rows)  # [B, C, T', F']
             if cnn_feat.shape[-1] != 1:
                 raise ValueError("the CNN branch must pool frequency to 1, got "
                                  f"{tuple(cnn_feat.shape)}")
-            cnn_feat = resize_time(cnn_feat[:, :, :, 0].transpose(1, 2), x.shape[1], "linear")
+            cnn_feat = resize_time(cnn_feat[:, :, :, 0].transpose(1, 2), x.shape[1],
+                                   self.interpolate_mode)
             x = self.transformer_projector(x) + self.merge_weight * self.cnn_projector(cnn_feat)
         else:
             x = self.transformer_projector(x)

@@ -4,10 +4,15 @@ PaSST encoder tapped at ``passt_feature_layer`` -> drop cls/dist tokens
 -> ``out_norm`` -> frequency pooling over the [B, f, t, C] patch grid (the
 mean, or ``f_pool='attention'``: each time column's f tokens through a
 6-head :class:`AttentionPooling`) -> pad the time grid by its last frame
-(99 -> 100) -> x``decode_ratio`` linear interpolation -> Transformer-XL
-decoder -> classifier -> ``sigmoid(logits / temp_w)``, pad-mask zeroing,
-linear-softmax weak pooling; the AT adapter attention-pools the backbone's
-final-norm frame tokens. With ``mlm=True`` (masked-reconstruction
+(99 -> 100) -> x``decode_ratio`` interpolation (``interpolate_mode`` linear
+or nearest) -> with ``encoder_win`` (finetune2), the sliding-window fusion
+``mix_rate * local + (1 - mix_rate) * global``, the local embedding from
+windows of ``win_param = (width, step)`` mel frames (``models/slide.py``: one
+backbone call per width group, each window through backbone, f-pool and
+interpolation without the pad) -> Transformer-XL decoder (local attention
+with ``decoder_win_len``) -> classifier -> ``sigmoid(logits / temp_w)``,
+pad-mask zeroing, linear-softmax weak pooling; the AT adapter
+attention-pools the backbone's final-norm frame tokens. With ``mlm=True`` (masked-reconstruction
 pretraining) the decoder's input is corrupted by :class:`MLMMasker` and the
 decoder's output goes through ``mlm_mlp`` instead of the classifier; the
 output then carries ``mlm_pred``, ``frame_before_mask`` and ``mask_id_seq``.
@@ -15,12 +20,14 @@ Params keep the upstream cai525 state-dict names (including upstream's
 ``at_adpater`` spelling and ``mlm_mlp.0`` / ``mlm_mlp.2``), so published
 ``.pt`` files load with ``load_state_dict``. ``train=True`` is the forward
 of the train steps; it is differentiable end to end through the attention
-kernels' autograd Functions.
+kernels' autograd Functions; in training every backbone call (the clip's,
+then each window group's) makes its own draws: the time-embedding offset (a
+window is shorter than the nominal grid), patchout and dropout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,14 +36,15 @@ from transformer4sed_tpu_torch.core.pooling_math import linear_softmax_pool
 from transformer4sed_tpu_torch.models.interpolate import interpolate_time
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
 from transformer4sed_tpu_torch.models.mlm import MLMDraws, MLMMasker
-from transformer4sed_tpu_torch.models.passt import PaSST
+from transformer4sed_tpu_torch.models.passt import PaSST, PatchoutDraws
 from transformer4sed_tpu_torch.models.pooling import AttentionPooling
 from transformer4sed_tpu_torch.models.sed_model import SEDOutput
+from transformer4sed_tpu_torch.models.slide import slide_window_encode
 from transformer4sed_tpu_torch.models.vit import fast_gelu
 from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
-_LATER = "is not ported yet: ROADMAP.md, queue 1, item 2 (head and decoder options)"
+_LATER = "is not ported yet: ROADMAP.md, queue 1, item 12 (head and decoder options)"
 
 
 class PaSST_SED(nn.Module):
@@ -74,16 +82,14 @@ class PaSST_SED(nn.Module):
             raise NotImplementedError(f"f_pool={f_pool!r} {_LATER}")
         if decoder != "transformerXL":
             raise NotImplementedError(f"decoder={decoder!r} {_LATER}")
-        if decoder_win_len is not None:
-            raise NotImplementedError(f"decoder_win_len (local attention) {_LATER}")
-        if interpolate_mode != "linear":
-            raise NotImplementedError(f"interpolate_mode={interpolate_mode!r} {_LATER}")
+        if interpolate_mode not in ("linear", "nearest"):
+            raise ValueError(f"unknown interpolation mode {interpolate_mode!r}")
         if decoder_dim != embed_dim and not self.projects_frames:
             raise ValueError("PaSST_SED feeds the pooled backbone frames to the decoder as they "
                              "are, so decoder_dim must equal embed_dim (PaSST_CNN projects them)")
         device = resolve_device(device)
         self.embed_dim, self.decoder_dim, self.compute_dtype = embed_dim, decoder_dim, dtype
-        self.decode_ratio = decode_ratio
+        self.decode_ratio, self.interpolate_mode = decode_ratio, interpolate_mode
         self.passt_feature_layer = passt_feature_layer
         self.backbone = PaSST(
             embed_dim=embed_dim, depth=backbone_depth, num_heads=backbone_num_heads,
@@ -95,7 +101,7 @@ class PaSST_SED(nn.Module):
                               if f_pool == "attention" else None)
         self.decoder = TransformerXLDecoder(
             decoder_dim, decoder_layer_num=decoder_layer_num, num_heads=decoder_num_heads,
-            seq_len=decoder_pos_emd_len, dtype=dtype,
+            seq_len=decoder_pos_emd_len, window_len=decoder_win_len, dtype=dtype,
         )
         self.classifier = Dense(decoder_dim, class_num)
         self.at_adpater = (
@@ -129,13 +135,30 @@ class PaSST_SED(nn.Module):
         cols = grid.transpose(1, 2).reshape(b * t_dim, f_dim, c)
         return self.f_pool_module(cols).reshape(b, t_dim, c)
 
-    def _encode_frames(self, mel, train, generator, patchout_draws=None):
-        """Backbone -> f-pool -> pad and interpolate: ([B, T, D], backbone_out)."""
+    def _encode_frames(self, mel, train, generator, patchout_draws=None, encoder_win=False,
+                       mix_rate=0.5, win_param=(512, 49), window_draws=None):
+        """Backbone -> f-pool -> pad and interpolate, fused with the sliding
+        windows' embedding under ``encoder_win``: ([B, T, D], backbone_out)."""
         backbone_out = self.backbone(mel[:, None], train=train, generator=generator,
                                      patchout_draws=patchout_draws)
         x = self._f_pool(backbone_out)
         x = torch.cat([x, x[:, -1:, :]], dim=1)
-        return interpolate_time(x, self.decode_ratio), backbone_out
+        x = interpolate_time(x, self.decode_ratio, self.interpolate_mode)
+        if encoder_win:
+            x_local = slide_window_encode(
+                lambda win, group: self._encode_window(
+                    win, train, generator, None if window_draws is None else window_draws[group]),
+                mel, emb_len=x.shape[1], win_width=win_param[0], step=win_param[1])
+            x = mix_rate * x_local + (1.0 - mix_rate) * x
+        return x, backbone_out
+
+    def _encode_window(self, mel_win, train, generator, patchout_draws=None):
+        """Window mel [N, F, W] -> frame embedding [N, t*ratio, C] (no 99 -> 100 pad);
+        the backbone stops at the tap layer, since nothing reads a window's
+        final-norm tokens."""
+        out = self.backbone(mel_win[:, None], train=train, generator=generator,
+                            patchout_draws=patchout_draws, upto_tap=True)
+        return interpolate_time(self._f_pool(out), self.decode_ratio, self.interpolate_mode)
 
     def _finish(self, x, backbone_out, temp_w, pad_mask, generator, mlm_draws) -> SEDOutput:
         """MLM mask -> decoder -> AT branch -> classifier and pools (or the MLM head)."""
@@ -175,15 +198,19 @@ class PaSST_SED(nn.Module):
         temp_w: float = 1.0,
         pad_mask: Optional[torch.Tensor] = None,  # [B, frames] bool, True = padded
         encoder_win: bool = False,
+        mix_rate: float = 0.5,
+        win_param: Tuple[int, int] = (512, 49),
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         mlm_draws: Optional[MLMDraws] = None,
-        patchout_draws=None,
+        patchout_draws: Optional[PatchoutDraws] = None,
+        window_draws: Optional[Sequence[PatchoutDraws]] = None,
     ) -> SEDOutput:
         """``generator`` makes the forward's draws (the training time offset
-        and patchout, the MLM mask); ``mlm_draws`` and ``patchout_draws``
-        hand them in instead."""
-        if encoder_win:
-            raise NotImplementedError(f"encoder_win (sliding-window fusion) {_LATER}")
-        x, backbone_out = self._encode_frames(mel, train, generator, patchout_draws)
+        and patchout of the clip, then of each window group, the MLM mask);
+        ``mlm_draws``, ``patchout_draws`` and ``window_draws`` (one per width
+        group, in :func:`models.slide.width_groups` order) hand them in
+        instead."""
+        x, backbone_out = self._encode_frames(mel, train, generator, patchout_draws, encoder_win,
+                                              mix_rate, win_param, window_draws)
         return self._finish(x, backbone_out, temp_w, pad_mask, generator, mlm_draws)

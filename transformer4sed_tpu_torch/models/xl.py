@@ -4,16 +4,27 @@
     [T-1 .. 0 .. -(T-1)] (``src/models/transformer/transformerXL.py:40-127``);
     built for ``decoder_pos_emd_len`` and sliced about its centre.
   * ``RelPositionMultiheadAttention``: (q + u)·k content plus (q + v)·P
-    position scores, rel-shifted, through the fused XL kernel. Once
-    ``parallel.shard_params`` has sharded it (``tp`` set), ``in_proj`` and
-    ``out_proj`` hold this rank's heads, ``pos_bias_u``, ``pos_bias_v`` and
-    ``linear_pos`` (replicated) are read for those heads only, and the XL
-    kernels run on the local heads.
+    position scores, rel-shifted, through the fused XL kernel, with optional
+    per-head band widths (local attention, the band built in the kernel).
+    With an explicit ``mask`` (bool, True = blocked) it takes the JAX
+    package's masked branch instead (``models/xl.py:200-221``): the
+    rel-shifted position scores of q + v in float32, scaled, -1e30 where
+    blocked, as an additive [B, H, T, T] bias to the flash attention of
+    q + u, k and v (:func:`flash_attention_bias`, row 4 of the kernel table;
+    its backward recomputes through the plain version, as the JAX custom VJP
+    does). Once ``parallel.shard_params`` has sharded it (``tp`` set),
+    ``in_proj`` and ``out_proj`` hold this rank's heads, ``pos_bias_u``,
+    ``pos_bias_v`` and ``linear_pos`` (replicated) are read for those heads
+    only, as are the band widths and a mask's head axis, and the kernels run
+    on the local heads.
   * ``build_band_mask``: the band-diagonal local-attention mask, which the
     XL kernel's plain version uses (the kernel builds it per element).
   * ``TransformerXLBlock`` keeps the reference's residual wiring
     ``x = norm1(x); x = x + attn(x); x = x + mlp(norm2(x))``; its MLP is
     ``mlp_ratio`` times as wide as the block (``decoder_expand_rate``).
+  * ``TransformerXLDecoder(window_len=...)`` turns an int or per-head window
+    length into band widths for every block, as the JAX decoder does under
+    ``use_flash`` (:289-296).
 
 The port has one XL attention. The JAX package builds PaSST_SED's decoder
 with ``use_flash`` (the fused kernel) and HTSAT_CNN's without it (the
@@ -25,14 +36,23 @@ function, so both families run the fused kernels here on the card (rows 2,
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from transformer4sed_tpu_torch.kernels.xl_attention import flash_xl_attention_nhd
+from transformer4sed_tpu_torch.kernels.flash_attention import (
+    _merge_heads,
+    _split_heads,
+    flash_attention_bias,
+)
+from transformer4sed_tpu_torch.kernels.xl_attention import (
+    add_pos_bias,
+    flash_xl_attention_nhd,
+    rel_shift,
+)
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
 from transformer4sed_tpu_torch.models.vit import Mlp
 
@@ -82,8 +102,11 @@ class RelPositionMultiheadAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, hd))
         self.tp = None  # parallel.partition.TPShard once in_proj / out_proj are sharded
 
-    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, D] (already scaled by sqrt(D)); pos_emb: [1, 2T-1, D]."""
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                band_widths: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """x: [B, T, D] (already scaled by sqrt(D)); pos_emb: [1, 2T-1, D];
+        mask: bool [T, T] | [H, T, T] | [B, H, T, T], True = blocked (the band
+        widths are then unused, as in JAX); band_widths: one per head."""
         qkv = self.in_proj(x)
         d = qkv.shape[-1] // 3  # this rank's width under tensor parallelism
         bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
@@ -96,11 +119,22 @@ class RelPositionMultiheadAttention(nn.Module):
             lin = self.linear_pos
             dt = lin.compute_dtype or torch.promote_types(pos_emb.dtype, lin.weight.dtype)
             p = F.linear(pos_emb.to(dt), self.tp.local(lin.weight, 0, d // h).to(dt))[0]
+            heads = slice(self.tp.head0, self.tp.head0 + h)
+            if band_widths is not None:
+                band_widths = tuple(band_widths)[heads]
+            if mask is not None and mask.ndim > 2:
+                mask = mask[..., heads, :, :]
         p = p.reshape(p.shape[0], h, d // h).transpose(0, 1)  # [H, 2T-1, hd] view
-        out = flash_xl_attention_nhd(
-            qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
-            bias_u, bias_v, p, h, (d // h) ** -0.5,
-        )
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        scale = (d // h) ** -0.5
+        if mask is None:
+            out = flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, h, scale, band_widths)
+        else:
+            qu, qv = add_pos_bias(q, bias_u, bias_v, h)  # [B, H, T, hd] in q's dtype
+            position = rel_shift(torch.matmul(qv.float(), p.float().transpose(-1, -2)))
+            bias = torch.where(torch.as_tensor(mask, device=x.device), -1e30, position * scale)
+            out = _merge_heads(flash_attention_bias(qu, _split_heads(k, h), _split_heads(v, h),
+                                                    bias, scale))
         return self.out_proj(out)
 
 
@@ -114,19 +148,22 @@ class TransformerXLBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
-    def forward(self, x, pos_emb):
+    def forward(self, x, pos_emb, mask=None, band_widths=None):
         x = self.norm1(x)
-        x = x + self.attn(x, pos_emb)
+        x = x + self.attn(x, pos_emb, mask=mask, band_widths=band_widths)
         return x + self.mlp(self.norm2(x))
 
 
 class TransformerXLDecoder(nn.Module):
-    """Stack of XL blocks over the frame sequence."""
+    """Stack of XL blocks over the frame sequence; ``window_len`` (an int, or
+    one per head) makes every block's attention local."""
 
     def __init__(self, dim: int, decoder_layer_num: int = 2, num_heads: int = 12,
-                 seq_len: int = 1000, mlp_ratio: float = 1.0, dtype=torch.float32):
+                 seq_len: int = 1000, mlp_ratio: float = 1.0, window_len=None,
+                 dtype=torch.float32):
         super().__init__()
         self.seq_len = seq_len
+        self.band_widths = band_widths(window_len, num_heads)
         self.encoder_blocks = nn.ModuleList(
             TransformerXLBlock(dim, num_heads, mlp_ratio, dtype=dtype)
             for _ in range(decoder_layer_num)
@@ -135,13 +172,28 @@ class TransformerXLDecoder(nn.Module):
             "pe", torch.from_numpy(rel_positional_encoding(seq_len, dim)), persistent=False
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, d = x.shape
+    def pos_emb(self, t: int) -> torch.Tensor:
+        """[1, 2t-1, D]: the position table's rows for offsets t-1 .. -(t-1)."""
         if t > self.seq_len:
             raise ValueError(f"{t} frames exceed the position table's {self.seq_len}")
         center = self.pe.shape[1] // 2
-        pos_emb = self.pe[:, center - t + 1:center + t]
-        x = x * math.sqrt(d)
+        return self.pe[:, center - t + 1:center + t]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pos_emb = self.pos_emb(x.shape[1])
+        x = x * math.sqrt(x.shape[-1])
         for blk in self.encoder_blocks:
-            x = blk(x, pos_emb)
+            x = blk(x, pos_emb, band_widths=self.band_widths)
         return x
+
+
+def band_widths(window_len, num_heads: int) -> Optional[Tuple[int, ...]]:
+    """None | int | per-head sequence -> None | one band width per head."""
+    if window_len is None:
+        return None
+    if isinstance(window_len, int):
+        return (int(window_len),) * num_heads
+    widths = tuple(int(w) for w in window_len)
+    if len(widths) != num_heads:
+        raise ValueError(f"{len(widths)} window lengths for {num_heads} heads")
+    return widths

@@ -343,6 +343,25 @@ def check_tp_flash_attention(mesh: Mesh, shape=(2, 4, 37, 16)) -> Dict[str, np.n
         ("q", "k", "v", "do", "out", "dq", "dk", "dv"), (q, k, v, do, *gathered))}
 
 
+def check_batch_norm(mesh: Mesh, rows: int = 256, channels: int = 16) -> Dict[str, np.ndarray]:
+    """Global-batch BatchNorm statistics on inputs far from zero: every
+    channel's |mean| / std is about 10, as in bn0's log-mel bins. Each rank
+    normalises its equal share of one seeded [rows, channels] batch in
+    training mode; returns the batch and the running mean and variance after
+    one update (the batch statistics at momentum 1)."""
+    from transformer4sed_tpu_torch.models.norm import RefBatchNorm
+
+    rng = np.random.RandomState(7)
+    std = rng.uniform(0.5, 2.0, channels)
+    x = (rng.randn(rows, channels) * std
+         + 10.0 * std * rng.choice([-1.0, 1.0], channels)).astype(np.float32)
+    share = rows // mesh.data
+    bn = RefBatchNorm(channels, momentum=1.0)
+    bn.mesh = mesh
+    bn.train()(torch.from_numpy(x[mesh.data_index * share:(mesh.data_index + 1) * share]))
+    return {"x": x, "mean": bn.running_mean.numpy().copy(), "var": bn.running_var.numpy().copy()}
+
+
 def check_state_dict(mesh: Mesh) -> Dict[str, Any]:
     """The tiny PaSST_SED's state dict before :func:`shard_params` against
     :func:`gather_state_dict` after it, key by key, and the sharded names."""
@@ -373,8 +392,9 @@ def dryrun_rank(rank: int, world: int, sizes: Sequence[int] = (), checks: bool =
     """One rank of the dry runs over the first ``n`` ranks, for each ``n`` in
     ``sizes`` (default: the world): both phases in every layout (and, with
     ``checks``, the head-parallel attention and the state-dict round trip on
-    the widest layout). Ranks past ``n`` take part in building the groups
-    only. Rank 0 returns the reports, by ``n``."""
+    the widest layout, and the BatchNorm statistics over dp=n). Ranks past
+    ``n`` take part in building the groups only. Rank 0 returns the reports,
+    by ``n``."""
     reports: Dict[int, Dict[str, Any]] = {}
     for n in sizes or (world,):
         report: Dict[str, Any] = {"layouts": layouts(n)}
@@ -394,6 +414,10 @@ def dryrun_rank(rank: int, world: int, sizes: Sequence[int] = (), checks: bool =
                 check_tp_flash_attention(mesh) if mesh.member else None)
             report["state_dict"] = _gather_to_rank0(
                 check_state_dict(mesh) if mesh.member else None)
+            name, data, model = layouts(n)[1]  # dp over every rank
+            mesh = _mesh(data, model)
+            report["batch_norm"] = _gather_to_rank0(
+                check_batch_norm(mesh) if mesh.member else None)
         reports[n] = report
     return reports if rank == 0 else None
 

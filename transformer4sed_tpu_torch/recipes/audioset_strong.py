@@ -13,7 +13,7 @@ The random numbers of a step are drawn first (:func:`draw_supervised`, from
 a ``torch.Generator``) and applied second, so a test can feed the draws of
 another implementation. The ``SupervisedTrainer`` epoch loop, the
 weighted sampler, the label tables and validation come with the data and
-eval slices (ROADMAP.md, queue 1, items 3, 4 and 10).
+eval slices (ROADMAP.md, queue 1, items 3, 4 and 9).
 
 Under data parallelism (``parallel.shard_train_step``) every rank
 preprocesses the global batch with the same generator and keeps its
