@@ -19,13 +19,18 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
-     backwards;
+     backwards; check the build: rows 1, 3, 5, 7 at most 124 registers
+     without spill, the flash backward without spill and its SASS with
+     HGMMA, UTMALDG and UTMAREDG and no atomic (``cuobjdump`` of the built
+     libraries, fresh or cached);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and on small ragged and banded cases, and show that
-     the same check rejects planted faults (a dropped key tile, a dropped
-     bias, a rel-shift off by one, a band one key wider; for the backwards
-     an LSE shifted by log 2, a zeroed O, P rolled by one row, pos_bias_v
-     dropped); the Swin window forward and backward at HTSAT-tiny's four
+     main paths' shapes and on small ragged and banded cases (the flash
+     backward, row 8, also at finetune2's window length N = 602, and its
+     pre- and post-pass), and show that the same check rejects planted
+     faults (a dropped key tile, a dropped bias, a rel-shift off by one, a
+     band one key wider; for the backwards an LSE shifted by log 2, a zeroed
+     O, the last key tile's dQ partial left out, P rolled by one row,
+     pos_bias_v dropped); the Swin window forward and backward at HTSAT-tiny's four
      stage shapes at B=64, shifted and unshifted, with four more planted
      faults (head 0's bias for every head, window 0's shift mask for every
      window, head-dim lanes 24..31 read from the next head, a dbias that
@@ -38,9 +43,10 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      batch); the head-major flash forward, LSE forward and backward (rows 3,
      5 and 6) at [8, 12, 1190, 64] and [24, 12, 1190, 64] (strided views of
      [B, 1190, 2304] projections), [8, 12, 1190, 32] contiguous and ragged
-     T = 37 and 130, with four more planted faults (k's head stride taken as
+     T = 37 and 130, with five more planted faults (k's head stride taken as
      its row stride, the last key tile dropped, an LSE shifted by log 2 in
-     the backward, dk of head h written to head h+1); the biased flash
+     the backward, the last key tile's dQ partial left out, dk of head h
+     written to head h+1); the biased flash
      forward (row 4) at [8, 12, 1000, 64] and [8, 12, 1000, 32] with a banded,
      key-masked bias and a fully masked row, ragged T = 37 and 130 (one with
      a batch-expanded bias), four more planted faults (bias dropped, read
@@ -83,7 +89,8 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      tolerances, with the trajectories printed;
   7. time each kernel, its plain version and the one-call library
      equivalent (SDPA forward, SDPA backward through autograd) with CUDA
-     events, beside the least time the card could take; time served
+     events, beside the least time the card could take (the flash
+     backwards also as their three launches apart); time served
      clips/s at B=8 over three windows of 80 batches; time train steps/s
      and clips/s at B=24 over three windows, and the peak device memory;
   8. profile two served batches and one train step (torch.profiler):
@@ -167,8 +174,10 @@ line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -329,7 +338,7 @@ def kernel_wrappers():
            xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward,
            xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward,
            fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_backward,
-           fa.flash_attention_bias, fv.flash_a)
+           fa.flash_attention_bias, fv.flash_a, fa.flash_bwd_prepass, fa.flash_bwd_postpass)
     return {f.__name__: f for f in fns}
 
 
@@ -340,6 +349,13 @@ def reset_launches():
 
 def read_launches():
     return {name: f.launches for name, f in kernel_wrappers().items()}
+
+
+def with_bwd_passes(per_step):
+    """A path's launches a step with the flash backwards' passes: one pre-pass
+    and one post-pass for every launch of row 6 or row 8."""
+    n = sum(per_step.get(k, 0) for k in ("flash_attention_nhd_backward", "flash_attention_backward"))
+    return dict(per_step, flash_bwd_prepass=n, flash_bwd_postpass=n)
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -482,6 +498,63 @@ def grad_output(shape, seed):
     return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
+BWD_KEYS = 128  # keys a block of the flash backward (csrc/flash_bwd.cuh: FB_KEYS)
+
+
+def check_bwd_passes(results, o, lse, do, h):
+    """The flash backwards' pre- and post-pass against their plain versions on
+    the row-8 operands (heads-in-lanes views): the base-2 log-sum-exp to an f32
+    rounding (+inf where the plain version has it), delta to twice the f32
+    error of a d-term dot (2 * d * 2^-24 * rowsum |dO||O|, both sides summing
+    in their own order), the workspace, filled with NaN first, to zeros; the
+    post-pass's bf16 dq with the forward's element-wise bound (one rounding)."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _split_heads,
+        bwd_padded_rows,
+        flash_bwd_postpass,
+        flash_bwd_postpass_reference,
+        flash_bwd_prepass,
+        flash_bwd_prepass_reference,
+    )
+
+    oh, doh = _split_heads(o, h), _split_heads(do, h)
+    b, _, t, d = oh.shape
+    tp = bwd_padded_rows(t)
+    work = torch.full((b, h, tp, d), float("nan"), device="cuda")
+    side, work = flash_bwd_prepass(oh, doh, lse, dq_acc=work)
+    ref, _ = flash_bwd_prepass_reference(oh.float(), doh.float(), lse)
+    inf = torch.isinf(ref[..., 0])
+    l2_ok = bool((torch.isinf(side[..., 0]) == inf).all())
+    l2_rel = float(((side[..., 0] - ref[..., 0]).abs() / ref[..., 0].abs().clamp_min(1e-30))
+                   [~inf].max())
+    delta_err = (side[..., 1] - ref[..., 1]).abs()
+    terms = torch.zeros_like(delta_err)
+    terms[..., :t] = (doh.float().abs() * oh.float().abs()).sum(-1)
+    delta_worst = float(torch.where(delta_err == 0, 0.0,
+                                    delta_err / (2 * d * 2.0 ** -24 * terms)).max())
+    zeroed = bool((work == 0).all())
+    ok = l2_ok and l2_rel <= 2.0 ** -22 and delta_worst <= 1.0 and zeroed
+    log(f"kernel flash_bwd_prepass B={b} H={h} T={t}: L*log2e max rel err {l2_rel:.3e} (limit "
+        f"{2.0 ** -22:.2e}), inf rows alike {l2_ok}; delta max_abs_err "
+        f"{float(delta_err.max()):.3e}, max err/bound {delta_worst:.3f} (limit 1); workspace "
+        f"zeroed {zeroed}: {'within' if ok else 'OUTSIDE'}")
+    check(ok, "flash_bwd_prepass disagrees with its plain version")
+    results["flash_bwd_prepass"]["max_abs_err"] = float(delta_err.max())
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    work = torch.randn(b, h, tp, d, generator=gen, device="cuda")
+    scale = d ** -0.5
+    dq = torch.empty(o.shape, dtype=torch.bfloat16, device="cuda")
+    out = flash_bwd_postpass(work, _split_heads(dq, h), scale)
+    ref = flash_bwd_postpass_reference(work, torch.empty(oh.shape, device="cuda"), scale)
+    ok, mx = held(f"kernel flash_bwd_postpass B={b} H={h} T={t}", out, ref, 0.0)
+    check(ok and out.data_ptr() == dq.data_ptr(),
+          "flash_bwd_postpass disagrees with its plain version")
+    results["flash_bwd_postpass"]["max_abs_err"] = mx
+
+
 def check_train_kernels(results, rejected):
     """Rows 7, 8, 12 and 13: the LSE forwards (output and lse) and the
     backwards (every cotangent, fed the kernel forward's own o and lse)
@@ -507,8 +580,10 @@ def check_train_kernels(results, rejected):
     )
 
     names = ("dq", "dk", "dv")
+    # B=32 N=602: finetune2's window groups (602 = 4 * 128 + 90 keys, a ragged
+    # last key tile of the backward's 128)
     for b, n, c, h, main in ((24, 1190, 768, 12, True), (2, 77, 768, 12, False),
-                             (1, 130, 256, 4, False)):
+                             (1, 130, 256, 4, False), (32, 602, 768, 12, False)):
         tag = f"B={b} N={n} C={c} H={h}"
         q, k, v = flash_inputs(b, n, c, seed=n + 1)
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -534,6 +609,11 @@ def check_train_kernels(results, rejected):
             bad = flash_attention_nhd_backward(q, k, v, torch.zeros_like(out), lse, do, h)
             rejected.append(held_all("planted fault: O zeroed (delta dropped)", names, bad, refs,
                                      terms)[0])
+            bad = flash_attention_nhd_backward(q, k, v, out, lse, do, h,
+                                               skip_dq_tile=(n - 1) // BWD_KEYS)
+            rejected.append(held_all("planted fault: the last key tile's dQ partial left out",
+                                     names, bad, refs, terms)[0])
+            check_bwd_passes(results, out, lse, do, h)
         del refs, terms, grads
         torch.cuda.empty_cache()
 
@@ -1032,6 +1112,10 @@ def check_flash_hm_kernels(results, rejected):
             bad = flash_attention_backward(q, k, v, out, lse + math.log(2.0), do)
             rejected.append(held_all("planted fault: lse shifted by log 2", names, bad, refs,
                                      terms)[0])
+            bad = flash_attention_backward(q, k, v, out, lse, do,
+                                           skip_dq_tile=(tt - 1) // BWD_KEYS)
+            rejected.append(held_all("planted fault: the last key tile's dQ partial left out",
+                                     names, bad, refs, terms)[0])
             moved = (grads[0], grads[1].roll(1, dims=1), grads[2])
             rejected.append(held_all("planted fault: dk of head h written to head h+1", names,
                                      moved, refs, terms)[0])
@@ -1271,11 +1355,12 @@ def train(results):
                     flash_attention_nhd_backward=12, flash_xl_attention_nhd_lse=3,
                     flash_xl_attention_nhd_backward=3)
     want = {name: 0 for name in launches}
-    want.update({k: n * TRAIN_STEPS for k, n in per_step.items()})
+    want.update({k: n * TRAIN_STEPS for k, n in with_bwd_passes(per_step).items()})
     log(f"train launches over {TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the train path, expected {want}")
     for name in ("flash_attention_nhd_lse", "flash_attention_nhd_backward",
-                 "flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward"):
+                 "flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward",
+                 "flash_bwd_prepass", "flash_bwd_postpass"):
         results[name]["launches"] = launches[name]
     return trainer, batch
 
@@ -1413,7 +1498,7 @@ def parallel_train(results, mesh):
     torch.cuda.synchronize()
     launches = read_launches()
     want = {name: 0 for name in launches}
-    want.update({k: n * TRAIN_STEPS for k, n in PARALLEL_LAUNCHES.items()})
+    want.update({k: n * TRAIN_STEPS for k, n in with_bwd_passes(PARALLEL_LAUNCHES).items()})
     log(f"parallel train launches over {TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the parallel train path, expected "
                             f"{want}")
@@ -1800,7 +1885,8 @@ def pmam_train(results):
     torch.cuda.synchronize()
     launches = read_launches()
     want = {name: 0 for name in launches}
-    want.update({k: n * PMAM_TRAIN_STEPS for k, n in PMAM_TRAIN_LAUNCHES.items()})
+    want.update({k: n * PMAM_TRAIN_STEPS
+                 for k, n in with_bwd_passes(PMAM_TRAIN_LAUNCHES).items()})
     log(f"PMAM train launches over {PMAM_TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the PMAM train path, expected {want}")
     results["flash_xl_attention_lse"]["launches"] = launches["flash_xl_attention_lse"]
@@ -1897,7 +1983,7 @@ def mlm_train():
     torch.cuda.synchronize()
     launches = read_launches()
     want = {name: 0 for name in launches}
-    want.update({k: n * MLM_TRAIN_STEPS for k, n in MLM_TRAIN_LAUNCHES.items()})
+    want.update({k: n * MLM_TRAIN_STEPS for k, n in with_bwd_passes(MLM_TRAIN_LAUNCHES).items()})
     log(f"MLM train launches over {MLM_TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the MLM train path, expected {want}")
     now = trainer.model.backbone.state_dict()
@@ -2270,7 +2356,7 @@ def finetune2_train(results):
                     flash_attention_nhd_backward=12 + TAP * n_win,
                     flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
     want = {name: 0 for name in launches}
-    want.update({k: n * FT2_TRAIN_STEPS for k, n in per_step.items()})
+    want.update({k: n * FT2_TRAIN_STEPS for k, n in with_bwd_passes(per_step).items()})
     log(f"finetune2 train launches over {FT2_TRAIN_STEPS} steps: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(launches == want, f"kernel launches {launches} on the finetune2 path, expected {want}")
@@ -2291,7 +2377,7 @@ def finetune2_train(results):
         PMAM_TRAIN_LAUNCHES["flash_attention_nhd"]
         + TAP * window_groups(PMAM_FT2_TCH["win_param"])))
     want = {name: 0 for name in launches}
-    want.update({k: n * FT2_TRAIN_STEPS for k, n in per_step.items()})
+    want.update({k: n * FT2_TRAIN_STEPS for k, n in with_bwd_passes(per_step).items()})
     log(f"PMAM finetune2 train launches over {FT2_TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on PMAM's finetune2 path, expected {want}")
     log(f"PMAM finetune2 train phase {time.perf_counter() - t0:.1f} s")
@@ -2416,6 +2502,7 @@ def time_train_kernels(results):
         lambda: torch.autograd.grad(sdpa, (qh, kh, vh), heads(do), retain_graph=True))
     # five products (S, dO V^T, dV, dK, dQ); q, k, v, o, dO and lse in, dq, dk, dv out
     bound(r, 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4)
+    time_bwd_parts("flash_attention_nhd_backward", q, k, v, o, lse, do, h, results)
     del o, lse, sdpa, qh, kh, vh
     torch.cuda.empty_cache()
 
@@ -2606,8 +2693,63 @@ def time_flash_hm_kernels(results):
         lambda: torch.autograd.grad(sdpa, (qh, kh, vh), do, retain_graph=True))
     # five products (S, dO V^T, dV, dK, dQ); q, k, v, o, dO and lse in, dq, dk, dv out
     bound(r, 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4)
+    time_bwd_parts("flash_attention_backward", q, k, v, o, lse, do, h)
     del o, lse, sdpa, qh, kh, vh
     torch.cuda.empty_cache()
+
+
+def time_bwd_parts(what, q, k, v, o, lse, do, h, results=None):
+    """A flash backward's three launches timed apart, on the wrapper's own
+    operands: the pre-pass, the main kernel alone (fed the pre-pass's side
+    rows and workspace) and the post-pass. With ``results`` (row 8's shape),
+    the passes' records: time, plain time, bound by bytes (O, dO, lse in,
+    side rows and workspace out; the workspace's T rows in, dq out). The
+    post-pass's library call is ``torch.mul`` into the bf16 dq view; the
+    pre-pass has none (delta, L*log2(e) and the zeroed workspace are three
+    results of different ops)."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _split_heads,
+        bwd_padded_rows,
+        flash_bwd_postpass,
+        flash_bwd_postpass_reference,
+        flash_bwd_prepass,
+        flash_bwd_prepass_reference,
+        hm_backward_kernel,
+        nhd_backward_kernel,
+    )
+
+    lanes = q.dim() == 3  # row 8's [B, N, H*d]; row 6 takes [B, H, T, d]
+    oh, doh = (_split_heads(o, h), _split_heads(do, h)) if lanes else (o, do)
+    b, _, t, d = oh.shape
+    scale = d ** -0.5
+    side, work = flash_bwd_prepass(oh, doh, lse)
+    pre_ms = cuda_ms(lambda: flash_bwd_prepass(oh, doh, lse, dq_acc=work))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if lanes:
+        main_ms = cuda_ms(lambda: nhd_backward_kernel(q, k, v, do, side, work, dk, dv, h, scale))
+        dq = _split_heads(dq, h)
+    else:
+        main_ms = cuda_ms(lambda: hm_backward_kernel(q, k, v, do, side, work, dk, dv, scale))
+    post_ms = cuda_ms(lambda: flash_bwd_postpass(work, dq, scale))
+    log(f"time {what} parts: pre-pass {pre_ms:.4f} ms, kernel {main_ms:.4f} ms, post-pass "
+        f"{post_ms:.4f} ms")
+    if results is None:
+        return
+    tp = bwd_padded_rows(t)
+    r = results["flash_bwd_prepass"]
+    r["ms"] = pre_ms
+    r["plain_ms"] = cuda_ms(lambda: flash_bwd_prepass_reference(oh, doh, lse), iters=3)
+    r["library_ms"] = None  # no one PyTorch call computes delta, L*log2(e) and a zeroed workspace
+    bound(r, 2.0 * b * h * t * d,
+          2.0 * b * h * t * d * 2 + b * h * t * 4 + b * h * tp * (2 + d) * 4)
+    r = results["flash_bwd_postpass"]
+    r["ms"] = post_ms
+    scratch = torch.empty_like(dq)
+    r["plain_ms"] = cuda_ms(lambda: flash_bwd_postpass_reference(work, scratch, scale), iters=3)
+    r["library_ms"] = cuda_ms(lambda: torch.mul(work[:, :, :t], scale, out=scratch))
+    bound(r, 1.0 * b * h * t * d, b * h * t * d * (4.0 + 2.0))
 
 
 def time_bias_kernels(results):
@@ -2812,6 +2954,82 @@ def profile_serving(engine, batches, batch_ms, top=15, what="served"):
             f"{e.key[:90]}")
 
 
+def cuobjdump(path, flag):
+    """``cuobjdump <flag>`` of a built library, from the toolkit that built it."""
+    from transformer4sed_tpu_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), flag, str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def resource_usage(path):
+    """{kernel symbol: (registers, stack bytes, local bytes)} from
+    ``cuobjdump -res-usage`` of a built library; a spill lives in the stack
+    frame, so no stack and no local memory means no spill."""
+    report, entry = {}, None
+    for line in cuobjdump(path, "-res-usage").splitlines():
+        m = re.search(r"Function ([^\s:]+)\s*:", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"REG:(\d+)\s+STACK:(\d+).*LOCAL:(\d+)", line)
+        if m and entry is not None:
+            report[entry] = tuple(int(g) for g in m.groups())
+            entry = None
+    return report
+
+
+def sass_opcodes(path):
+    """{kernel symbol: how often each opcode (up to its first dot) appears in
+    its SASS}, from ``cuobjdump -sass`` of a built library."""
+    counts, entry = {}, None
+    for line in cuobjdump(path, "-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = counts.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if entry is not None and m:
+            entry[m.group(1)] += 1
+    return counts
+
+
+def check_build(paths):
+    """From the built libraries, whether built by this process or before it:
+    the forwards of rows 1, 3, 5 and 7 keep at most 124 registers without
+    spill (the backward's new header stays out of them); the flash backward's
+    kernels spill nothing, and its main kernel's SASS holds warpgroup products
+    (HGMMA), TMA loads (UTMALDG) and TMA reductions (UTMAREDG, dQ) and no
+    atomic. No spill: no stack frame, no local memory and no LDL or STL in
+    the SASS."""
+    for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
+                 "flash_attention_hm_bwd"):
+        usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
+        check(usage and usage.keys() == sass.keys(),
+              f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
+        for sym, (regs, stack, local) in usage.items():
+            ops = sass[sym]
+            spilled = stack or local or ops["LDL"] or ops["STL"]
+            log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
+                f"LDL {ops['LDL']}, STL {ops['STL']}")
+            check(not spilled, f"{name} {sym} spills")
+            if name in ("flash_attention", "flash_attention_hm"):
+                check(regs <= 124, f"{name} {sym}: {regs} registers (limit 124)")
+        if name in ("flash_attention", "flash_attention_hm"):
+            continue
+        main = [sym for sym in sass if "flash_bwd_kernel" in sym]
+        check(main, f"{name}: no flash_bwd_kernel in the library")
+        for sym in main:
+            ops = sass[sym]
+            shown = {op: ops[op] for op in ("HGMMA", "UTMALDG", "UBLKCP", "UTMAREDG", "LDGSTS",
+                                            "RED", "REDG", "ATOM", "ATOMG", "STS", "STSM", "BAR")}
+            log(f"  backward {name} SASS of {sym}: {shown}")
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UTMAREDG"] > 0,
+                  f"{name}: the backward's SASS lacks HGMMA, UTMALDG or UTMAREDG")
+            check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
+                  f"{name}: an atomic in the backward's SASS (dQ goes by TMA reductions)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2843,6 +3061,7 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    check_build(paths)
 
     results = {
         "flash_attention_nhd": {
@@ -2924,6 +3143,16 @@ def main(argv=None) -> int:
             "name": "flash_a", "route": "cuda",
             "source": "transformer4sed_tpu_torch/csrc/flash_variants.cu",
             "replaces": "exps/flash_variants.py:62",
+        },
+        "flash_bwd_prepass": {
+            "name": "flash_bwd_prepass", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:686",
+        },
+        "flash_bwd_postpass": {
+            "name": "flash_bwd_postpass", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/flash_attention.py:720",
         },
     }
     if "kernels" in phases:

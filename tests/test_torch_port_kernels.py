@@ -102,14 +102,29 @@ def test_rel_shift_is_the_transformer_xl_shift():
 
 def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     q, k, v, bu, bv, p = map(torch.from_numpy, _xl_data(1, 40, 2, 16, seed=3))
-    before = (port_flash.flash_attention_nhd.launches, port_xl.flash_xl_attention_nhd.launches)
+    counted = (port_flash.flash_attention_nhd, port_xl.flash_xl_attention_nhd,
+               port_flash.flash_bwd_prepass, port_flash.flash_bwd_postpass)
+    before = [f.launches for f in counted]
     torch.testing.assert_close(port_flash.flash_attention_nhd(q, k, v, 2),
                                port_flash.flash_attention_nhd_reference(q, k, v, 2))
     torch.testing.assert_close(
         port_xl.flash_xl_attention_nhd(q, k, v, bu, bv, p, 2, 0.25, (8, 12)),
         port_xl.xl_attention_nhd_reference(q, k, v, bu, bv, p, 2, 0.25, (8, 12)))
-    assert (port_flash.flash_attention_nhd.launches,
-            port_xl.flash_xl_attention_nhd.launches) == before
+    # the flash backwards' passes on [B, H, T, d] views: T = 40 pads to 64 rows
+    o, do = (port_flash._split_heads(x, 2) for x in (q, k))
+    lse = torch.from_numpy(np.random.RandomState(4).randn(1, 2, 40).astype(np.float32))
+    lse[0, 1, 7] = -np.inf
+    side, work = port_flash.flash_bwd_prepass(o, do, lse)
+    assert side.shape == (1, 2, 64, 2) and work.shape == (1, 2, 64, 16) and not work.any()
+    torch.testing.assert_close(side[..., :40, 1], (o * do).sum(-1))
+    torch.testing.assert_close(side[..., :40, 0][lse.isfinite()],
+                               lse[lse.isfinite()] * port_flash.LOG2E)
+    assert side[0, 1, 7, 0] == np.inf and (side[..., 40:, 0] == np.inf).all()
+    assert not side[..., 40:, 1].any()
+    work = torch.from_numpy(np.random.RandomState(5).randn(1, 2, 64, 16).astype(np.float32))
+    out = port_flash.flash_bwd_postpass(work, torch.empty(1, 2, 40, 16), 0.25)
+    torch.testing.assert_close(out, work[:, :, :40] * 0.25)
+    assert [f.launches for f in counted] == before
 
 
 def test_kernel_sources_name_their_tpu_kernels():

@@ -1,250 +1,452 @@
 // Flash attention backward for Hopper (sm_90a): the device code shared by the
-// heads-in-lanes entry point (flash_attention_bwd.cu) and the head-major one
-// (flash_attention_hm_bwd.cu).
+// heads-in-lanes entry point (flash_attention_bwd.cu, row 8) and the
+// head-major one (flash_attention_hm_bwd.cu, row 6), with the two passes
+// around it.
 //
-// From the saved output O and row log-sum-exp L of the forward, with
-// delta = rowsum(dO * O) per head computed beforehand (as the TPU wrappers
-// do):
+// From the saved output O and row log-sum-exp L of the forward:
 //   P  = exp(scale * Q K^T - L)
 //   dV = P^T dO                      (P rounded to bf16)
-//   dS = P * (dO V^T - delta)        (rounded to bf16)
+//   dS = P * (dO V^T - delta)        (rounded to bf16), delta = rowsum(dO * O)
 //   dK = scale * dS^T Q,  dQ = scale * dS K
-// Every operand comes as a base pointer with batch, head and row strides
-// (Rows, mma.cuh): [B, N, H*d] lane slices and [B, H, T, d] views alike. HD is
-// the head dim, a multiple of 16; the launchers build 64 (heads-in-lanes) and
-// 32, 64 (head major).
+// Every operand is a [B, H, T, d] view with its own batch, head and row
+// strides (Rows, mma.cuh): [B, N, H*d] lane slices and head-major views
+// alike. HD is the head dim; 64 (rows 8 and 6) and 32 (row 6) are built.
 //
-// What bounds it: five products of 2*T^2*d per (batch, head), 87 GFLOP at
-// B=8, T=1190, H=12, d=64 against ~100 MB of operands, far above the H100's
-// ~295 FLOP/byte ridge: the tensor cores bound it.
-// Design: one kernel where the TPU runs two (dq, then dk/dv). One block of
-// 4 warps owns one 64-key tile of one (batch, head) and keeps its K and V
-// (row-major and transposed) in shared memory and its dK/dV sums in registers
-// (each warp 16 keys). It walks the 64-row query tiles; per tile each warp
-// recomputes its 16 rows of S and dO V^T with mma.sync m16n8k16 (bf16 in, f32
-// accumulate), forms P and dS in registers, adds its dS K partial into an f32
-// dQ workspace with atomicAdd (the caller casts it to bf16), and parks P^T and
-// dS^T in shared memory, from which each warp multiplies its 16 keys' rows
-// into dV and dK. The ragged tail (T = 1190 is not a multiple of 64) is masked
-// for queries and keys alike; a row whose L is -inf has zero weight. This is
-// the plain first version: no TMA, no wgmma, scalar transposed stores, dQ by
-// atomics.
+// What bounds it: five products of 2*T^2*d per (batch, head), 261 GFLOP at
+// B=24, T=1190, H=12, d=64, against ~200 MB of operands and results: 0.2639
+// ms at the H100's 989 TFLOP/s, far above its ~295 FLOP/byte ridge, so the
+// tensor cores bound it.
+//
+// Design.
+// * The pre-pass (flash_bwd_prepass_kernel) reads dO and O once, in bf16
+//   through their strides, and writes per query row the pair (L * log2 e,
+//   delta) in f32 to a side buffer [B, H, T_pad, 2] (T_pad = T rounded up to
+//   64; a padded row and a row whose L is -inf get +inf, so that its P is 0
+//   without a test), and zeroes the f32 dQ workspace [B, H, T_pad, d] in the
+//   same launch.
+// * The main kernel runs one block per (128-key tile, head, batch): two
+//   consumer warpgroups of 64 keys each and a producer warpgroup, one thread
+//   of which issues every copy. It loads the block's K and V once and
+//   streams 64-row query tiles of Q and dO (TMA, from 4-D tensor maps over
+//   (d, heads, rows, batch) whose out-of-bounds fill zeroes the ragged tail)
+//   with their side rows (a bulk copy) through a ring of FB_STAGES stages,
+//   each guarded by a full and an empty mbarrier. Each consumer computes
+//   S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory, forms P^T
+//   (the MUFU's ex2.approx) and dS^T in the accumulator registers, and adds
+//   dV += P^T dO and dK += dS^T Q with wgmma whose A is that accumulator
+//   rounded to bf16 and whose B is the same dO and Q tiles read MN-major: no
+//   operand is transposed by a copy. dS^T goes once to
+//   shared memory (stmatrix, in the 128-byte swizzle); after a named barrier
+//   over both warpgroups, each computes half of dQ = dS K over the block's
+//   128 keys (wgmma, both operands from shared memory, MN-major), stores
+//   that 64 x d/2 f32 partial to shared memory in the workspace's swizzled
+//   layout, and one thread adds it to the workspace with one TMA reduction
+//   (cp.reduce.async.bulk.tensor .add, double-buffered): no atomics, ten
+//   partials per query row at T = 1190.
+// * The post-pass (flash_bwd_postpass_kernel) writes dQ = scale * workspace
+//   in bf16 through the caller's strides.
+// One block an SM of three warpgroups: 168 registers a thread at launch,
+// where the consumers need ~200 (dK, dV, S^T, dP^T accumulators and the dQ
+// half). setmaxnreg moves the producer warpgroup down to 40 and the
+// consumers up to 232; the block's register pool holds just that.
 #pragma once
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace t4s {
 
-constexpr int FB_TILE = 64;
-constexpr int FB_WARPS = 4;
-constexpr int FB_THREADS = 32 * FB_WARPS;
-constexpr int FB_PAD = 8;
+constexpr int FB_KEYS = 128;         // keys per block
+constexpr int FB_QROWS = 64;         // query rows per stage
+constexpr int FB_STAGES = 3;         // query tiles in flight
+constexpr int FB_CONSUMERS = 256;    // two warpgroups
+constexpr int FB_THREADS = FB_CONSUMERS + 128;  // and the producer warpgroup
+// 384 threads at one block an SM start with 168 registers each; the producer
+// warpgroup (one warp issues the copies, three idle) hands its share to the
+// consumers: 128 * 40 + 256 * 232 = 384 * 168
+constexpr int FB_PRODUCER_REGS = 40;
+constexpr int FB_CONSUMER_REGS = 232;
+constexpr int FB_SIDE_BYTES = FB_QROWS * 2 * 4;  // (L * log2 e, delta) per row
+constexpr int FB_DS_BYTES = FB_KEYS * FB_QROWS * 2;  // dS^T [128 keys][64 queries] bf16
+constexpr float FB_LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct FbSmem {
-  static constexpr int LD = HD + FB_PAD;        // row-major [64][HD] tiles
-  static constexpr int LDT = FB_TILE + FB_PAD;  // transposed [HD][64] and [64][64] tiles
-  static constexpr int ROW_TILE = FB_TILE * LD * 2;
-  static constexpr int T_TILE = (HD > FB_TILE ? HD : FB_TILE) * LDT * 2;
+  static constexpr int ROW = HD * 2;  // bytes of one tile row
+  static constexpr int KV_TILE = FB_KEYS * ROW;
+  static constexpr int Q_TILE = FB_QROWS * ROW;
   static constexpr int K_OFF = 0;
-  static constexpr int KT_OFF = K_OFF + ROW_TILE;
-  static constexpr int V_OFF = KT_OFF + T_TILE;
-  static constexpr int Q_OFF = V_OFF + ROW_TILE;
-  static constexpr int QT_OFF = Q_OFF + ROW_TILE;
-  static constexpr int DO_OFF = QT_OFF + T_TILE;
-  static constexpr int DOT_OFF = DO_OFF + ROW_TILE;
-  static constexpr int PT_OFF = DOT_OFF + T_TILE;
-  static constexpr int DST_OFF = PT_OFF + T_TILE;
-  static constexpr int L_OFF = DST_OFF + T_TILE;
-  static constexpr int D_OFF = L_OFF + FB_TILE * 4;
-  static constexpr int BYTES = D_OFF + FB_TILE * 4;
+  static constexpr int V_OFF = K_OFF + KV_TILE;
+  static constexpr int Q_OFF = V_OFF + KV_TILE;
+  static constexpr int DO_OFF = Q_OFF + FB_STAGES * Q_TILE;
+  static constexpr int DS_OFF = DO_OFF + FB_STAGES * Q_TILE;  // two buffers
+  static constexpr int DQ_TILE = FB_QROWS * HD / 2 * 4;  // one warpgroup's f32 dQ half
+  static constexpr int DQ_OFF = DS_OFF + 2 * FB_DS_BYTES;   // two buffers of both halves
+  static constexpr int SIDE_OFF = DQ_OFF + 2 * 2 * DQ_TILE;
+  static constexpr int BAR_OFF = SIDE_OFF + FB_STAGES * FB_SIDE_BYTES;
+  // kv_full, full[FB_STAGES], empty[FB_STAGES]; then slack to align the base to 1024
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * FB_STAGES) * 8 + 1024;
 };
 
 template <int HD>
-__global__ void __launch_bounds__(FB_THREADS)
-flash_bwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-                 Rows<const bf16> dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, Rows<float> dq_acc, Rows<bf16> dk,
-                 Rows<bf16> dv, int n, float scale, float scale_log2) {
+__global__ void __launch_bounds__(FB_THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdq, const float* __restrict__ side,
+                 Rows<bf16> dk, Rows<bf16> dv, int n, int skip_dq_tile, float scale,
+                 float scale_log2) {
+  using namespace hopper;
   using L = FbSmem<HD>;
-  constexpr int LD = L::LD, LDT = L::LDT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* sKt = reinterpret_cast<bf16*>(smem + L::KT_OFF);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::V_OFF);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* sQt = reinterpret_cast<bf16*>(smem + L::QT_OFF);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::DO_OFF);
-  bf16* sdOt = reinterpret_cast<bf16*>(smem + L::DOT_OFF);
-  bf16* sPt = reinterpret_cast<bf16*>(smem + L::PT_OFF);
-  bf16* sdSt = reinterpret_cast<bf16*>(smem + L::DST_OFF);
-  float* sL = reinterpret_cast<float*>(smem + L::L_OFF);
-  float* sD = reinterpret_cast<float*>(smem + L::D_OFF);
+  constexpr int ROW = L::ROW;
+  constexpr uint64_t SW = HD == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  static_assert(HD == 64 || HD == 32, "head dims 32 and 64 are built");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + FB_STAGES;
+
+  const int j0 = blockIdx.x * FB_KEYS, h = blockIdx.y, b = blockIdx.z;
+  const int nq = (n + FB_QROWS - 1) / FB_QROWS, n_pad = nq * FB_QROWS;
+  const long long bh = (long long)b * gridDim.y + h;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < FB_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * FB_TILE, h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = q.at(b, h);
-  const bf16* kb = k.at(b, h) + (long long)j0 * k.rs;
-  const bf16* vb = v.at(b, h) + (long long)j0 * v.rs;
-  const bf16* ob = dout.at(b, h);
-  const long long bh = (long long)b * gridDim.y + h;
-  const float* lse_bh = lse + bh * n;
-  const float* delta_bh = delta + bh * n;
-
-  load_rows<HD, FB_THREADS>(sK, LD, kb, k.rs, FB_TILE, n - j0);
-  load_rows_transposed<HD, FB_THREADS>(sKt, LDT, kb, k.rs, FB_TILE, n - j0);
-  load_rows<HD, FB_THREADS>(sV, LD, vb, v.rs, FB_TILE, n - j0);
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  const int r0 = warp * 16 + g;  // this thread's query rows r0, r0 + 8 of the tile
-  for (int i0 = 0; i0 < n; i0 += FB_TILE) {
-    __syncthreads();  // the previous tile's P^T/dS^T/Q/dO are consumed
-    load_rows<HD, FB_THREADS>(sQ, LD, qb + (long long)i0 * q.rs, q.rs, FB_TILE, n - i0);
-    load_rows_transposed<HD, FB_THREADS>(sQt, LDT, qb + (long long)i0 * q.rs, q.rs, FB_TILE,
-                                         n - i0);
-    load_rows<HD, FB_THREADS>(sdO, LD, ob + (long long)i0 * dout.rs, dout.rs, FB_TILE, n - i0);
-    load_rows_transposed<HD, FB_THREADS>(sdOt, LDT, ob + (long long)i0 * dout.rs, dout.rs,
-                                         FB_TILE, n - i0);
-    for (int r = threadIdx.x; r < FB_TILE; r += FB_THREADS) {
-      const bool ok = i0 + r < n;
-      sL[r] = ok ? lse_bh[i0 + r] * 1.4426950408889634f : INFINITY;
-      sD[r] = ok ? delta_bh[i0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 query rows
-    uint32_t qf[HD / 16][4], of[HD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      qf[kk][0] = ld_b32(&sQ[r0 * LD + c0]);
-      qf[kk][1] = ld_b32(&sQ[(r0 + 8) * LD + c0]);
-      qf[kk][2] = ld_b32(&sQ[r0 * LD + c0 + 8]);
-      qf[kk][3] = ld_b32(&sQ[(r0 + 8) * LD + c0 + 8]);
-      of[kk][0] = ld_b32(&sdO[r0 * LD + c0]);
-      of[kk][1] = ld_b32(&sdO[(r0 + 8) * LD + c0]);
-      of[kk][2] = ld_b32(&sdO[r0 * LD + c0 + 8]);
-      of[kk][3] = ld_b32(&sdO[(r0 + 8) * LD + c0 + 8]);
-    }
-    float s[FB_TILE / 8][4], ds[FB_TILE / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < FB_TILE / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = ds[nt][e] = 0.f;
-      const bf16* kr = &sK[(nt * 8 + g) * LD + 2 * t];
-      const bf16* vr = &sV[(nt * 8 + g) * LD + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        mma_16816(s[nt], qf[kk], ld_b32(kr + kk * 16), ld_b32(kr + kk * 16 + 8));
-        mma_16816(ds[nt], of[kk], ld_b32(vr + kk * 16), ld_b32(vr + kk * 16 + 8));
+  if (warp >= FB_CONSUMERS / 32) {  // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<FB_PRODUCER_REGS>();
+    if (warp == FB_CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::KV_TILE);
+      tma_load_4d(smem + L::K_OFF, &tk, kv_full, 0, h, j0, b);
+      tma_load_4d(smem + L::V_OFF, &tv, kv_full, 0, h, j0, b);
+      for (int it = 0; it < nq; ++it) {
+        const int s = it % FB_STAGES;
+        if (it >= FB_STAGES) mbar_wait(&empty[s], (it / FB_STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::Q_TILE + FB_SIDE_BYTES);
+        tma_load_4d(smem + L::Q_OFF + s * L::Q_TILE, &tq, &full[s], 0, h, it * FB_QROWS, b);
+        tma_load_4d(smem + L::DO_OFF + s * L::Q_TILE, &tdo, &full[s], 0, h, it * FB_QROWS, b);
+        bulk_load(smem + L::SIDE_OFF + s * FB_SIDE_BYTES,
+                  side + (bh * n_pad + (long long)it * FB_QROWS) * 2, FB_SIDE_BYTES, &full[s]);
       }
     }
+    return;
+  }
 
-    // P = exp(scale S - L) and dS = P (dP - delta); P^T and dS^T to shared
-    const float l2[2] = {sL[r0], sL[r0 + 8]}, dl[2] = {sD[r0], sD[r0 + 8]};
+  // a consumer warpgroup: keys wg*64 .. wg*64+63 of the block
+  setmaxnreg_inc<FB_CONSUMER_REGS>();
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const bool issuer = (threadIdx.x & 127) == 0;  // issues the warpgroup's dQ reductions
+  const unsigned char* sK = smem + L::K_OFF;
+  const unsigned char* sKw = sK + wg * 64 * ROW;
+  const unsigned char* sVw = smem + L::V_OFF + wg * 64 * ROW;
+  const int key0 = j0 + wg * 64 + wl * 16 + g;  // this thread's keys: key0, key0 + 8
+  const bool key_ok[2] = {key0 < n, key0 + 8 < n};
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-    for (int nt = 0; nt < FB_TILE / 8; ++nt) {
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float st[32], dpt[32], dq[HD / 4];
+  uint32_t pa[4][4], sa[4][4];
+
+  mbar_wait(kv_full, 0);
+  __syncwarp();
+  for (int it = 0; it < nq; ++it) {
+    const int s = it % FB_STAGES;
+    const unsigned char* sQ = smem + L::Q_OFF + s * L::Q_TILE;
+    const unsigned char* sdO = smem + L::DO_OFF + s * L::Q_TILE;
+    const float* sSide = reinterpret_cast<const float*>(smem + L::SIDE_OFF + s * FB_SIDE_BYTES);
+    mbar_wait(&full[s], (it / FB_STAGES) & 1);
+    __syncwarp();  // converged again for the .sync.aligned wgmma instructions
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, K-major operands
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(st, desc(sKw + kk * 32, 8 * ROW, SW), desc(sQ + kk * 32, 8 * ROW, SW), kk);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<0, 0>(dpt, desc(sVw + kk * 32, 8 * ROW, SW), desc(sdO + kk * 32, 8 * ROW, SW),
+                     kk);
+    wgmma_commit();
+    float4 ld[8];  // (L2, delta) of queries 8j + 2t and 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      ld[j] = *reinterpret_cast<const float4*>(sSide + 2 * (8 * j + 2 * t));
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp2(scale log2e S^T - L2), dS^T = P^T (dP^T - delta); keys past n weigh 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int rl = r0 + 8 * (e >> 1), c = nt * 8 + 2 * t + (e & 1);
-        const bool ok = i0 + rl < n && j0 + c < n && l2[e >> 1] != -INFINITY;
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - l2[e >> 1]) : 0.f;
-        s[nt][e] = p;
-        ds[nt][e] = p * (ds[nt][e] - dl[e >> 1]);
-        sPt[c * LDT + rl] = __float2bfloat16(p);
-        sdSt[c * LDT + rl] = __float2bfloat16(ds[nt][e]);
+        const float l2 = (e & 1) ? ld[j].z : ld[j].x;
+        const float dl = (e & 1) ? ld[j].w : ld[j].y;
+        const int i = 4 * j + e;
+        const float p = key_ok[e >> 1] ? ex2_approx(st[i] * scale_log2 - l2) : 0.f;
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - dl);
       }
-    }
+    acc_to_a(st, pa);
+    acc_to_a(dpt, sa);
 
-    // dQ partial of this key tile: scale * dS K, into the f32 workspace
-    float dq[HD / 8][4];
+    // dV += P^T dO, dK += dS^T Q: A from registers, B (dO, Q) read MN-major
+    wgmma_fence();
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(dv_acc, pa[kk], desc(sdO + kk * 16 * ROW, 8 * ROW, SW), 1);
 #pragma unroll
-    for (int kk = 0; kk < FB_TILE / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(ds[2 * kk][0], ds[2 * kk][1]);
-      a[1] = pack_bf16(ds[2 * kk][2], ds[2 * kk][3]);
-      a[2] = pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      a[3] = pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(dk_acc, sa[kk], desc(sQ + kk * 16 * ROW, 8 * ROW, SW), 1);
+    wgmma_commit();
+
+    // dS^T [128 keys][64 queries] to shared memory, 128-byte swizzle; both halves
+    unsigned char* sdS = smem + L::DS_OFF + (it & 1) * FB_DS_BYTES;
+    {
+      const int mi = lane >> 3, r = lane & 7;  // this lane's row r of matrix mi
+      const uint32_t row = smem_u32(sdS) + (wg * 64 + wl * 16 + (mi & 1) * 8 + r) * 128;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const bf16* kt = &sKt[(dt * 8 + g) * LDT + kk * 16 + 2 * t];
-        mma_16816(dq[dt], a, ld_b32(kt), ld_b32(kt + 8));
-      }
+      for (int kk = 0; kk < 4; ++kk) stmatrix_x4(row + (((2 * kk + (mi >> 1)) ^ r) << 4), sa[kk]);
     }
+    fence_proxy_async();
+    if (issuer) bulk_wait_read<1>();  // the reduction two tiles back has left its buffer
+    bar_sync(1, FB_CONSUMERS);
+
+    // this warpgroup's d/2 columns of the dQ partial: dS (MN-major) times K (MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FB_KEYS / 16; ++kk)
+      wgmma_ss<1, 1>(dq, desc(sdS + kk * 16 * 128, 1024, SWIZZLE_128B),
+                     desc(sK + kk * 16 * ROW + wg * HD, 8 * ROW, SW), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(sa);
+    if (issuer) mbar_arrive(&empty[s]);  // Q, dO and side rows consumed
+
+    // the 64 x d/2 f32 partial to shared memory in the layout of the workspace's
+    // tensor map (rows of d/2 floats, swizzled), then one TMA reduction adds it.
+    // At d = 64 odd g store their column blocks in the order j ^ 2, so that the
+    // 16 lanes of each 8-byte store hit 16 distinct bank pairs.
+    float* sdq = reinterpret_cast<float*>(smem + L::DQ_OFF + ((it & 1) * 2 + wg) * L::DQ_TILE);
+    constexpr int FLIP = HD == 64 ? 2 : 0;
+    const bool flip = (g & 1) != 0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = i0 + r0 + 8 * r;
-      if (row >= n) continue;
-      float* dqr = dq_acc.at(b, h) + (long long)row * dq_acc.rs + 2 * t;
+      const int row = wl * 16 + g + 8 * r;
+      const int swz = HD == 64 ? (row & 7) : ((row >> 1) & 3);
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        atomicAdd(dqr + dt * 8, dq[dt][2 * r] * scale);
-        atomicAdd(dqr + dt * 8 + 1, dq[dt][2 * r + 1] * scale);
+      for (int k = 0; k < HD / 16; ++k) {
+        const int j = flip ? k ^ FLIP : k;
+        const float x = flip ? dq[4 * (k ^ FLIP) + 2 * r] : dq[4 * k + 2 * r];
+        const float y = flip ? dq[4 * (k ^ FLIP) + 2 * r + 1] : dq[4 * k + 2 * r + 1];
+        const int chunk = (2 * j + (t >> 1)) ^ swz;
+        *reinterpret_cast<float2*>(sdq + row * (HD / 2) + chunk * 4 + (t & 1) * 2) =
+            make_float2(x, y);
       }
     }
-    __syncthreads();  // P^T and dS^T of all four warps are in place
-
-    // dV += P^T dO and dK += dS^T Q for this warp's 16 keys
-    const int k0 = warp * 16 + g;
-#pragma unroll
-    for (int kk = 0; kk < FB_TILE / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      uint32_t pa[4], sa[4];
-      pa[0] = ld_b32(&sPt[k0 * LDT + c0]);
-      pa[1] = ld_b32(&sPt[(k0 + 8) * LDT + c0]);
-      pa[2] = ld_b32(&sPt[k0 * LDT + c0 + 8]);
-      pa[3] = ld_b32(&sPt[(k0 + 8) * LDT + c0 + 8]);
-      sa[0] = ld_b32(&sdSt[k0 * LDT + c0]);
-      sa[1] = ld_b32(&sdSt[(k0 + 8) * LDT + c0]);
-      sa[2] = ld_b32(&sdSt[k0 * LDT + c0 + 8]);
-      sa[3] = ld_b32(&sdSt[(k0 + 8) * LDT + c0 + 8]);
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const bf16* ot = &sdOt[(dt * 8 + g) * LDT + c0];
-        const bf16* qt = &sQt[(dt * 8 + g) * LDT + c0];
-        mma_16816(dv_acc[dt], pa, ld_b32(ot), ld_b32(ot + 8));
-        mma_16816(dk_acc[dt], sa, ld_b32(qt), ld_b32(qt + 8));
-      }
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+    if (issuer && (int)blockIdx.x != skip_dq_tile) {
+      tma_reduce_add_2d(&tdq, sdq, wg * (HD / 2), (int)(bh * n_pad) + it * FB_QROWS);
+      bulk_commit();
     }
   }
+  if (issuer) bulk_wait_all();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = j0 + warp * 16 + g + 8 * r;
-    if (key >= n) continue;
+    if (!key_ok[r]) continue;
+    const int key = key0 + 8 * r;
     bf16* dkr = dk.at(b, h) + (long long)key * dk.rs + 2 * t;
     bf16* dvr = dv.at(b, h) + (long long)key * dv.rs + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dkr + dt * 8) =
-          pack_bf16(dk_acc[dt][2 * r] * scale, dk_acc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvr + dt * 8) =
-          pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
+          pack_bf16(dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvr + 8 * j) =
+          pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = launched).
+// The pre-pass: per (batch, head, row < T_pad) the side pair (L * log2 e or
+// +inf, delta = rowsum(dO * O) in f32, 0 past T) and a zeroed workspace row.
+// HD / 8 threads a row, 16 bytes each; the grid covers B * H * T_pad rows
+// exactly (T_pad is a multiple of 64).
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_prepass_kernel(Rows<const bf16> o, Rows<const bf16> dout, const float* __restrict__ lse,
+                         float* __restrict__ side, float* __restrict__ dq_acc, int n, int n_pad,
+                         int heads) {
+  constexpr int TPR = HD / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = idx / TPR;
+  const int part = idx % TPR;
+  const int r = row % n_pad;
+  const long long bh = row / n_pad;
+  const int b = bh / heads, h = bh % heads;
+  float acc = 0.f;
+  if (r < n) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o.at(b, h) + (long long)r * o.rs + part * 8);
+    const uint4 gv =
+        *reinterpret_cast<const uint4*>(dout.at(b, h) + (long long)r * dout.rs + part * 8);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(ge[i]);
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  float4* z = reinterpret_cast<float4*>(dq_acc + row * HD + part * 8);
+  z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (part == 0) {
+    const float l = r < n ? lse[bh * n + r] : -INFINITY;
+    *reinterpret_cast<float2*>(side + row * 2) =
+        make_float2(l == -INFINITY ? INFINITY : l * FB_LOG2E, acc);
+  }
+}
+
+// The post-pass: dq[b, h, r, :] = bf16(scale * workspace[b, h, r, :]) for r < T,
+// 8 elements a thread.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_postpass_kernel(const float* __restrict__ dq_acc, Rows<bf16> dq, int n, int n_pad,
+                          int heads, long long chunks, float scale) {
+  constexpr int CPR = HD / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= chunks) return;
+  const long long row = idx / CPR;
+  const int part = idx % CPR;
+  const int r = row % n;
+  const long long bh = row / n;
+  const int b = bh / heads, h = bh % heads;
+  const float4* src = reinterpret_cast<const float4*>(dq_acc + (bh * n_pad + r) * HD + part * 8);
+  const float4 lo = src[0], hi = src[1];
+  uint4 out;
+  out.x = pack_bf16(lo.x * scale, lo.y * scale);
+  out.y = pack_bf16(lo.z * scale, lo.w * scale);
+  out.z = pack_bf16(hi.x * scale, hi.y * scale);
+  out.w = pack_bf16(hi.z * scale, hi.w * scale);
+  *reinterpret_cast<uint4*>(dq.at(b, h) + (long long)r * dq.rs + part * 8) = out;
+}
+
+// -- host side ----------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no -lcuda).
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (d, heads, rows, batch) over one [B, H, T, d] operand, boxes of
+// `box_rows` rows of one (batch, head), swizzled as the wgmma descriptors read
+// them; rows past T read as zeros.
+static bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, Rows<const bf16> x, int batch,
+                       int heads, int n, int hd, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.hs * 2, (cuuint64_t)x.rs * 2, (cuuint64_t)x.bs * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static inline int padded_rows(int n) { return (n + FB_QROWS - 1) / FB_QROWS * FB_QROWS; }
+
+// A 2-D map (d, rows) over the f32 dQ workspace [B * H * T_pad, d], boxes of
+// 64 rows by d/2 columns (one warpgroup's partial), swizzled as the kernel
+// stores them.
+static bool workspace_map(EncodeTiledFn encode, CUtensorMap* map, float* dq_acc, long long rows,
+                          int hd) {
+  const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)hd * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)hd / 2, FB_QROWS};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, dq_acc, dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the main kernel on `stream`; returns cudaGetLastError() after the
+// launch (0 = launched). side and dq_acc come from the pre-pass; the key tile
+// `skip_dq_tile` adds no dQ partial (-1: every tile adds its own).
 template <int HD>
 static int launch_flash_bwd(int batch, int n, int heads, void* stream, Rows<const bf16> q,
                             Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
-                            const float* lse, const float* delta, Rows<float> dq_acc,
-                            Rows<bf16> dk, Rows<bf16> dv, float sm_scale) {
+                            const float* side, float* dq_acc, Rows<bf16> dk, Rows<bf16> dv,
+                            int skip_dq_tile, float sm_scale) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!tensor_map(encode, &tq, q, batch, heads, n, HD, FB_QROWS) ||
+      !tensor_map(encode, &tk, k, batch, heads, n, HD, FB_KEYS) ||
+      !tensor_map(encode, &tv, v, batch, heads, n, HD, FB_KEYS) ||
+      !tensor_map(encode, &tdo, dout, batch, heads, n, HD, FB_QROWS) ||
+      !workspace_map(encode, &tdq, dq_acc, (long long)batch * heads * padded_rows(n), HD))
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = FbSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + FB_TILE - 1) / FB_TILE, heads, batch);
+  const dim3 grid((n + FB_KEYS - 1) / FB_KEYS, heads, batch);
   flash_bwd_kernel<HD><<<grid, FB_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, dq_acc, dk, dv, n, sm_scale, sm_scale * 1.4426950408889634f);
+      tq, tk, tv, tdo, tdq, side, dk, dv, n, skip_dq_tile, sm_scale, sm_scale * FB_LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+static int launch_flash_bwd_prepass(int batch, int n, int heads, void* stream,
+                                    Rows<const bf16> o, Rows<const bf16> dout, const float* lse,
+                                    float* side, float* dq_acc) {
+  const int n_pad = padded_rows(n);
+  const long long threads = (long long)batch * heads * n_pad * (HD / 8);  // a multiple of 256
+  flash_bwd_prepass_kernel<HD><<<(unsigned)(threads / 256), 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(o, dout, lse, side, dq_acc,
+                                                                      n, n_pad, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+static int launch_flash_bwd_postpass(int batch, int n, int heads, void* stream,
+                                     const float* dq_acc, Rows<bf16> dq, float sm_scale) {
+  const long long chunks = (long long)batch * heads * n * (HD / 8);
+  flash_bwd_postpass_kernel<HD><<<(unsigned)((chunks + 255) / 256), 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      dq_acc, dq, n, padded_rows(n), heads, chunks, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,18 +88,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, n_ptrs: int, n_strides: int, n_ints: int = 4):
+def function(name: str, symbol: str, n_ptrs: int, n_strides: int, n_ints: int = 4,
+             n_floats: int = 1):
     """ctypes binding of ``symbol`` in ``csrc/<name>.cu``, the attention
     launchers' C interface: ``n_ptrs`` pointers, ``n_ints`` ints (batch,
-    length, heads, head dim; the window kernels add the windows per image),
-    ``n_strides`` 64-bit strides, the softmax scale and the stream; returns
+    length, heads, head dim; the window kernels add the windows per image,
+    the flash backwards a planted fault's key tile), ``n_strides`` 64-bit
+    strides, ``n_floats`` floats (the softmax scale) and the stream; returns
     cudaError_t. Bound once per process."""
     key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * n_strides + [ctypes.c_float] * n_floats
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[key] = fn
     return fn

@@ -11,8 +11,9 @@ q/k/v given as [B, N, H*d] lane slices of the qkv projection, head dim 64:
     ``_flash_nhd_forward`` (no-grad calls: serving, the mean teacher);
   * the same source's ``t4s_flash_nhd_fwd_lse`` for
     ``_flash_nhd_forward_lse`` (output and row log-sum-exp);
-  * ``csrc/flash_attention_bwd.cu`` for ``_flash_nhd_backward`` (dq, dk,
-    dv from the saved output and log-sum-exp).
+  * ``csrc/flash_attention_bwd.cu`` ``t4s_flash_nhd_bwd`` for
+    ``_flash_nhd_backward`` (dq, dk, dv from the saved output and
+    log-sum-exp; wgmma on TMA tiles, ``csrc/flash_bwd.cuh``).
 
 Head major (head-parallel attention, ``parallel/partition.py``, and the
 head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
@@ -22,12 +23,21 @@ head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
     ``_flash_forward`` and ``t4s_flash_hm_fwd_lse`` for
     ``_flash_forward_lse``;
   * ``csrc/flash_attention_hm_bwd.cu`` for ``_flash_backward`` (one kernel
-    where the TPU runs two);
+    where the TPU runs two, the same device code as the heads-in-lanes one);
   * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: the same
     forward with an additive float32 score bias [B, H, T, T] of any batch,
     head and row strides (:func:`flash_attention_bias`, the XL attention's
     explicitly masked branch). Its backward, like the JAX custom VJP's, is
     autograd through the plain version (:class:`FlashAttentionBias`).
+
+Both backward kernels run between two passes of their own, in
+``csrc/flash_attention_bwd.cu``, where the JAX wrappers run XLA code:
+:func:`flash_bwd_prepass` (``t4s_flash_bwd_prepass``) computes delta =
+rowsum(dO * O) in float32 from the bf16 operands and their strides, with the
+log-sum-exp in base 2, into one side buffer, and zeroes the float32 dQ
+workspace in the same launch; :func:`flash_bwd_postpass`
+(``t4s_flash_bwd_postpass``) writes dQ = scale * workspace in bf16 in the
+caller's layout. Each has a plain version and a launch counter.
 
 :func:`flash_attention_nhd` and :func:`flash_attention` dispatch like the
 JAX ``custom_vjp``: with autograd recording and an operand that requires
@@ -173,9 +183,12 @@ def flash_attention_nhd_lse(q, k, v, num_heads: int, sm_scale: Optional[float] =
 
 
 def flash_attention_nhd_backward(q, k, v, o, lse, do, num_heads: int,
-                                 sm_scale: Optional[float] = None):
-    """(dq, dk, dv) from the saved (o, lse): the backward kernel for CUDA
-    tensors (bf16 results), its plain version for CPU tensors (float32)."""
+                                 sm_scale: Optional[float] = None, skip_dq_tile: int = -1):
+    """(dq, dk, dv) from the saved (o, lse): for CUDA tensors the pre-pass,
+    the backward kernel and the post-pass (bf16 results; dq summed in float32
+    and rounded once), for CPU tensors the plain version (float32).
+    ``skip_dq_tile`` leaves one 128-key tile's dQ partial out: a planted
+    fault's switch, -1 (none) on every real path."""
     scale = _scale(q, num_heads, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_nhd_backward_reference(q, k, v, o, lse, do, num_heads, scale)
@@ -188,20 +201,28 @@ def flash_attention_nhd_backward(q, k, v, o, lse, do, num_heads: int,
         raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} vs q {tuple(q.shape)}")
     check_cuda_operands(what, q, k, v, o, do)
     check_f32_rows(what, lse, (b, num_heads, n))
-    delta = row_delta(o, do, num_heads)
-    dq_acc = torch.zeros((b, n, c), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, n, c), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, n, c), dtype=v.dtype, device=q.device)
+    side, dq_acc = flash_bwd_prepass(_split_heads(o, num_heads), _split_heads(do, num_heads), lse)
+    dq, dk, dv = (torch.empty((b, n, c), dtype=x.dtype, device=q.device) for x in (q, k, v))
+    nhd_backward_kernel(q, k, v, do, side, dq_acc, dk, dv, num_heads, scale, skip_dq_tile)
+    flash_attention_nhd_backward.launches += 1
+    flash_bwd_postpass(dq_acc, _split_heads(dq, num_heads), scale)
+    return dq, dk, dv
+
+
+def nhd_backward_kernel(q, k, v, do, side, dq_acc, dk, dv, num_heads: int, scale: float,
+                        skip_dq_tile: int = -1) -> None:
+    """The launch of row 8's kernel alone, between the passes, on operands
+    the wrapper checked (the timing phase of ``chip_smoke.py`` times it
+    apart)."""
+    b, n, c = q.shape
     with torch.cuda.device(q.device):
-        status = _build.function("flash_attention_bwd", "t4s_flash_nhd_bwd", 9, 14)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, n, num_heads, c // num_heads, *_strides(q, k, v, do, dq_acc, dk, dv), scale,
+        status = _build.function("flash_attention_bwd", "t4s_flash_nhd_bwd", 8, 12, n_ints=5)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), side.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, num_heads, c // num_heads,
+            skip_dq_tile, *_strides(q, k, v, do, dk, dv), scale,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(status, what)
-    flash_attention_nhd_backward.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    _build.check(status, "flash_attention_nhd_backward")
 
 
 class FlashAttentionNHD(torch.autograd.Function):
@@ -311,6 +332,89 @@ def aligned_rows(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# -- the two passes around both backward kernels (csrc/flash_attention_bwd.cu) --------
+
+LOG2E = 1.4426950408889634
+BWD_ROWS = 64  # query rows of one backward stage (csrc/flash_bwd.cuh: FB_QROWS)
+
+
+def bwd_padded_rows(t: int) -> int:
+    """T rounded up to whole query tiles: the rows of the pre-pass's buffers."""
+    return -(-t // BWD_ROWS) * BWD_ROWS
+
+
+def flash_bwd_prepass_reference(o, do, lse):
+    """Plain version of the backward's pre-pass on [B, H, T, d] views: the
+    side rows [B, H, T_pad, 2] in float32, (L * log2 e, delta = rowsum(dO *
+    O)) per row (+inf and 0 past T, +inf where L is -inf: such a row weighs
+    0), and a zeroed float32 dQ workspace [B, H, T_pad, d]."""
+    b, h, t, d = o.shape
+    tp = bwd_padded_rows(t)
+    side = torch.zeros((b, h, tp, 2), dtype=torch.float32, device=o.device)
+    side[..., 0] = math.inf
+    side[..., :t, 0] = torch.where(lse == -math.inf, math.inf, lse.float() * LOG2E)
+    side[..., :t, 1] = (do.float() * o.float()).sum(-1)
+    return side, torch.zeros((b, h, tp, d), dtype=torch.float32, device=o.device)
+
+
+def flash_bwd_prepass(o, do, lse, dq_acc: Optional[torch.Tensor] = None):
+    """(side, dq_acc) for the backward kernels from o, do [B, H, T, d] (any
+    batch, head and row strides) and lse f32 [B, H, T]: the pre-pass kernel
+    for CUDA tensors (bf16, head dim 32 or 64), its plain version for CPU
+    tensors. ``dq_acc`` is a workspace to zero in place of a fresh one."""
+    if o.device.type == "cpu":
+        return flash_bwd_prepass_reference(o, do, lse)
+    what = "flash_bwd_prepass"
+    b, h, t, d = o.shape
+    if o.device.type != "cuda" or do.shape != o.shape or d not in HM_HEAD_DIMS:
+        raise ValueError(f"{what}: unsupported o {tuple(o.shape)} / do {tuple(do.shape)} on "
+                         f"{o.device} (head dims {HM_HEAD_DIMS})")
+    check_cuda_operands(what, o, do)
+    check_f32_rows(what, lse, (b, h, t))
+    tp = bwd_padded_rows(t)
+    side = torch.empty((b, h, tp, 2), dtype=torch.float32, device=o.device)
+    if dq_acc is None:
+        dq_acc = torch.empty((b, h, tp, d), dtype=torch.float32, device=o.device)
+    check_f32_rows(what, dq_acc, (b, h, tp, d))
+    with torch.cuda.device(o.device):
+        status = _build.function("flash_attention_bwd", "t4s_flash_bwd_prepass", 5, 6,
+                                 n_floats=0)(
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), side.data_ptr(), dq_acc.data_ptr(),
+            b, t, h, d, *hm_strides(o, do), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_bwd_prepass.launches += 1
+    return side, dq_acc
+
+
+def flash_bwd_postpass_reference(dq_acc, out, scale: float):
+    """Plain version of the post-pass: ``out`` = scale * dq_acc[:, :, :T] in
+    out's dtype."""
+    return out.copy_(dq_acc[:, :, :out.shape[2]] * scale)
+
+
+def flash_bwd_postpass(dq_acc, out, scale: float):
+    """dq into ``out`` (a [B, H, T, d] view of any batch, head and row
+    strides) from the f32 workspace [B, H, T_pad, d]: the post-pass kernel
+    for CUDA tensors (bf16 out), its plain version for CPU tensors."""
+    if out.device.type == "cpu":
+        return flash_bwd_postpass_reference(dq_acc, out, scale)
+    what = "flash_bwd_postpass"
+    b, h, t, d = out.shape
+    if out.device.type != "cuda" or d not in HM_HEAD_DIMS:
+        raise ValueError(f"{what}: unsupported out {tuple(out.shape)} on {out.device}")
+    check_cuda_operands(what, out)
+    check_f32_rows(what, dq_acc, (b, h, bwd_padded_rows(t), d))
+    with torch.cuda.device(out.device):
+        status = _build.function("flash_attention_bwd", "t4s_flash_bwd_postpass", 2, 3)(
+            dq_acc.data_ptr(), out.data_ptr(), b, t, h, d, *hm_strides(out), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_bwd_postpass.launches += 1
+    return out
+
+
 def _check_hm(what, q, k, v):
     """Shapes and operands the head-major kernels take."""
     if q.device.type != "cuda":
@@ -352,10 +456,12 @@ def flash_attention_lse(q, k, v, sm_scale: Optional[float] = None):
     return out, lse
 
 
-def flash_attention_backward(q, k, v, o, lse, do, sm_scale: Optional[float] = None):
-    """(dq, dk, dv) from the saved (o, lse): the head-major backward kernel
-    for CUDA tensors (bf16 results; dq summed in float32 and rounded once),
-    its plain version for CPU tensors (float32)."""
+def flash_attention_backward(q, k, v, o, lse, do, sm_scale: Optional[float] = None,
+                             skip_dq_tile: int = -1):
+    """(dq, dk, dv) from the saved (o, lse): for CUDA tensors the pre-pass,
+    the head-major backward kernel and the post-pass (bf16 results; dq summed
+    in float32 and rounded once), for CPU tensors the plain version
+    (float32). ``skip_dq_tile`` as in :func:`flash_attention_nhd_backward`."""
     scale = _hm_scale(q, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
@@ -366,20 +472,28 @@ def flash_attention_backward(q, k, v, o, lse, do, sm_scale: Optional[float] = No
         raise ValueError(f"{what}: o {tuple(o.shape)} / do {tuple(do.shape)} vs q {tuple(q.shape)}")
     check_cuda_operands(what, o, do)
     check_f32_rows(what, lse, (b, h, t))
-    delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq_acc = hm_empty(q.shape, torch.float32, q.device, zero=True)
-    dk = hm_empty(q.shape, k.dtype, q.device)
-    dv = hm_empty(q.shape, v.dtype, q.device)
+    side, dq_acc = flash_bwd_prepass(o, do, lse)
+    dq, dk, dv = (hm_empty(q.shape, x.dtype, q.device) for x in (q, k, v))
+    hm_backward_kernel(q, k, v, do, side, dq_acc, dk, dv, scale, skip_dq_tile)
+    flash_attention_backward.launches += 1
+    flash_bwd_postpass(dq_acc, dq, scale)
+    return dq, dk, dv
+
+
+def hm_backward_kernel(q, k, v, do, side, dq_acc, dk, dv, scale: float,
+                       skip_dq_tile: int = -1) -> None:
+    """The launch of row 6's kernel alone, between the passes, on operands
+    the wrapper checked (the timing phase of ``chip_smoke.py`` times it
+    apart)."""
+    b, h, t, d = q.shape
     with torch.cuda.device(q.device):
-        status = _build.function("flash_attention_hm_bwd", "t4s_flash_hm_bwd", 9, 21)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, d, *hm_strides(q, k, v, do, dq_acc, dk, dv), float(scale),
+        status = _build.function("flash_attention_hm_bwd", "t4s_flash_hm_bwd", 8, 18, n_ints=5)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), side.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d, skip_dq_tile,
+            *hm_strides(q, k, v, do, dk, dv), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(status, what)
-    flash_attention_backward.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    _build.check(status, "flash_attention_backward")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -507,3 +621,5 @@ flash_attention.launches = 0
 flash_attention_lse.launches = 0
 flash_attention_backward.launches = 0
 flash_attention_bias.launches = 0
+flash_bwd_prepass.launches = 0
+flash_bwd_postpass.launches = 0
