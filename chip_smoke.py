@@ -19,16 +19,18 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
-     backwards; check the build: rows 1, 3, 5, 7 at most 124 registers
-     without spill, the flash backward without spill and its SASS with
-     HGMMA, UTMALDG and UTMAREDG and no atomic (``cuobjdump`` of the built
-     libraries, fresh or cached);
+     backwards; check the build: no kernel of the flash family spills (rows
+     1, 3 to 8 and 16), the flash forward's (rows 1, 3, 5, 7) and the flash
+     backward's SASS hold HGMMA and UTMALDG and no HMMA, the backward's
+     UTMAREDG and no atomic (``cuobjdump`` of the built libraries, fresh or
+     cached);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and on small ragged and banded cases (the flash
-     backward, row 8, also at finetune2's window length N = 602, and its
-     pre- and post-pass), and show that the same check rejects planted
-     faults (a dropped key tile, a dropped bias, a rel-shift off by one, a
-     band one key wider; for the backwards an LSE shifted by log 2, a zeroed
+     main paths' shapes and on small ragged and banded cases (rows 1 and 8
+     also at finetune2's window length N = 602, rows 1 and 7 at a negative
+     and a zero scale, and row 8's pre- and post-pass), and show that the same check rejects planted faults (a
+     dropped key tile, the last key tile left unmasked, a dropped bias, a
+     rel-shift off by one, a band one key wider; for the backwards an LSE
+     shifted by log 2, a zeroed
      O, the last key tile's dQ partial left out, P rolled by one row,
      pos_bias_v dropped); the Swin window forward and backward at HTSAT-tiny's four
      stage shapes at B=64, shifted and unshifted, with four more planted
@@ -43,10 +45,11 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      batch); the head-major flash forward, LSE forward and backward (rows 3,
      5 and 6) at [8, 12, 1190, 64] and [24, 12, 1190, 64] (strided views of
      [B, 1190, 2304] projections), [8, 12, 1190, 32] contiguous and ragged
-     T = 37 and 130, with five more planted faults (k's head stride taken as
-     its row stride, the last key tile dropped, an LSE shifted by log 2 in
-     the backward, the last key tile's dQ partial left out, dk of head h
-     written to head h+1); the biased flash
+     T = 37 and 130, with six more planted faults (k's head stride taken as
+     its row stride, the last key tile dropped, the LSE forward's last key
+     tile left unmasked, an LSE shifted by log 2 in the backward, the last
+     key tile's dQ partial left out, dk of head h written to head h+1); the
+     biased flash
      forward (row 4) at [8, 12, 1000, 64] and [8, 12, 1000, 32] with a banded,
      key-masked bias and a fully masked row, ragged T = 37 and 130 (one with
      a batch-expanded bias), four more planted faults (bias dropped, read
@@ -157,7 +160,8 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
 then, inside phases 7 and 8, the window, head-major XL, head-major flash,
 biased and variant flash kernels' times beside their bounds and plain versions
 (and SDPA for the window and flash kernels, with the bias as a float mask for
-row 4), rows 1, 7 and 8 at the window shape, the parallel-layout train steps/s
+row 4), rows 1, 7 and 8 at the window shape beside SDPA's forward and
+backward there, the parallel-layout train steps/s
 beside phase 7's, and HTSAT_CNN's, PMAM's and finetune2's served clips/s, the
 train steps/s of HTSAT_CNN, PMAM, MLM and both finetune2 steps, peak memory
 and profiles. Phases 7 and 8 time and profile the
@@ -384,7 +388,10 @@ def check_kernels(results):
     import torch
 
     from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _forward_kernel,
         flash_attention_nhd,
+        flash_attention_nhd_lse,
+        flash_attention_nhd_lse_reference,
         flash_attention_nhd_reference,
     )
     from transformer4sed_tpu_torch.kernels.xl_attention import (
@@ -398,6 +405,7 @@ def check_kernels(results):
         (8, 1190, 768, 12, True),
         (2, 77, 768, 12, False),
         (1, 130, 256, 4, False),
+        (128, 602, 768, 12, False),  # finetune2's served windows: 602 = 4 * 128 + 90 keys
     ]
     for b, n, c, h, main in cases:
         q, k, v = flash_inputs(b, n, c, seed=n)
@@ -412,6 +420,26 @@ def check_kernels(results):
             out = flash_attention_nhd(q[:, :m], k[:, :m], v[:, :m], h)
             rejected.append(held(f"planted fault: last {n - m} keys dropped", out,
                                  ref[:, :m], ref_abs_v[:, :m])[0])
+            out, _ = _forward_kernel(q, k, v, h, (c // h) ** -0.5, with_lse=False,
+                                     skip_tail_mask=1)
+            rejected.append(held("planted fault: the last key tile unmasked (zero keys counted)",
+                                 out, ref, ref_abs_v)[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+    # rows 1 and 7 take any scale the reference takes: zero and negative too
+    q, k, v = flash_inputs(2, 77, 768, seed=78)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for scale in (-0.125, 0.0):
+        ref, ref_lse = flash_attention_nhd_lse_reference(qf, kf, vf, 12, scale)
+        ref_abs_v = flash_attention_nhd_reference(qf, kf, vf.abs(), 12, scale)
+        ok, _ = held(f"kernel flash_attention_nhd B=2 N=77 scale={scale}",
+                     flash_attention_nhd(q, k, v, 12, scale), ref, ref_abs_v)
+        out, lse = flash_attention_nhd_lse(q, k, v, 12, scale)
+        ok_o, _ = held(f"kernel flash_attention_nhd_lse B=2 N=77 scale={scale} out", out, ref,
+                       ref_abs_v)
+        ok_l, _ = lse_held(f"kernel flash_attention_nhd_lse B=2 N=77 scale={scale}", lse, ref_lse)
+        check(ok and ok_o and ok_l, f"rows 1 and 7 disagree with their plain versions at "
+              f"scale {scale}")
 
     wide_band = (1, 2, 5, 16, 31, 64, 100, 128, 255, 500, 999, 2000)
     cases = [  # (b, t, c, h, band, main path?)
@@ -1035,15 +1063,17 @@ def check_flash_hm_kernels(results, rejected):
     inputs: [8, 12, 1190, 64] and [24, 12, 1190, 64] as strided views of
     [B, 1190, 2304] projections (the sharded flagship's teacher and
     student), [8, 12, 1190, 32] contiguous, and ragged T = 37 and 130; the
-    backward is fed the kernel forward's own o and lse. Then four planted
+    backward is fed the kernel forward's own o and lse. Then six planted
     faults: the head stride taken as the row stride, the last key tile
-    dropped, an LSE shifted by log 2 in the backward, and dk of head h
-    written to head h+1."""
+    dropped, the LSE forward's last key tile left unmasked (TMA's zero keys
+    counted), an LSE shifted by log 2 in the backward, the last key tile's
+    dQ partial left out, and dk of head h written to head h+1."""
     import math
 
     import torch
 
     from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _hm_forward_kernel,
         flash_attention,
         flash_attention_backward,
         flash_attention_backward_reference,
@@ -1096,11 +1126,16 @@ def check_flash_hm_kernels(results, rejected):
         do = hm_grad_output(b, tt, hh, dd, seed=tt + 2, strided=strided)
         out, lse = flash_attention_lse(q, k, v)
         ref, ref_lse = flash_attention_lse_reference(qf, kf, vf, scale)
-        ok_o, mx_o = held(f"kernel flash_attention_lse {tag} out", out, ref,
-                          flash_attention_reference(qf, kf, vf.abs(), scale))
+        ref_abs_v = flash_attention_reference(qf, kf, vf.abs(), scale)
+        ok_o, mx_o = held(f"kernel flash_attention_lse {tag} out", out, ref, ref_abs_v)
         ok_l, mx_l = lse_held(f"kernel flash_attention_lse {tag}", lse, ref_lse)
         check(ok_o and ok_l, "flash_attention_lse disagrees with its plain version")
-        del ref, ref_lse
+        if main:
+            bad, _ = _hm_forward_kernel(q, k, v, scale, with_lse=True, skip_tail_mask=1)
+            rejected.append(held("planted fault: the last key tile unmasked (zero keys counted)",
+                                 bad, ref, ref_abs_v)[0])
+            del bad
+        del ref, ref_lse, ref_abs_v
         refs = flash_attention_backward_reference(qf, kf, vf, out.float(), lse, do.float(), scale)
         terms = hm_flash_bwd_terms(q, k, v, out, lse, do, scale)
         grads = flash_attention_backward(q, k, v, out, lse, do)
@@ -2801,10 +2836,14 @@ def time_window_shape_kernels():
     """Rows 1, 7 and 8 at the shapes finetune2's window groups give them: the
     served batch's 16 windows of 512 frames (B=8: 128 images of 602 tokens)
     for row 1, the train step's (12 clips: 192 images) for rows 7 and 8;
-    logged beside their bounds (the record keeps the clip's shapes)."""
+    logged beside their bounds and SDPA's time on the same operands (forward;
+    for row 8 its backward through autograd), which the port never calls
+    (the record keeps the clip's shapes)."""
     import torch
+    import torch.nn.functional as F
 
     from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _split_heads,
         flash_attention_nhd,
         flash_attention_nhd_backward,
         flash_attention_nhd_lse,
@@ -2815,21 +2854,30 @@ def time_window_shape_kernels():
     for b, name in ((8 * 16, "flash_attention_nhd"), (sum(FT2_SPLIT) * 16, "flash_attention_nhd_lse"),
                     (sum(FT2_SPLIT) * 16, "flash_attention_nhd_backward")):
         q, k, v = flash_inputs(b, n, c, seed=b)
+        qh, kh, vh = (_split_heads(x, h) for x in (q, k, v))
         if name == "flash_attention_nhd":
             ms = cuda_ms(lambda: flash_attention_nhd(q, k, v, h))
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
             flops, nbytes = 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2
         elif name == "flash_attention_nhd_lse":
             ms = cuda_ms(lambda: flash_attention_nhd_lse(q, k, v, h))
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
             flops, nbytes = 4.0 * b * h * n * n * d, 4.0 * b * n * c * 2 + b * h * n * 4
         else:
             o, lse = flash_attention_nhd_lse(q, k, v, h)
             do = grad_output((b, n, c), seed=b + 1)
             ms = cuda_ms(lambda: flash_attention_nhd_backward(q, k, v, o, lse, do, h))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+            sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+            doh = _split_heads(do, h)
+            sdpa_ms = cuda_ms(
+                lambda: torch.autograd.grad(sdpa, (qg, kg, vg), doh, retain_graph=True))
             flops, nbytes = 10.0 * b * h * n * n * d, 8.0 * b * n * c * 2 + b * h * n * 4
+            del o, lse, do, sdpa, qg, kg, vg
         t_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         log(f"time {name} at the window shape [{b}, {n}, {c}]: {ms:.4f} ms, bound "
-            f"{t_bound:.4f} ms")
-        del q, k, v
+            f"{t_bound:.4f} ms, SDPA {sdpa_ms:.4f} ms")
+        del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
 
 
@@ -2996,14 +3044,13 @@ def sass_opcodes(path):
 
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
-    the forwards of rows 1, 3, 5 and 7 keep at most 124 registers without
-    spill (the backward's new header stays out of them); the flash backward's
-    kernels spill nothing, and its main kernel's SASS holds warpgroup products
-    (HGMMA), TMA loads (UTMALDG) and TMA reductions (UTMAREDG, dQ) and no
-    atomic. No spill: no stack frame, no local memory and no LDL or STL in
-    the SASS."""
+    no kernel of the flash family spills (no stack frame, no local memory and
+    no LDL or STL in the SASS), rows 4 and 16 (``flash.cuh``) included; the
+    forward's kernels (rows 1, 3, 5, 7) run warpgroup products (HGMMA) on TMA
+    loads (UTMALDG) and no ``mma.sync`` (HMMA); the backward's main kernel
+    runs HGMMA, UTMALDG and TMA reductions (UTMAREDG, dQ) and no atomic."""
     for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
-                 "flash_attention_hm_bwd"):
+                 "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants"):
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
         check(usage and usage.keys() == sass.keys(),
               f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
@@ -3013,21 +3060,24 @@ def check_build(paths):
             log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
-            if name in ("flash_attention", "flash_attention_hm"):
-                check(regs <= 124, f"{name} {sym}: {regs} registers (limit 124)")
-        if name in ("flash_attention", "flash_attention_hm"):
+        if name in ("flash_attention_bias", "flash_variants"):
             continue
-        main = [sym for sym in sass if "flash_bwd_kernel" in sym]
-        check(main, f"{name}: no flash_bwd_kernel in the library")
+        kernel = "flash_fwd_kernel" if name in ("flash_attention", "flash_attention_hm") \
+            else "flash_bwd_kernel"
+        main = [sym for sym in sass if kernel in sym]
+        check(main, f"{name}: no {kernel} in the library")
         for sym in main:
             ops = sass[sym]
-            shown = {op: ops[op] for op in ("HGMMA", "UTMALDG", "UBLKCP", "UTMAREDG", "LDGSTS",
-                                            "RED", "REDG", "ATOM", "ATOMG", "STS", "STSM", "BAR")}
-            log(f"  backward {name} SASS of {sym}: {shown}")
-            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UTMAREDG"] > 0,
-                  f"{name}: the backward's SASS lacks HGMMA, UTMALDG or UTMAREDG")
-            check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
-                  f"{name}: an atomic in the backward's SASS (dQ goes by TMA reductions)")
+            shown = {op: ops[op] for op in ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "UTMAREDG",
+                                            "LDGSTS", "RED", "REDG", "ATOM", "ATOMG", "STS",
+                                            "STSM", "BAR", "MUFU")}
+            log(f"  {name} SASS of {sym}: {shown}")
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and not ops["HMMA"],
+                  f"{name}: the SASS of {kernel} lacks HGMMA or UTMALDG, or runs HMMA")
+            if kernel == "flash_bwd_kernel":
+                check(ops["UTMAREDG"] > 0, f"{name}: the backward's SASS lacks UTMAREDG")
+                check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
+                      f"{name}: an atomic in the backward's SASS (dQ goes by TMA reductions)")
 
 
 def main(argv=None) -> int:
@@ -3059,7 +3109,7 @@ def main(argv=None) -> int:
     log(f"built {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "(C7" in line:  # C7xxx: wgmma advisories
                 log(f"  ptxas {name}: {line.strip()}")
     check_build(paths)
 

@@ -1,22 +1,20 @@
-// Flash attention forward for Hopper (sm_90a): the device code shared by the
-// heads-in-lanes entry points (flash_attention.cu), the head-major ones
-// (flash_attention_hm.cu), the biased one (flash_attention_bias.cu) and the
-// experiment's variants (flash_variants.cu).
+// Flash attention forward on mma.sync for Hopper (sm_90a): the device code
+// of the biased entry point (flash_attention_bias.cu, row 4) and the
+// experiment's variants (flash_variants.cu, row 16). Rows 1, 3, 5 and 7 run
+// on flash_fwd.cuh's wgmma body.
 //
 //   softmax(scale * Q K^T [+ bias]) V  per (batch, head)
 // Every operand comes as a base pointer with batch, head and row strides
 // (Rows, mma.cuh), so a [B, N, H*d] projection slice (head stride d) and a
 // [B, H, T, d] tensor, contiguous or a strided view of a [B, T, 3*H*d]
-// projection, are the same to the kernel. WITH_LSE also writes the
-// natural-log row log-sum-exp lse [B, H, T] f32 that the backward
-// (flash_bwd.cuh) recomputes the probabilities from. HD is the head dim, a
-// multiple of 16; the launchers build 64 (heads-in-lanes) and 32, 64 (head
-// major).
+// projection, are the same to the kernel. HD is the head dim, a multiple of
+// 16; 32 and 64 are built.
 //
 // What bounds it: the two products are 4*T^2*d operations per (batch, head)
 // against 4*T*d*2 bytes of q/k/v/o, about T/2 operations per byte: at
 // T = 1190 some 600, above the H100's ~295 FLOP/byte ridge for d = 32 as for
-// d = 64, so the tensor cores bound it.
+// d = 64, so the tensor cores bound it (row 4's f32 bias read brings it below
+// the ridge: flash_attention_bias.cu).
 // Design: scores and probabilities never leave registers. One block of
 // 4 warps owns 64 query rows of one (batch, head); each warp keeps its
 // 16 rows' Q fragments in registers and runs mma.sync m16n8k16 (bf16 in,
@@ -26,10 +24,7 @@
 // operand is padded or copied. This is the plain first version: no TMA,
 // no wgmma, no double buffering of the K/V tiles. The shared-memory pitch
 // HD + 8 keeps the fragment loads conflict-free at HD = 32 (20-word rows) as
-// at 64 (36-word rows). Four blocks share an SM (16 warps to hide the mma
-// and exp latencies), which holds the kernel to 128 registers a thread: the
-// batch, head and row strides of four operands took it to 133 otherwise,
-// and three blocks an SM ran it 15 % slower.
+// at 64 (36-word rows).
 #pragma once
 
 #include "mma.cuh"
@@ -39,19 +34,18 @@ namespace t4s {
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 64;
 constexpr int FA_THREADS = 128;
-constexpr int FA_MIN_BLOCKS = 4;  // per SM: 65536 registers / (4 * 128 threads) = 128 each
+constexpr int FA_MIN_BLOCKS = 4;  // row 16: 65536 registers / (4 * 128 threads) = 128 each
 constexpr int FA_PAD = 8;
 
-// What the scores get besides scale * q.k, chosen at compile time; rows 1,
-// 3, 5 and 7 (FA_PLAIN) compile to the code they had before the others.
-//   FA_PLAIN:      the ragged key tail masked element by element in every tile;
-//   FA_BIAS:       plus an f32 bias element read from global memory (row 4,
-//                  flash_attention_bias.cu);
+// What the scores get besides scale * q.k, chosen at compile time:
+//   FA_BIAS:       the ragged key tail masked element by element in every
+//                  tile, plus an f32 bias element read from global memory
+//                  (row 4, flash_attention_bias.cu);
 //   FA_TAIL_EXP2:  the ragged key tail masked in the last tile only (row 16,
 //                  flash_variants.cu, variant B: exp2 with log2(e) folded
-//                  into the scale, as FA_PLAIN does);
+//                  into the scale);
 //   FA_TAIL_EXP:   the same with the natural exp (variant A).
-enum FaScores { FA_PLAIN, FA_BIAS, FA_TAIL_EXP2, FA_TAIL_EXP };
+enum FaScores { FA_BIAS, FA_TAIL_EXP2, FA_TAIL_EXP };
 
 template <int MODE>
 __device__ __forceinline__ float fa_exp(float x) {
@@ -67,11 +61,11 @@ __host__ __device__ constexpr int fa_smem_bytes() {
 // One block's 64 query rows of one (batch, head). `scale` is in the exp's
 // domain: sm_scale * log2(e) for exp2, sm_scale for FA_TAIL_EXP. bias (FA_BIAS
 // only) is read in the exp2 domain as bias * log2(e).
-template <int HD, bool WITH_LSE, int MODE>
+template <int HD, int MODE>
 __device__ __forceinline__ void flash_fwd_body(unsigned char* smem, Rows<const bf16> q,
                                                Rows<const bf16> k, Rows<const bf16> v,
-                                               Rows<bf16> o, float* __restrict__ lse,
-                                               Rows<const float> bias, int n, float scale) {
+                                               Rows<bf16> o, Rows<const float> bias, int n,
+                                               float scale) {
   constexpr int LD = HD + FA_PAD;      // pitch of the Q and K tiles
   constexpr int LDV = FA_BK + FA_PAD;  // pitch of the transposed V tile
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -149,9 +143,7 @@ __device__ __forceinline__ void flash_fwd_body(unsigned char* smem, Rows<const b
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j0 + nt * 8 + 2 * t + (e & 1);
-        if constexpr (MODE == FA_PLAIN)
-          s[nt][e] = col < n ? s[nt][e] * scale : -INFINITY;
-        else if constexpr (MODE == FA_BIAS)
+        if constexpr (MODE == FA_BIAS)
           s[nt][e] = col < n ? s[nt][e] * scale + bs[nt][e] : -INFINITY;
         else
           s[nt][e] = !ragged || col < n ? s[nt][e] * scale : -INFINITY;
@@ -210,38 +202,7 @@ __device__ __forceinline__ void flash_fwd_body(unsigned char* smem, Rows<const b
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
           pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    // m_run is in the scaled log2 domain; a row with no valid key keeps
-    // -inf (never NaN), and the backward gives it zero weight
-    if (WITH_LSE && t == 0)
-      lse[((long long)b * gridDim.y + h) * n + row] =
-          l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f : -INFINITY;
   }
-}
-
-// Rows 1, 3, 5 and 7: no mask but the ragged key tail.
-template <int HD, bool WITH_LSE>
-__global__ void __launch_bounds__(FA_THREADS, FA_MIN_BLOCKS)
-flash_fwd_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
-                 float* __restrict__ lse, int n, float scale_log2) {
-  __shared__ __align__(16) unsigned char smem[fa_smem_bytes<HD>()];
-  flash_fwd_body<HD, WITH_LSE, FA_PLAIN>(smem, q, k, v, o, lse, Rows<const float>{nullptr, 0, 0, 0},
-                                         n, scale_log2);
-}
-
-// Launch on `stream`: lse null for the plain forward. Returns
-// cudaGetLastError() after the launch (0 = launched).
-template <int HD>
-static int launch_flash_fwd(int batch, int n, int heads, void* stream, Rows<const bf16> q,
-                            Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o, float* lse,
-                            float sm_scale) {
-  const dim3 grid((n + FA_BQ - 1) / FA_BQ, heads, batch);
-  const float scale_log2 = sm_scale * 1.4426950408889634f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr)
-    flash_fwd_kernel<HD, true><<<grid, FA_THREADS, 0, st>>>(q, k, v, o, lse, n, scale_log2);
-  else
-    flash_fwd_kernel<HD, false><<<grid, FA_THREADS, 0, st>>>(q, k, v, o, lse, n, scale_log2);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace t4s

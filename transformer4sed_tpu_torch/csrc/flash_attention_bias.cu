@@ -25,9 +25,9 @@
 // the tile's first product, so the loads overlap the K/V staging and QK^T;
 // one warp load covers 8 rows of 32 contiguous bytes, whole sectors. Every
 // bias byte is read once. The 32 bias registers of a tile take the kernel past
-// the plain forward's 128-register budget, so it runs three blocks an SM
-// (FA_BIAS_MIN_BLOCKS) where the plain forward runs four. The plain first
-// version: no TMA, no wgmma, no double buffering.
+// the 128-register budget of four blocks an SM, so it runs three
+// (FA_BIAS_MIN_BLOCKS). The plain first version: no TMA, no wgmma, no double
+// buffering.
 // Head dims built: 32 (PMAM's decoder) and 64 (the flagship's).
 
 #include "flash.cuh"
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(FA_THREADS, FA_BIAS_MIN_BLOCKS)
 flash_bias_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
                   Rows<const float> bias, int n, float scale_log2) {
   __shared__ __align__(16) unsigned char smem[fa_smem_bytes<HD>()];
-  flash_fwd_body<HD, false, FA_BIAS>(smem, q, k, v, o, nullptr, bias, n, scale_log2);
+  flash_fwd_body<HD, FA_BIAS>(smem, q, k, v, o, bias, n, scale_log2);
 }
 
 template <int HD>

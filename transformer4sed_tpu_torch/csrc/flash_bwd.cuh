@@ -343,53 +343,13 @@ flash_bwd_postpass_kernel(const float* __restrict__ dq_acc, Rows<bf16> dq, int n
 
 // -- host side ----------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded (no -lcuda).
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map (d, heads, rows, batch) over one [B, H, T, d] operand, boxes of
-// `box_rows` rows of one (batch, head), swizzled as the wgmma descriptors read
-// them; rows past T read as zeros.
-static bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, Rows<const bf16> x, int batch,
-                       int heads, int n, int hd, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)x.hs * 2, (cuuint64_t)x.rs * 2, (cuuint64_t)x.bs * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 static inline int padded_rows(int n) { return (n + FB_QROWS - 1) / FB_QROWS * FB_QROWS; }
 
 // A 2-D map (d, rows) over the f32 dQ workspace [B * H * T_pad, d], boxes of
 // 64 rows by d/2 columns (one warpgroup's partial), swizzled as the kernel
 // stores them.
-static bool workspace_map(EncodeTiledFn encode, CUtensorMap* map, float* dq_acc, long long rows,
-                          int hd) {
+static bool workspace_map(hopper::EncodeTiledFn encode, CUtensorMap* map, float* dq_acc,
+                          long long rows, int hd) {
   const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)hd * 4};
   const cuuint32_t box[2] = {(cuuint32_t)hd / 2, FB_QROWS};
@@ -409,7 +369,8 @@ static int launch_flash_bwd(int batch, int n, int heads, void* stream, Rows<cons
                             Rows<const bf16> k, Rows<const bf16> v, Rows<const bf16> dout,
                             const float* side, float* dq_acc, Rows<bf16> dk, Rows<bf16> dv,
                             int skip_dq_tile, float sm_scale) {
-  const EncodeTiledFn encode = encode_tiled();
+  using hopper::tensor_map;
+  const hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!tensor_map(encode, &tq, q, batch, heads, n, HD, FB_QROWS) ||

@@ -12,11 +12,11 @@
 // rows past T are zero-filled in shared memory), and the select runs in the
 // last, ragged tile only (FA_TAIL_EXP / FA_TAIL_EXP2 of flash.cuh); A takes
 // the natural exp with the plain scale, B folds log2(e) into the scale and
-// takes exp2 (as row 3 does).
+// takes exp2.
 // What bounds it: as row 3, the tensor cores (at the script's [64, 12, 1190,
 // 64] the two products are 278.5 GFLOP against 468 MB of q/k/v/o).
-// Design: flash.cuh's forward, each variant its own symbol and instantiation
-// with the plain forward's launch bounds.
+// Design: flash.cuh's mma.sync forward, each variant its own symbol and
+// instantiation, four blocks an SM (FA_MIN_BLOCKS).
 // Head dims built: 32 and 64.
 
 #include "flash.cuh"
@@ -28,8 +28,7 @@ __global__ void __launch_bounds__(FA_THREADS, FA_MIN_BLOCKS)
 flash_variant_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v, Rows<bf16> o,
                      int n, float scale) {
   __shared__ __align__(16) unsigned char smem[fa_smem_bytes<HD>()];
-  flash_fwd_body<HD, false, MODE>(smem, q, k, v, o, nullptr, Rows<const float>{nullptr, 0, 0, 0},
-                                  n, scale);
+  flash_fwd_body<HD, MODE>(smem, q, k, v, o, Rows<const float>{nullptr, 0, 0, 0}, n, scale);
 }
 
 template <int MODE>

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash attention backward: warpgroup
-// products (wgmma), their shared-memory descriptors, mbarriers, TMA tile
-// copies and reductions, and bulk copies. Only flash_bwd.cuh includes this
-// header, so the forward kernels (flash.cuh, mma.cuh) keep their register
-// budgets.
+// Hopper (sm_90a) building blocks of the flash attention forward
+// (flash_fwd.cuh) and backward (flash_bwd.cuh): warpgroup products (wgmma),
+// their shared-memory descriptors, mbarriers, named barriers, TMA tile copies
+// and reductions, bulk copies, and on the host the tensor maps those copies
+// read. The mma.sync kernels (flash.cuh, xl.cuh, window.cuh) do not include
+// it.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate), issued by one warpgroup of four
 // warps. Accumulator layout, with w the warp in the group, g = lane / 4 and
@@ -222,9 +223,38 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16. wgmma_ss (N = 64, 32, 16):
-// A and B from shared memory (descriptors; TA, TB: 1 = MN-major); wgmma_rs
-// (N = 64, 32): A from registers, B from shared memory. acc = 0 overwrites D.
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16. wgmma_ss (N = 128, 64, 32,
+// 16): A and B from shared memory (descriptors; TA, TB: 1 = MN-major; at
+// N = 128, SA = -1 negates A); wgmma_rs (N = 64, 32): A from registers, B
+// from shared memory. acc = 0 overwrites D.
+template <int TA, int TB, int SA = 1>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, %69, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB), "n"(SA));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -303,6 +333,48 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// -- host side: tensor maps -----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no -lcuda).
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (d, heads, rows, batch) over one [B, H, T, d] operand, boxes of
+// `box_rows` rows of one (batch, head), swizzled as the wgmma descriptors read
+// them; rows past T read as zeros.
+static bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, Rows<const bf16> x, int batch,
+                       int heads, int n, int hd, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.hs * 2, (cuuint64_t)x.rs * 2, (cuuint64_t)x.bs * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -8,7 +8,9 @@ Heads in lanes (the PaSST backbone's attention, ``models/vit.py:113-122``),
 q/k/v given as [B, N, H*d] lane slices of the qkv projection, head dim 64:
 
   * ``csrc/flash_attention.cu`` ``t4s_flash_nhd_fwd`` for
-    ``_flash_nhd_forward`` (no-grad calls: serving, the mean teacher);
+    ``_flash_nhd_forward`` (no-grad calls: serving, the mean teacher; wgmma
+    on TMA tiles, ``csrc/flash_fwd.cuh``, as every forward of this module
+    but the biased one);
   * the same source's ``t4s_flash_nhd_fwd_lse`` for
     ``_flash_nhd_forward_lse`` (output and row log-sum-exp);
   * ``csrc/flash_attention_bwd.cu`` ``t4s_flash_nhd_bwd`` for
@@ -24,10 +26,11 @@ head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
     ``_flash_forward_lse``;
   * ``csrc/flash_attention_hm_bwd.cu`` for ``_flash_backward`` (one kernel
     where the TPU runs two, the same device code as the heads-in-lanes one);
-  * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: the same
-    forward with an additive float32 score bias [B, H, T, T] of any batch,
-    head and row strides (:func:`flash_attention_bias`, the XL attention's
-    explicitly masked branch). Its backward, like the JAX custom VJP's, is
+  * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: a
+    forward (``mma.sync``, ``csrc/flash.cuh``) with an additive float32
+    score bias [B, H, T, T] of any batch, head and row strides
+    (:func:`flash_attention_bias`, the XL attention's explicitly masked
+    branch). Its backward, like the JAX custom VJP's, is
     autograd through the plain version (:class:`FlashAttentionBias`).
 
 Both backward kernels run between two passes of their own, in
@@ -149,7 +152,10 @@ def _strides(*tensors):
     return [s for x in tensors for s in (x.stride(0), x.stride(1))]
 
 
-def _forward_kernel(q, k, v, num_heads, scale, with_lse: bool):
+def _forward_kernel(q, k, v, num_heads, scale, with_lse: bool, skip_tail_mask: int = 0):
+    """Launch row 1's kernel (row 7's with ``with_lse``) on checked operands;
+    ``skip_tail_mask`` 1 leaves the last key tile unmasked: a planted fault's
+    switch, 0 on every real path."""
     what = "flash_attention_nhd_lse" if with_lse else "flash_attention_nhd"
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
@@ -163,8 +169,8 @@ def _forward_kernel(q, k, v, num_heads, scale, with_lse: bool):
         ptrs.append(lse.data_ptr())
     symbol = "t4s_flash_nhd_fwd_lse" if with_lse else "t4s_flash_nhd_fwd"
     with torch.cuda.device(q.device):
-        status = _build.function("flash_attention", symbol, len(ptrs), 8)(
-            *ptrs, b, n, num_heads, c // num_heads, *_strides(q, k, v, out), scale,
+        status = _build.function("flash_attention", symbol, len(ptrs), 8, n_ints=5)(
+            *ptrs, b, n, num_heads, c // num_heads, skip_tail_mask, *_strides(q, k, v, out), scale,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
@@ -425,7 +431,9 @@ def _check_hm(what, q, k, v):
     check_cuda_operands(what, q, k, v)
 
 
-def _hm_forward_kernel(q, k, v, scale, with_lse: bool):
+def _hm_forward_kernel(q, k, v, scale, with_lse: bool, skip_tail_mask: int = 0):
+    """Launch row 3's kernel (row 5's with ``with_lse``); ``skip_tail_mask``
+    as in :func:`_forward_kernel`."""
     what = "flash_attention_lse" if with_lse else "flash_attention"
     _check_hm(what, q, k, v)
     b, h, t, d = q.shape
@@ -436,8 +444,8 @@ def _hm_forward_kernel(q, k, v, scale, with_lse: bool):
         ptrs.append(lse.data_ptr())
     symbol = "t4s_flash_hm_fwd_lse" if with_lse else "t4s_flash_hm_fwd"
     with torch.cuda.device(q.device):
-        status = _build.function("flash_attention_hm", symbol, len(ptrs), 12)(
-            *ptrs, b, t, h, d, *hm_strides(q, k, v, out), float(scale),
+        status = _build.function("flash_attention_hm", symbol, len(ptrs), 12, n_ints=5)(
+            *ptrs, b, t, h, d, skip_tail_mask, *hm_strides(q, k, v, out), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
