@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,parallel_train,multichip_dryrun  # the parallel layouts
     python3 chip_smoke.py --phases build,bias_kernels,variant_kernels,masked_decoder  # rows 4, 16
     python3 chip_smoke.py --phases build,finetune2_serve,finetune2_train  # the sliding windows
+    python3 chip_smoke.py --phases kernel_timing  # every kernel's time alone, no build check
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
@@ -20,10 +21,10 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
      backwards; check the build: no kernel of the flash family spills (rows
-     1, 3 to 8 and 16), the flash forward's (rows 1, 3, 5, 7) and the flash
-     backward's SASS hold HGMMA and UTMALDG and no HMMA, the backward's
-     UTMAREDG and no atomic (``cuobjdump`` of the built libraries, fresh or
-     cached);
+     1, 3 to 8 and 16), the flash forward's (rows 1, 3, 4, 5, 7, 16) and the
+     flash backward's SASS hold HGMMA and UTMALDG and no HMMA, row 4's
+     LDGSTS (its bias by cp.async), the backward's UTMAREDG and no atomic
+     (``cuobjdump`` of the built libraries, fresh or cached);
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and on small ragged and banded cases (rows 1 and 8
      also at finetune2's window length N = 602, rows 1 and 7 at a negative
@@ -52,11 +53,13 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      biased flash
      forward (row 4) at [8, 12, 1000, 64] and [8, 12, 1000, 32] with a banded,
      key-masked bias and a fully masked row, ragged T = 37 and 130 (one with
-     a batch-expanded bias), four more planted faults (bias dropped, read
-     transposed, last key tile dropped, -inf for -1e30) and its backward
-     against autograd of the plain version; the flash variants (row 16, A
-     and B) at the entry point's [64, 12, 1190, 64] and ragged T, one more
-     planted fault (the padded tail counted), then the entry point at [64, 12,
+     a batch-expanded bias) and at scales -0.125 and 0, five more planted
+     faults (bias dropped, read transposed, last key tile dropped, the last
+     key tile left unmasked, -inf for -1e30) and its backward against
+     autograd of the plain version; the flash variants (row 16, A and B) at
+     the entry point's [64, 12, 1190, 64], ragged T and scales -0.125 and 0,
+     three more planted faults (the padded tail counted, and in A and in B
+     the last key tile left unmasked), then the entry point at [64, 12,
      1190, 64];
   3. serve three batches of synthetic 10-s clips (the last one ragged, one
      clip short) through ``InferenceEngine`` with the full-width MAT-SED
@@ -172,7 +175,8 @@ before phase 9.
 
 The second-to-last line is a JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset
-(and then prints no final record).
+(and then prints no final record); the build is checked only where the
+subset names ``build``.
 """
 
 from __future__ import annotations
@@ -195,7 +199,7 @@ PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "paral
           "finetune2_train", "finetune2_train_parity", "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
 SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
-              "variant_kernels", "htsat_timing", "pmam_timing")
+              "variant_kernels", "htsat_timing", "pmam_timing", "kernel_timing")
 
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -2090,13 +2094,15 @@ def check_bias_kernels(results, rejected):
     """Row 4 against its plain version in f32 on the same bf16 inputs: the
     masked decoder's [8, 12, 1000, 64] (main path) and PMAM's [8, 12, 1000,
     32], ragged T = 37 and 130 (the latter with a batch-expanded bias); a
-    per-head band, a key mask and a fully masked row in each. Then four
-    planted faults: the bias dropped, the bias read transposed, the last key
-    tile dropped, -inf in place of -1e30. Then the autograd Function's
-    gradients against autograd of the plain version."""
+    per-head band, a key mask and a fully masked row in each; scales -0.125
+    and 0 at B=2, T=77. Then five planted faults: the bias dropped, the bias
+    read transposed, the last key tile dropped, the last key tile left
+    unmasked (TMA's zero keys counted), -inf in place of -1e30. Then the
+    autograd Function's gradients against autograd of the plain version."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.flash_attention import (
+        _bias_kernel,
         flash_attention_bias,
         flash_attention_bias_reference,
     )
@@ -2130,11 +2136,23 @@ def check_bias_kernels(results, rejected):
                                        bias[:, :, :m, :m], scale)
             rejected.append(held(f"planted fault: last {t - m} keys dropped", out,
                                  ref[:, :, :m], ref_abs_v[:, :, :m])[0])
+            out = _bias_kernel(q, k, v, bias, scale, skip_tail_mask=1)
+            rejected.append(held("planted fault: the last key tile unmasked (zero keys counted)",
+                                 out, ref, ref_abs_v)[0])
             out = flash_attention_bias(q, k, v, bias.masked_fill(mask, float("-inf")), scale)
             rejected.append(held("planted fault: -inf in place of -1e30 (the fully masked row)",
                                  out, ref, ref_abs_v)[0])
         del ref, ref_abs_v, out
         torch.cuda.empty_cache()
+    # any scale the reference takes: zero and negative too
+    q, k, v, bias, _ = bias_inputs(2, 77, 12, 64, seed=79)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for scale in (-0.125, 0.0):
+        ref = flash_attention_bias_reference(qf, kf, vf, bias, scale)
+        ref_abs_v = flash_attention_bias_reference(qf, kf, vf.abs(), bias, scale)
+        ok, _ = held(f"kernel flash_attention_bias B=2 H=12 T=77 d=64 scale={scale}",
+                     flash_attention_bias(q, k, v, bias, scale), ref, ref_abs_v)
+        check(ok, f"flash_attention_bias disagrees with its plain version at scale {scale}")
 
     # the backward: the Function's gradients against autograd of the plain version
     b, h, t, d = 2, 4, 130, 64
@@ -2162,10 +2180,12 @@ def check_variant_kernels(results, rejected):
     """Row 16, variants A and B, against the plain version in f32 on the
     same bf16 inputs, at the entry point's VARIANT_SHAPE [64, 12, 1190, 64]
     (main path; the plain version's f32 scores take 4.4 GB) and ragged T = 37
-    and 130; one planted fault at the main shape (the zero keys of the padded
-    tail counted in the row sum: the inputs padded to whole tiles). Then the
-    experiment's entry point at its default [64, 12, 1190, 64]; its launches
-    are the path's count."""
+    and 130, and at scales -0.125 and 0 (B=2, T=77); three planted faults at
+    the main shape: the zero keys of the padded tail counted in the row sum
+    (the inputs padded to whole tiles), and in each variant the last key tile
+    left unmasked (TMA's zero keys counted). Then the experiment's entry
+    point at its default [64, 12, 1190, 64]; its launches are the path's
+    count."""
     import torch
     import torch.nn.functional as F
 
@@ -2187,6 +2207,9 @@ def check_variant_kernels(results, rejected):
             if main:
                 r = results["flash_a"]
                 r["max_abs_err"] = max(r.get("max_abs_err", 0.0), mx)
+                out = fv._variant_kernel(q, k, v, scale, use_exp2, skip_tail_mask=1)
+                rejected.append(held(f"planted fault: {tag[:11]} with the last key tile "
+                                     f"unmasked (zero keys counted)", out, ref, ref_abs_v)[0])
         if main:
             pad = (0, 0, 0, -t % 64)
             out = fv.flash_a(*(F.pad(x, pad) for x in (q, k, v)), scale)[:, :, :t]
@@ -2194,14 +2217,23 @@ def check_variant_kernels(results, rejected):
                                  ref_abs_v)[0])
         del ref, ref_abs_v, out
         torch.cuda.empty_cache()
+    # any scale the reference takes: zero and negative too
+    q, k, v = flash_hm_inputs(2, 77, 4, 64, seed=80, strided=False)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for scale in (-0.125, 0.0):
+        ref = flash_attention_reference(qf, kf, vf, scale)
+        ref_abs_v = flash_attention_reference(qf, kf, vf.abs(), scale)
+        for use_exp2 in (False, True):
+            ok, _ = held(f"kernel flash_a {'B' if use_exp2 else 'A'} B=2 H=4 T=77 d=64 "
+                         f"scale={scale}", fv.flash_a(q, k, v, scale, use_exp2), ref, ref_abs_v)
+            check(ok, f"flash_a disagrees with its plain version at scale {scale}")
     reset_launches()
-    got = fv.main([str(VARIANT_SHAPE[0]), str(VARIANT_SHAPE[2])])
+    fv.main([str(VARIANT_SHAPE[0]), str(VARIANT_SHAPE[2])])
     launches = read_launches()
     log(f"flash_variants main launches: {launches}")
     check(launches["flash_a"] > 0 and launches["flash_attention"] > 0,
           "the experiment's entry point did not launch row 16 and row 3")
     results["flash_a"]["launches"] = launches["flash_a"]
-    results["flash_a"]["ms"] = got["A tail-mask"]["ms"]
 
 
 def masked_decoder(results):
@@ -2812,22 +2844,27 @@ def time_bias_kernels(results):
 
 
 def time_variant_kernels(results):
-    """Row 16 at the experiment's [64, 12, 1190, 64] bf16: its time is the
-    entry point's own (variant A, phase 2), beside its plain version and
-    plain SDPA on the same inputs."""
+    """Row 16 at the experiment's [64, 12, 1190, 64] bf16: variants A (its
+    ``ms``) and B, beside their plain version and plain SDPA on the same
+    inputs."""
     import torch
     import torch.nn.functional as F
 
-    from transformer4sed_tpu_torch.exps.flash_variants import flash_a_reference
+    from transformer4sed_tpu_torch.exps.flash_variants import flash_a, flash_a_reference
 
     b, h, n, d = VARIANT_SHAPE
+    scale = d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     r = results["flash_a"]
-    r["plain_ms"] = cuda_ms(lambda: flash_a_reference(q, k, v, d ** -0.5), iters=3, warmup=1)
+    r["ms"] = cuda_ms(lambda: flash_a(q, k, v, scale))
+    ms_b = cuda_ms(lambda: flash_a(q, k, v, scale, use_exp2=True))
+    r["plain_ms"] = cuda_ms(lambda: flash_a_reference(q, k, v, scale), iters=3, warmup=1)
     r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     bound(r, 4.0 * b * h * n * n * d, 4.0 * b * h * n * d * 2)
+    log(f"time flash_a at {list(VARIANT_SHAPE)}: A tail-mask {r['ms']:.4f} ms, B tail+exp2 "
+        f"{ms_b:.4f} ms, SDPA {r['library_ms']:.4f} ms")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -3045,10 +3082,11 @@ def sass_opcodes(path):
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
     no kernel of the flash family spills (no stack frame, no local memory and
-    no LDL or STL in the SASS), rows 4 and 16 (``flash.cuh``) included; the
-    forward's kernels (rows 1, 3, 5, 7) run warpgroup products (HGMMA) on TMA
-    loads (UTMALDG) and no ``mma.sync`` (HMMA); the backward's main kernel
-    runs HGMMA, UTMALDG and TMA reductions (UTMAREDG, dQ) and no atomic."""
+    no LDL or STL in the SASS); the forward's kernels (rows 1, 3, 4, 5, 7, 16)
+    run warpgroup products (HGMMA) on TMA loads (UTMALDG) and no ``mma.sync``
+    (HMMA), row 4's with the bias copied by cp.async (LDGSTS); the backward's
+    main kernel runs HGMMA, UTMALDG and TMA reductions (UTMAREDG, dQ) and no
+    atomic."""
     for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
                  "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants"):
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
@@ -3060,10 +3098,7 @@ def check_build(paths):
             log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
-        if name in ("flash_attention_bias", "flash_variants"):
-            continue
-        kernel = "flash_fwd_kernel" if name in ("flash_attention", "flash_attention_hm") \
-            else "flash_bwd_kernel"
+        kernel = "flash_bwd_kernel" if name.endswith("_bwd") else "flash_fwd_kernel"
         main = [sym for sym in sass if kernel in sym]
         check(main, f"{name}: no {kernel} in the library")
         for sym in main:
@@ -3074,6 +3109,8 @@ def check_build(paths):
             log(f"  {name} SASS of {sym}: {shown}")
             check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and not ops["HMMA"],
                   f"{name}: the SASS of {kernel} lacks HGMMA or UTMALDG, or runs HMMA")
+            if name == "flash_attention_bias":
+                check(ops["LDGSTS"] > 0, f"{name}: the bias is not copied by cp.async")
             if kernel == "flash_bwd_kernel":
                 check(ops["UTMAREDG"] > 0, f"{name}: the backward's SASS lacks UTMAREDG")
                 check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
@@ -3111,7 +3148,8 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "(C7" in line:  # C7xxx: wgmma advisories
                 log(f"  ptxas {name}: {line.strip()}")
-    check_build(paths)
+    if "build" in phases:
+        check_build(paths)
 
     results = {
         "flash_attention_nhd": {
@@ -3230,6 +3268,11 @@ def main(argv=None) -> int:
         masked_decoder(results)
         torch.cuda.empty_cache()
         log(f"masked decoder phase {time.perf_counter() - t0:.1f} s")
+    if "kernel_timing" in phases and "timing" not in phases:
+        t0 = time.perf_counter()
+        time_kernels(results)
+        torch.cuda.empty_cache()
+        log(f"kernel timing phase {time.perf_counter() - t0:.1f} s")
     engine = batches = None
     if phases & {"serve", "parity", "timing", "profile"}:
         t0 = time.perf_counter()

@@ -37,8 +37,9 @@ static int launch_flash_nhd(const void* q, const void* k, const void* v, void* o
   const Rows<const bf16> kr{static_cast<const bf16*>(k), k_bs, 64, k_rs};
   const Rows<const bf16> vr{static_cast<const bf16*>(v), v_bs, 64, v_rs};
   const Rows<bf16> orr{static_cast<bf16*>(o), o_bs, 64, o_rs};
-  return launch_flash_fwd<64>(batch, n, heads, stream, qr, kr, vr, orr, static_cast<float*>(lse),
-                              skip_tail_mask, sm_scale);
+  return launch_flash_fwd<64, FF_EXP2>(batch, n, heads, stream, qr, kr, vr, orr,
+                                       static_cast<float*>(lse), Rows<const float>{},
+                                       skip_tail_mask, sm_scale);
 }
 
 extern "C" int t4s_flash_nhd_fwd(const void* q, const void* k, const void* v, void* o,

@@ -40,11 +40,11 @@ static int flash_hm_fwd(const void* q, const void* k, const void* v, void* o, vo
   const Rows<bf16> orr{static_cast<bf16*>(o), s[9], s[10], s[11]};
   float* lp = static_cast<float*>(lse);
   if (head_dim == 32)
-    return launch_flash_fwd<32>(batch, n, heads, stream, qr, kr, vr, orr, lp, skip_tail_mask,
-                                sm_scale);
+    return launch_flash_fwd<32, FF_EXP2>(batch, n, heads, stream, qr, kr, vr, orr, lp,
+                                         Rows<const float>{}, skip_tail_mask, sm_scale);
   if (head_dim == 64)
-    return launch_flash_fwd<64>(batch, n, heads, stream, qr, kr, vr, orr, lp, skip_tail_mask,
-                                sm_scale);
+    return launch_flash_fwd<64, FF_EXP2>(batch, n, heads, stream, qr, kr, vr, orr, lp,
+                                         Rows<const float>{}, skip_tail_mask, sm_scale);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash attention forward
 // (flash_fwd.cuh) and backward (flash_bwd.cuh): warpgroup products (wgmma),
 // their shared-memory descriptors, mbarriers, named barriers, TMA tile copies
-// and reductions, bulk copies, and on the host the tensor maps those copies
-// read. The mma.sync kernels (flash.cuh, xl.cuh, window.cuh) do not include
-// it.
+// and reductions, bulk copies, cp.async copies that land on an mbarrier, and
+// on the host the tensor maps those copies read. The mma.sync kernels
+// (xl.cuh, window.cuh) do not include it.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate), issued by one warpgroup of four
 // warps. Accumulator layout, with w the warp in the group, g = lane / 4 and
@@ -105,6 +105,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 4 bytes from global to shared memory (cp.async, through L1), of which the
+// first `src_bytes` (4 or 0) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 16 bytes, both addresses 16-byte aligned (cp.async, past L1), of which the
+// first `src_bytes` (0 to 16) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (.noinc: the barrier's count includes these arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Add a shared-memory box into global memory at coordinates (c0, c1) of a

@@ -4,11 +4,13 @@ backbone's shape (port of ``exps/flash_variants.py``).
 Variant A (tail-only masking): the -inf select of the ragged key tail runs
 in the last key tile only; the tiles before it are whole. Variant B: A with
 exp2 and log2(e) folded into the scale. :func:`flash_a` runs either as the
-CUDA kernel of ``csrc/flash_variants.cu`` (row 16 of the kernel table) on a
-CUDA tensor and as its plain version on a CPU one; :func:`main` times
-"current" (row 3, ``kernels.flash_attention.flash_attention``), "A
-tail-mask" and "B tail+exp2" on the card and prints each one's time and its
-largest error against the plain version.
+CUDA kernel of ``csrc/flash_variants.cu`` (row 16 of the kernel table: two
+modes of the wgmma forward body ``csrc/flash_fwd.cuh``, B the very kernel
+row 3 runs) on a CUDA tensor and as its plain version on a CPU one;
+:func:`main` times "current" (row 3,
+``kernels.flash_attention.flash_attention``), "A tail-mask" and "B
+tail+exp2" on the card and prints each one's time and its largest error
+against the plain version.
 
 Run: python -m transformer4sed_tpu_torch.exps.flash_variants [B] [T]
 (default B=64, T=1190: 12 heads of 64, bf16).
@@ -44,17 +46,25 @@ def flash_a(q, k, v, sm_scale: float, use_exp2: bool = False):
     the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_a_reference(q, k, v, sm_scale, use_exp2)
+    out = _variant_kernel(q, k, v, sm_scale, use_exp2)
+    flash_a.launches += 1
+    return out
+
+
+def _variant_kernel(q, k, v, sm_scale: float, use_exp2: bool, skip_tail_mask: int = 0):
+    """Launch variant A's or B's kernel on checked operands; ``skip_tail_mask``
+    1 leaves the last key tile unmasked: a planted fault's switch, 0 on every
+    real path."""
     what = "flash_a"
     _check_hm(what, q, k, v)
     b, h, t, d = q.shape
     out = hm_empty(q.shape, q.dtype, q.device)
     symbol = "t4s_flash_variant_b_fwd" if use_exp2 else "t4s_flash_variant_a_fwd"
     with torch.cuda.device(q.device):
-        status = _build.function("flash_variants", symbol, 4, 12)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d,
+        status = _build.function("flash_variants", symbol, 4, 12, n_ints=5)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, d, skip_tail_mask,
             *hm_strides(q, k, v, out), float(sm_scale), torch.cuda.current_stream().cuda_stream)
     _build.check(status, what)
-    flash_a.launches += 1
     return out
 
 

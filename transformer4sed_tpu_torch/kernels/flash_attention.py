@@ -9,8 +9,7 @@ q/k/v given as [B, N, H*d] lane slices of the qkv projection, head dim 64:
 
   * ``csrc/flash_attention.cu`` ``t4s_flash_nhd_fwd`` for
     ``_flash_nhd_forward`` (no-grad calls: serving, the mean teacher; wgmma
-    on TMA tiles, ``csrc/flash_fwd.cuh``, as every forward of this module
-    but the biased one);
+    on TMA tiles, ``csrc/flash_fwd.cuh``, as every forward of this module);
   * the same source's ``t4s_flash_nhd_fwd_lse`` for
     ``_flash_nhd_forward_lse`` (output and row log-sum-exp);
   * ``csrc/flash_attention_bwd.cu`` ``t4s_flash_nhd_bwd`` for
@@ -26,8 +25,9 @@ head-dim fall-back of :func:`flash_attention_nhd`), q/k/v given as
     ``_flash_forward_lse``;
   * ``csrc/flash_attention_hm_bwd.cu`` for ``_flash_backward`` (one kernel
     where the TPU runs two, the same device code as the heads-in-lanes one);
-  * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: a
-    forward (``mma.sync``, ``csrc/flash.cuh``) with an additive float32
+  * ``csrc/flash_attention_bias.cu`` for ``_flash_bias_forward``: the
+    same forward body in its bias mode (``FF_BIAS``: the bias streamed
+    through shared memory beside the K/V tiles) with an additive float32
     score bias [B, H, T, T] of any batch, head and row strides
     (:func:`flash_attention_bias`, the XL attention's explicitly masked
     branch). Its backward, like the JAX custom VJP's, is
@@ -569,19 +569,26 @@ def _bias_forward(q, k, v, bias, scale):
     """The row-4 kernel for CUDA tensors, the plain version for CPU ones."""
     if q.device.type == "cpu":
         return flash_attention_bias_reference(q, k, v, bias, scale)
+    out = _bias_kernel(q, k, v, bias, scale)
+    flash_attention_bias.launches += 1
+    return out
+
+
+def _bias_kernel(q, k, v, bias, scale, skip_tail_mask: int = 0):
+    """Launch row 4's kernel on checked operands; ``skip_tail_mask`` as in
+    :func:`_forward_kernel`."""
     what = "flash_attention_bias"
     _check_hm(what, q, k, v)
     _check_bias(what, q, bias)
     b, h, t, d = q.shape
     out = hm_empty(q.shape, q.dtype, q.device)
     with torch.cuda.device(q.device):
-        status = _build.function("flash_attention_bias", "t4s_flash_bias_fwd", 5, 15)(
+        status = _build.function("flash_attention_bias", "t4s_flash_bias_fwd", 5, 15, n_ints=5)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, t, h, d, *hm_strides(q, k, v, bias, out), float(scale),
+            b, t, h, d, skip_tail_mask, *hm_strides(q, k, v, bias, out), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
-    flash_attention_bias.launches += 1
     return out
 
 
