@@ -20,32 +20,37 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
-     backwards; check the build: no kernel of the flash family spills (rows
-     1, 3 to 8 and 16), the flash forward's (rows 1, 3, 4, 5, 7, 16) and the
-     flash backward's SASS hold HGMMA and UTMALDG and no HMMA, row 4's
-     LDGSTS (its bias by cp.async), the backward's UTMAREDG and no atomic
-     (``cuobjdump`` of the built libraries, fresh or cached);
+     backwards; check the build: no kernel of the flash family or of the XL
+     backward spills (rows 1, 3 to 8, 11, 13 and 16), the flash forward's
+     (rows 1, 3, 4, 5, 7, 16) and the flash and XL backwards' SASS hold
+     HGMMA and UTMALDG and no HMMA, row 4's LDGSTS (its bias by cp.async),
+     the backwards' UTMAREDG and no atomic (``cuobjdump`` of the built
+     libraries, fresh or cached);
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and on small ragged and banded cases (rows 1 and 8
      also at finetune2's window length N = 602, rows 1 and 7 at a negative
-     and a zero scale, and row 8's pre- and post-pass), and show that the same check rejects planted faults (a
-     dropped key tile, the last key tile left unmasked, a dropped bias, a
-     rel-shift off by one, a band one key wider; for the backwards an LSE
-     shifted by log 2, a zeroed
-     O, the last key tile's dQ partial left out, P rolled by one row,
-     pos_bias_v dropped); the Swin window forward and backward at HTSAT-tiny's four
+     and a zero scale, and the flash and XL backwards' pre- and post-passes),
+     and show that the same check rejects planted faults (a dropped key
+     tile, the last key tile left unmasked, a dropped bias, a rel-shift off
+     by one, a band one key wider; for the backwards an LSE shifted by log 2,
+     a zeroed O, the last key tile's dQ partial left out, P rolled by one
+     row, pos_bias_v dropped, and in row 13 the XL backward's own three: the
+     last key tile's dQ partial left out, the strip pieces' start clamped at
+     P row 0, the last step's dP carry never added); the Swin window forward
+     and backward at HTSAT-tiny's four
      stage shapes at B=64, shifted and unshifted, with four more planted
      faults (head 0's bias for every head, window 0's shift mask for every
      window, head-dim lanes 24..31 read from the next head, a dbias that
      misses the last window); the head-major XL forward, LSE forward and
      backward at PMAM's decoder shapes ([8, 12, 1000, 32] and [18, 12, 1000,
      32], strided views of [B, T, 3*384] projections), on ragged and banded
-     cases, at head dim 64 and once at [2, 12, 3000, 64], with five more
+     cases, at head dim 64 and once at [2, 12, 3000, 64], with eight more
      planted faults (qv read for qu, k's head stride taken as its row stride,
      a band one key wider, dqu and dqv swapped, a dP that misses the last
-     batch); the head-major flash forward, LSE forward and backward (rows 3,
-     5 and 6) at [8, 12, 1190, 64] and [24, 12, 1190, 64] (strided views of
-     [B, 1190, 2304] projections), [8, 12, 1190, 32] contiguous and ragged
+     batch, and the XL backward's three in row 11); the head-major flash
+     forward, LSE forward and backward (rows 3, 5 and 6) at [8, 12, 1190, 64]
+     and [24, 12, 1190, 64] (strided views of [B, 1190, 2304] projections),
+     [8, 12, 1190, 32] contiguous and ragged
      T = 37 and 130, with six more planted faults (k's head stride taken as
      its row stride, the last key tile dropped, the LSE forward's last key
      tile left unmasked, an LSE shifted by log 2 in the backward, the last
@@ -95,7 +100,7 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      tolerances, with the trajectories printed;
   7. time each kernel, its plain version and the one-call library
      equivalent (SDPA forward, SDPA backward through autograd) with CUDA
-     events, beside the least time the card could take (the flash
+     events, beside the least time the card could take (the flash and XL
      backwards also as their three launches apart); time served
      clips/s at B=8 over three windows of 80 batches; time train steps/s
      and clips/s at B=24 over three windows, and the peak device memory;
@@ -346,7 +351,8 @@ def kernel_wrappers():
            xa.flash_xl_attention_nhd_backward, wa.window_attention, wa.window_attention_backward,
            xa.flash_xl_attention, xa.flash_xl_attention_lse, xa.flash_xl_attention_backward,
            fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_backward,
-           fa.flash_attention_bias, fv.flash_a, fa.flash_bwd_prepass, fa.flash_bwd_postpass)
+           fa.flash_attention_bias, fv.flash_a, fa.flash_bwd_prepass, fa.flash_bwd_postpass,
+           xa.flash_xl_bwd_prepass, xa.flash_xl_bwd_postpass)
     return {f.__name__: f for f in fns}
 
 
@@ -360,10 +366,14 @@ def read_launches():
 
 
 def with_bwd_passes(per_step):
-    """A path's launches a step with the flash backwards' passes: one pre-pass
-    and one post-pass for every launch of row 6 or row 8."""
+    """A path's launches a step with the backwards' passes: one pre-pass and
+    one post-pass of the flash backward for every launch of row 6 or row 8,
+    and of the XL backward for every launch of row 11 or row 13."""
     n = sum(per_step.get(k, 0) for k in ("flash_attention_nhd_backward", "flash_attention_backward"))
-    return dict(per_step, flash_bwd_prepass=n, flash_bwd_postpass=n)
+    n_xl = sum(per_step.get(k, 0)
+               for k in ("flash_xl_attention_nhd_backward", "flash_xl_attention_backward"))
+    return dict(per_step, flash_bwd_prepass=n, flash_bwd_postpass=n, flash_xl_bwd_prepass=n_xl,
+                flash_xl_bwd_postpass=n_xl)
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -533,13 +543,37 @@ def grad_output(shape, seed):
 BWD_KEYS = 128  # keys a block of the flash backward (csrc/flash_bwd.cuh: FB_KEYS)
 
 
+def side_rows_held(side, ref, oh, doh):
+    """(within, delta's max abs error, report) of a pre-pass's side rows
+    against its plain version's: the base-2 log-sum-exp to an f32 rounding
+    (+inf where the plain version has it), delta to twice the f32 error of a
+    d-term dot (2 * d * 2^-24 * rowsum |dO||O|, both sides summing in their
+    own order)."""
+    import torch
+
+    t, d = oh.shape[2], oh.shape[3]
+    inf = torch.isinf(ref[..., 0])
+    l2_ok = bool((torch.isinf(side[..., 0]) == inf).all())
+    l2_rel = float(((side[..., 0] - ref[..., 0]).abs() / ref[..., 0].abs().clamp_min(1e-30))
+                   [~inf].max())
+    delta_err = (side[..., 1] - ref[..., 1]).abs()
+    terms = torch.zeros_like(delta_err)
+    terms[..., :t] = (doh.float().abs() * oh.float().abs()).sum(-1)
+    delta_worst = float(torch.where(delta_err == 0, 0.0,
+                                    delta_err / (2 * d * 2.0 ** -24 * terms)).max())
+    ok = l2_ok and l2_rel <= 2.0 ** -22 and delta_worst <= 1.0
+    return ok, float(delta_err.max()), (
+        f"L*log2e max rel err {l2_rel:.3e} (limit {2.0 ** -22:.2e}), inf rows alike {l2_ok}; "
+        f"delta max_abs_err {float(delta_err.max()):.3e}, max err/bound {delta_worst:.3f} "
+        "(limit 1)")
+
+
 def check_bwd_passes(results, o, lse, do, h):
     """The flash backwards' pre- and post-pass against their plain versions on
-    the row-8 operands (heads-in-lanes views): the base-2 log-sum-exp to an f32
-    rounding (+inf where the plain version has it), delta to twice the f32
-    error of a d-term dot (2 * d * 2^-24 * rowsum |dO||O|, both sides summing
-    in their own order), the workspace, filled with NaN first, to zeros; the
-    post-pass's bf16 dq with the forward's element-wise bound (one rounding)."""
+    the row-8 operands (heads-in-lanes views): the side rows as
+    :func:`side_rows_held` holds them, the workspace, filled with NaN first, to
+    zeros; the post-pass's bf16 dq with the forward's element-wise bound (one
+    rounding)."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.flash_attention import (
@@ -557,23 +591,13 @@ def check_bwd_passes(results, o, lse, do, h):
     work = torch.full((b, h, tp, d), float("nan"), device="cuda")
     side, work = flash_bwd_prepass(oh, doh, lse, dq_acc=work)
     ref, _ = flash_bwd_prepass_reference(oh.float(), doh.float(), lse)
-    inf = torch.isinf(ref[..., 0])
-    l2_ok = bool((torch.isinf(side[..., 0]) == inf).all())
-    l2_rel = float(((side[..., 0] - ref[..., 0]).abs() / ref[..., 0].abs().clamp_min(1e-30))
-                   [~inf].max())
-    delta_err = (side[..., 1] - ref[..., 1]).abs()
-    terms = torch.zeros_like(delta_err)
-    terms[..., :t] = (doh.float().abs() * oh.float().abs()).sum(-1)
-    delta_worst = float(torch.where(delta_err == 0, 0.0,
-                                    delta_err / (2 * d * 2.0 ** -24 * terms)).max())
+    ok, delta_err, report = side_rows_held(side, ref, oh, doh)
     zeroed = bool((work == 0).all())
-    ok = l2_ok and l2_rel <= 2.0 ** -22 and delta_worst <= 1.0 and zeroed
-    log(f"kernel flash_bwd_prepass B={b} H={h} T={t}: L*log2e max rel err {l2_rel:.3e} (limit "
-        f"{2.0 ** -22:.2e}), inf rows alike {l2_ok}; delta max_abs_err "
-        f"{float(delta_err.max()):.3e}, max err/bound {delta_worst:.3f} (limit 1); workspace "
-        f"zeroed {zeroed}: {'within' if ok else 'OUTSIDE'}")
+    ok = ok and zeroed
+    log(f"kernel flash_bwd_prepass B={b} H={h} T={t}: {report}; workspace zeroed {zeroed}: "
+        f"{'within' if ok else 'OUTSIDE'}")
     check(ok, "flash_bwd_prepass disagrees with its plain version")
-    results["flash_bwd_prepass"]["max_abs_err"] = float(delta_err.max())
+    results["flash_bwd_prepass"]["max_abs_err"] = delta_err
 
     gen = torch.Generator(device="cuda").manual_seed(t)
     work = torch.randn(b, h, tp, d, generator=gen, device="cuda")
@@ -587,12 +611,89 @@ def check_bwd_passes(results, o, lse, do, h):
     results["flash_bwd_postpass"]["max_abs_err"] = mx
 
 
+# planted faults of the XL backward kernel (rows 11 and 13), fed to both
+XL_BWD_FAULTS = (("skip_dq_tile", "the last key tile's dQ partial left out"),
+                 ("clamp_strip", "the strip pieces' start clamped at P row 0, not zero-filled"),
+                 ("no_flush", "the last step's dP carry never added"))
+
+
+def check_xl_bwd_passes(results, o, lse, do, h, scale, q=None, bu=None, bv=None):
+    """The XL backwards' pre- and post-pass against their plain versions, on
+    row 13's operands (with q and the biases) or row 11's ([B, H, T, d] views):
+    the side rows as :func:`side_rows_held` holds them, both workspaces, filled with
+    NaN first, to zeros, qu and qv equal to the bit; the post-pass's bf16
+    dq (and dqv) and dP from a random workspace to one rounding, and its
+    dbu and dbv, f32 sums of B * ceil(T / 128) column sums in another order,
+    to twice 2^-24 * that count * the sum of their absolute values (each
+    order's worst case, Higham)."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import _split_heads, bwd_padded_rows
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        XB_KEYS,
+        flash_xl_bwd_postpass,
+        flash_xl_bwd_postpass_reference,
+        flash_xl_bwd_prepass,
+        flash_xl_bwd_prepass_reference,
+        xl_bwd_dp_rows,
+    )
+
+    lanes = q is not None
+    oh, doh, qh = ((_split_heads(x, h) for x in (o, do, q)) if lanes else (o, do, None))
+    b, _, t, d = oh.shape
+    cols = d if lanes else 2 * d
+    tp, n_kt = bwd_padded_rows(t), -(-t // XB_KEYS)
+    ws = torch.full((b * h * tp * cols + h * xl_bwd_dp_rows(t) * d,), float("nan"),
+                    device="cuda")
+    side, dq_acc, dp_acc, qu, qv = flash_xl_bwd_prepass(oh, doh, lse, cols, qh, bu, bv, ws=ws)
+    ref = flash_xl_bwd_prepass_reference(oh.float(), doh.float(), lse, cols, qh, bu, bv)
+    ok, delta_err, report = side_rows_held(side, ref[0], oh, doh)
+    zeroed = bool((ws == 0).all())
+    # the same f32 sum rounded once on both sides: qu and qv equal to the bit
+    same = not lanes or bool(torch.equal(qu, ref[3]) and torch.equal(qv, ref[4]))
+    ok = ok and zeroed and same
+    tag = f"B={b} H={h} T={t} d={d}"
+    log(f"kernel flash_xl_bwd_prepass {tag}: {report}; workspaces zeroed {zeroed}; qu, qv equal "
+        f"{same}: {'within' if ok else 'OUTSIDE'}")
+    check(ok, "flash_xl_bwd_prepass disagrees with its plain version")
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    dq_acc.copy_(torch.randn(dq_acc.shape, generator=gen, device="cuda"))
+    dp_acc.copy_(torch.randn(dp_acc.shape, generator=gen, device="cuda"))
+    colsum = torch.randn(b, h, n_kt, 2, d, generator=gen, device="cuda") if lanes else None
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    dq, dqv = (torch.empty(b, t, h, d, **bf).permute(0, 2, 1, 3) for _ in range(2))
+    dp = torch.empty(h, 2 * t - 1, d, **bf)
+    got = flash_xl_bwd_postpass(dq_acc, dp_acc, colsum, scale, dq, None if lanes else dqv, dp)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    want = flash_xl_bwd_postpass_reference(
+        dq_acc, dp_acc, colsum, scale, torch.empty(dq.shape, **f32),
+        None if lanes else torch.empty(dq.shape, **f32), torch.empty(dp.shape, **f32))
+    oks, worst = [], 0.0
+    for name, i in (("dq", 0), ("dqv", 1), ("dP", 2)):
+        if got[i] is not None:
+            ok, mx = held(f"kernel flash_xl_bwd_postpass {tag} {name}", got[i], want[i], 0.0)
+            oks.append(ok)
+            worst = max(worst, mx)
+    if lanes:
+        err = (got[3] - want[3]).abs()
+        tol = 2 * 2.0 ** -24 * b * n_kt * colsum.abs().sum((0, 2)).transpose(0, 1) * abs(scale)
+        ratio = float(torch.where(err == 0, 0.0, err / tol).max())
+        log(f"kernel flash_xl_bwd_postpass {tag} dbu, dbv: max_abs_err {float(err.max()):.3e}, "
+            f"max err/bound {ratio:.3f} (limit 1): {'within' if ratio <= 1 else 'OUTSIDE'}")
+        oks.append(ratio <= 1.0)
+    check(all(oks), "flash_xl_bwd_postpass disagrees with its plain version")
+    if lanes:
+        results["flash_xl_bwd_prepass"]["max_abs_err"] = delta_err
+        results["flash_xl_bwd_postpass"]["max_abs_err"] = worst
+
+
 def check_train_kernels(results, rejected):
     """Rows 7, 8, 12 and 13: the LSE forwards (output and lse) and the
     backwards (every cotangent, fed the kernel forward's own o and lse)
     against their plain versions in f32 on the same bf16 inputs, at the
-    train step's shapes (B=24) and on ragged and banded cases; then four
-    planted faults fed to the backwards."""
+    train step's shapes (B=24) and on ragged and banded cases; then seven
+    planted faults fed to the backwards, and the backwards' passes."""
     import math
 
     import torch
@@ -605,6 +706,7 @@ def check_train_kernels(results, rejected):
         flash_attention_nhd_reference,
     )
     from transformer4sed_tpu_torch.kernels.xl_attention import (
+        XB_FAULTS,
         flash_xl_attention_nhd_backward,
         flash_xl_attention_nhd_lse,
         xl_attention_nhd_backward_reference,
@@ -687,6 +789,11 @@ def check_train_kernels(results, rejected):
                                                   do, h, scale)
             rejected.append(held_all("planted fault: pos_bias_v dropped in the backward", names,
                                      bad, refs, terms)[0])
+            for fault, what in XL_BWD_FAULTS:
+                bad = flash_xl_attention_nhd_backward(q, k, v, bu, bv, p, out, lse, do, h, scale,
+                                                      fault=XB_FAULTS[fault])
+                rejected.append(held_all(f"planted fault: {what}", names, bad, refs, terms)[0])
+            check_xl_bwd_passes(results, out, lse, do, h, scale, q, bu, bv)
         del refs, terms, grads
         torch.cuda.empty_cache()
 
@@ -911,12 +1018,14 @@ def check_hm_kernels(results, rejected):
     ragged and banded cases, at head dim 64, and the forward once at
     [2, 12, 3000, 64] (the 30-s PaSST variant's decoder length); the backward
     is fed the kernel forward's own o and lse, and its dP is held to the bf16
-    bound plus an f32-sum term. Then five planted faults: qv
-    read for qu, k's head stride taken as its row stride, a band one key
-    wider, dqu and dqv swapped, and a dP that misses the last batch."""
+    bound plus an f32-sum term; the backward also at [2, 12, 3000, 64]. Then
+    eight planted faults: qv read for qu, k's head stride taken as its row
+    stride, a band one key wider, dqu and dqv swapped, a dP that misses the
+    last batch, and XL_BWD_FAULTS; and the backward's passes at head dim 32."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.xl_attention import (
+        XB_FAULTS,
         flash_xl_attention,
         flash_xl_attention_backward,
         flash_xl_attention_backward_reference,
@@ -972,6 +1081,7 @@ def check_hm_kernels(results, rejected):
         (2, 77, h, d, None, False),
         (1, 130, 4, 32, (3, 20, 1, 260), False),
         (2, 203, 6, 64, (7, 64, 1, 500, 33, 128), False),
+        (2, 3000, 12, 64, None, False),
     ]
     for b, t, hh, dd, band, main in cases:
         tag = f"B={b} H={hh} T={t} d={dd} band={band}"
@@ -994,8 +1104,9 @@ def check_hm_kernels(results, rejected):
                                                      out.float(), lse, do.float(), scale, band)
         terms = list(hm_bwd_terms(qu, qv, k, v, p, out, lse, do, scale, band))
         # dP is an f32 sum of B * T products an element, added in an order that
-        # changes from run to run (atomics): its worst case, 2^-24 * B * T times
-        # the sum of |terms| (Higham), joins the bf16 bound, in units of u
+        # changes from run to run (TMA reductions from different blocks): its
+        # worst case, 2^-24 * B * T times the sum of |terms| (Higham), joins the
+        # bf16 bound, in units of u
         terms[4] = terms[4] * (1.0 + 2.0 ** -24 * b * t / BF16_U)
         grads = flash_xl_attention_backward(qu, qv, k, v, p, out, lse, do, scale, band)
         ok, mx = held_all(f"kernel flash_xl_attention_backward {tag}", names, grads, refs, terms)
@@ -1010,6 +1121,11 @@ def check_hm_kernels(results, rejected):
                                               lse[:-1].contiguous(), do[:-1], scale)
             rejected.append(held("planted fault: dP misses the last batch", bad[4], refs[4],
                                  terms[4])[0])
+            for fault, what in XL_BWD_FAULTS:
+                bad = flash_xl_attention_backward(qu, qv, k, v, p, out, lse, do, scale,
+                                                  fault=XB_FAULTS[fault])
+                rejected.append(held_all(f"planted fault: {what}", names, bad, refs, terms)[0])
+            check_xl_bwd_passes(results, out, lse, do, hh, scale)
         del refs, terms, grads
         torch.cuda.empty_cache()
 
@@ -1399,7 +1515,8 @@ def train(results):
     check(launches == want, f"kernel launches {launches} on the train path, expected {want}")
     for name in ("flash_attention_nhd_lse", "flash_attention_nhd_backward",
                  "flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward",
-                 "flash_bwd_prepass", "flash_bwd_postpass"):
+                 "flash_bwd_prepass", "flash_bwd_postpass", "flash_xl_bwd_prepass",
+                 "flash_xl_bwd_postpass"):
         results[name]["launches"] = launches[name]
     return trainer, batch
 
@@ -1744,7 +1861,8 @@ def htsat_train(results):
     torch.cuda.synchronize()
     launches = read_launches()
     want = {name: 0 for name in launches}
-    want.update({k: n * HTSAT_TRAIN_STEPS for k, n in HTSAT_TRAIN_LAUNCHES.items()})
+    want.update({k: n * HTSAT_TRAIN_STEPS
+                 for k, n in with_bwd_passes(HTSAT_TRAIN_LAUNCHES).items()})
     log(f"HTSAT_CNN train launches over {HTSAT_TRAIN_STEPS} steps: {launches}")
     check(launches == want, f"kernel launches {launches} on the HTSAT_CNN train path, expected "
                             f"{want}")
@@ -2314,8 +2432,8 @@ def masked_decoder(results):
     m, gm, mask_fwd, mask_train = run("explicit mask", masked)
     want = {k: 0 for k in band_fwd}
     check(band_fwd == dict(want, flash_xl_attention_nhd=3)
-          and band_train == dict(want, flash_xl_attention_nhd_lse=3,
-                                 flash_xl_attention_nhd_backward=3)
+          and band_train == dict(want, **with_bwd_passes(dict(
+              flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)))
           and mask_fwd == dict(want, flash_attention_bias=3)
           and mask_train == dict(want, flash_attention_bias=3),
           "the masked decoder's paths launched other kernels than rows 2 / 12, 13 / 4")
@@ -2596,6 +2714,8 @@ def time_train_kernels(results):
     # dP); q, k, v, o, dO, P, biases, lse in, dq, dk, dv, dP, dbu, dbv out
     bound(r, 16.0 * b * h * t * t * d,
           8.0 * b * t * c * 2 + 2 * h * (2 * t - 1) * d * 2 + 4 * h * d * 4 + b * h * t * 4)
+    time_xl_bwd_parts("flash_xl_attention_nhd_backward", k, v, p, o, lse, do, scale, h=h, q=q,
+                      bu=bu, bv=bv, results=results)
     del o, lse
     torch.cuda.empty_cache()
 
@@ -2708,6 +2828,7 @@ def time_hm_kernels(results):
     # eight products (content and position scores, dO V^T, dV, dK, dQu, dQv,
     # dP); qu, qv, k, v, o, dO, P, lse in, dqu, dqv, dk, dv, dP out
     bound(r, 16.0 * b * h * t * t * d, 10.0 * b * h * t * d * 2 + 2 * p_bytes + b * h * t * 4)
+    time_xl_bwd_parts("flash_xl_attention_backward", k, v, p, o, lse, do, scale, qu=qu, qv=qv)
     del o, lse
     torch.cuda.empty_cache()
 
@@ -2817,6 +2938,71 @@ def time_bwd_parts(what, q, k, v, o, lse, do, h, results=None):
     r["plain_ms"] = cuda_ms(lambda: flash_bwd_postpass_reference(work, scratch, scale), iters=3)
     r["library_ms"] = cuda_ms(lambda: torch.mul(work[:, :, :t], scale, out=scratch))
     bound(r, 1.0 * b * h * t * d, b * h * t * d * (4.0 + 2.0))
+
+
+def time_xl_bwd_parts(what, k, v, p, o, lse, do, scale, h=None, q=None, bu=None, bv=None,
+                      qu=None, qv=None, results=None):
+    """An XL backward's three launches timed apart, on the wrapper's own
+    operands: the pre-pass, the main kernel alone (fed the pre-pass's side
+    rows, qu, qv and workspaces) and the post-pass; row 13 given q, the
+    biases and the head count (k, v, o, dO as [B, T, H*d]), row 11 given qu
+    and qv ([B, H, T, d] views). With ``results`` (row 13's shape), the
+    passes' records: time, plain time, bound by bytes (O, dO, q, lse, biases
+    in, side rows, qu, qv and the zeroed workspaces out; the workspaces' T
+    rows and the column sums in, dq, dP and the bias gradients out). Neither
+    pass has a one-call library equivalent."""
+    import torch
+
+    from transformer4sed_tpu_torch.kernels.flash_attention import _split_heads, bwd_padded_rows
+    from transformer4sed_tpu_torch.kernels.xl_attention import (
+        XB_KEYS,
+        flash_xl_bwd_postpass,
+        flash_xl_bwd_postpass_reference,
+        flash_xl_bwd_prepass,
+        flash_xl_bwd_prepass_reference,
+        xl_backward_kernel,
+        xl_bwd_dp_rows,
+    )
+
+    lanes = q is not None
+    heads = (lambda x: _split_heads(x, h)) if lanes else (lambda x: x)  # noqa: E731
+    oh, doh, kh, vh, qh = heads(o), heads(do), heads(k), heads(v), heads(q) if lanes else None
+    b, hh, t, d = oh.shape
+    cols, tp, n_kt = (d if lanes else 2 * d), bwd_padded_rows(t), -(-t // XB_KEYS)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    ws = torch.empty(b * hh * tp * cols + hh * xl_bwd_dp_rows(t) * d, **f32)
+    side, dq_acc, dp_acc, pu, pv = flash_xl_bwd_prepass(oh, doh, lse, cols, qh, bu, bv, ws=ws)
+    pre_ms = cuda_ms(lambda: flash_xl_bwd_prepass(oh, doh, lse, cols, qh, bu, bv, ws=ws))
+    if lanes:
+        qu, qv = pu, pv
+    colsum = torch.empty(b, hh, n_kt, 2, d, **f32) if lanes else None
+    dk, dv, dq, dqv = (torch.empty(b, t, hh, d, dtype=torch.bfloat16, device="cuda")
+                       .permute(0, 2, 1, 3) for _ in range(4))
+    dp = torch.empty(p.shape, dtype=p.dtype, device="cuda")
+    main_ms = cuda_ms(lambda: xl_backward_kernel(qu, qv, kh, vh, doh, p, None, side, dq_acc,
+                                                 dp_acc, colsum, dk, dv, scale))
+    dqv = None if lanes else dqv
+    post_ms = cuda_ms(lambda: flash_xl_bwd_postpass(dq_acc, dp_acc, colsum, scale, dq, dqv, dp))
+    log(f"time {what} parts: pre-pass {pre_ms:.4f} ms, kernel {main_ms:.4f} ms, post-pass "
+        f"{post_ms:.4f} ms")
+    if results is None:
+        return
+    n_rows, n_pos = b * hh * t, hh * (2 * t - 1)
+    r = results["flash_xl_bwd_prepass"]
+    r["ms"] = pre_ms
+    r["plain_ms"] = cuda_ms(
+        lambda: flash_xl_bwd_prepass_reference(oh, doh, lse, cols, qh, bu, bv), iters=3)
+    r["library_ms"] = None  # no one PyTorch call computes delta, qu, qv and zeroed workspaces
+    bound(r, 4.0 * n_rows * d, 5.0 * n_rows * d * 2 + n_rows * 4 + 2 * hh * d * 4
+          + b * hh * tp * 2 * 4 + ws.numel() * 4)
+    r = results["flash_xl_bwd_postpass"]
+    r["ms"] = post_ms
+    scratch = [torch.empty(x.shape, **f32) for x in (dq, dp)]
+    r["plain_ms"] = cuda_ms(lambda: flash_xl_bwd_postpass_reference(
+        dq_acc, dp_acc, colsum, scale, scratch[0], None, scratch[1]), iters=3)
+    r["library_ms"] = None  # no one PyTorch call writes dq, dP and the bias gradients
+    bound(r, 1.0 * (n_rows + n_pos) * d + colsum.numel(),
+          (n_rows + n_pos) * d * (4.0 + 2.0) + colsum.numel() * 4 + 2 * hh * d * 4)
 
 
 def time_bias_kernels(results):
@@ -3081,14 +3267,16 @@ def sass_opcodes(path):
 
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
-    no kernel of the flash family spills (no stack frame, no local memory and
-    no LDL or STL in the SASS); the forward's kernels (rows 1, 3, 4, 5, 7, 16)
-    run warpgroup products (HGMMA) on TMA loads (UTMALDG) and no ``mma.sync``
-    (HMMA), row 4's with the bias copied by cp.async (LDGSTS); the backward's
-    main kernel runs HGMMA, UTMALDG and TMA reductions (UTMAREDG, dQ) and no
-    atomic."""
+    no kernel of the flash family or of the XL backward spills (no stack
+    frame, no local memory and no LDL or STL in the SASS); the forward's
+    kernels (rows 1, 3, 4, 5, 7, 16) run warpgroup products (HGMMA) on TMA
+    loads (UTMALDG) and no ``mma.sync`` (HMMA), row 4's with the bias copied
+    by cp.async (LDGSTS); the flash and XL backwards' main kernels (rows 6, 8,
+    11, 13) run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ, and dP in
+    XL) and no atomic."""
     for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
-                 "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants"):
+                 "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants",
+                 "xl_attention_bwd"):
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
         check(usage and usage.keys() == sass.keys(),
               f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
@@ -3098,7 +3286,8 @@ def check_build(paths):
             log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
-        kernel = "flash_bwd_kernel" if name.endswith("_bwd") else "flash_fwd_kernel"
+        kernel = ("xl_bwd_kernel" if name.startswith("xl") else
+                  "flash_bwd_kernel" if name.endswith("_bwd") else "flash_fwd_kernel")
         main = [sym for sym in sass if kernel in sym]
         check(main, f"{name}: no {kernel} in the library")
         for sym in main:
@@ -3111,10 +3300,11 @@ def check_build(paths):
                   f"{name}: the SASS of {kernel} lacks HGMMA or UTMALDG, or runs HMMA")
             if name == "flash_attention_bias":
                 check(ops["LDGSTS"] > 0, f"{name}: the bias is not copied by cp.async")
-            if kernel == "flash_bwd_kernel":
+            if kernel != "flash_fwd_kernel":
                 check(ops["UTMAREDG"] > 0, f"{name}: the backward's SASS lacks UTMAREDG")
                 check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
-                      f"{name}: an atomic in the backward's SASS (dQ goes by TMA reductions)")
+                      f"{name}: an atomic in the backward's SASS (dQ and dP go by TMA "
+                      "reductions)")
 
 
 def main(argv=None) -> int:
@@ -3204,7 +3394,7 @@ def main(argv=None) -> int:
         },
         "flash_xl_attention_backward": {
             "name": "flash_xl_attention_backward", "route": "cuda",
-            "source": "transformer4sed_tpu_torch/csrc/xl_attention_hm_bwd.cu",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/xl_attention.py:458",
         },
         "flash_attention": {
@@ -3241,6 +3431,16 @@ def main(argv=None) -> int:
             "name": "flash_bwd_postpass", "route": "cuda",
             "source": "transformer4sed_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "transformer4sed_tpu/kernels/flash_attention.py:720",
+        },
+        "flash_xl_bwd_prepass": {
+            "name": "flash_xl_bwd_prepass", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:912",
+        },
+        "flash_xl_bwd_postpass": {
+            "name": "flash_xl_bwd_postpass", "route": "cuda",
+            "source": "transformer4sed_tpu_torch/csrc/xl_attention_bwd.cu",
+            "replaces": "transformer4sed_tpu/kernels/xl_attention.py:978",
         },
     }
     if "kernels" in phases:

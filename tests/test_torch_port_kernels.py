@@ -103,7 +103,8 @@ def test_rel_shift_is_the_transformer_xl_shift():
 def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     q, k, v, bu, bv, p = map(torch.from_numpy, _xl_data(1, 40, 2, 16, seed=3))
     counted = (port_flash.flash_attention_nhd, port_xl.flash_xl_attention_nhd,
-               port_flash.flash_bwd_prepass, port_flash.flash_bwd_postpass)
+               port_flash.flash_bwd_prepass, port_flash.flash_bwd_postpass,
+               port_xl.flash_xl_bwd_prepass, port_xl.flash_xl_bwd_postpass)
     before = [f.launches for f in counted]
     torch.testing.assert_close(port_flash.flash_attention_nhd(q, k, v, 2),
                                port_flash.flash_attention_nhd_reference(q, k, v, 2))
@@ -124,6 +125,15 @@ def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     work = torch.from_numpy(np.random.RandomState(5).randn(1, 2, 64, 16).astype(np.float32))
     out = port_flash.flash_bwd_postpass(work, torch.empty(1, 2, 40, 16), 0.25)
     torch.testing.assert_close(out, work[:, :, :40] * 0.25)
+    # the XL backwards' passes: the same side rows, both workspaces zeroed
+    xside, dq_acc, dp_acc, qu, qv = port_xl.flash_xl_bwd_prepass(o, do, lse, 32)
+    torch.testing.assert_close(xside, side)
+    assert qu is None and qv is None and dq_acc.shape == (1, 2, 64, 32)
+    assert dp_acc.shape == (2, 336, 16)
+    assert not dq_acc.any() and not dp_acc.any()
+    dq, dqv, dp = torch.empty(1, 2, 40, 16), torch.empty(1, 2, 40, 16), torch.empty(2, 79, 16)
+    port_xl.flash_xl_bwd_postpass(dq_acc + 1, dp_acc + 2, None, 0.25, dq, dqv, dp)
+    assert (dq == 0.25).all() and (dqv == 0.25).all() and (dp == 0.5).all()
     assert [f.launches for f in counted] == before
 
 
@@ -134,9 +144,8 @@ def test_kernel_sources_name_their_tpu_kernels():
     for name, tpu_fns in (("flash_attention", ("_flash_nhd_forward", "_flash_nhd_forward_lse")),
                           ("flash_attention_bwd", ("_flash_nhd_backward",)),
                           ("xl_attention", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),
-                          ("xl_attention_bwd", ("_xl_nhd_backward",)),
+                          ("xl_attention_bwd", ("_xl_nhd_backward", "_xl_backward")),
                           ("xl_attention_hm", ("_xl_forward", "_xl_forward_lse")),
-                          ("xl_attention_hm_bwd", ("_xl_backward",)),
                           ("window_attention", ("_window_forward",)),
                           ("window_attention_bwd", ("_window_backward",)),
                           ("flash_attention_bias", ("_flash_bias_forward",)),
@@ -207,8 +216,13 @@ def test_xl_lse_and_backward_plain_match_pallas(t, band):
     scale = d ** -0.5
     jarr = [jnp.asarray(a) for a in arrays]
     kw = dict(num_heads=h, sm_scale=scale, block_q=32, group=8, band_widths=band)
-    o, lse = interpret0(jax_xl._xl_nhd_forward_lse, *jarr, **kw)
-    grads = interpret0(jax_xl._xl_nhd_backward, *jarr, o, lse, jnp.asarray(g), **kw)
+
+    def fwd_bwd(*args, interpret):  # both kernels in one program: one compile
+        *x, g_ = args
+        o, lse = jax_xl._xl_nhd_forward_lse(*x, interpret=interpret, **kw)
+        return o, lse, jax_xl._xl_nhd_backward(*x, o, lse, g_, interpret=interpret, **kw)
+
+    o, lse, grads = interpret0(fwd_bwd, *jarr, jnp.asarray(g))
     tarr = _t(*arrays)
     ours_o, ours_lse = port_xl.flash_xl_attention_nhd_lse(*tarr, h, scale, band)
     np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
@@ -284,7 +298,8 @@ def test_cpu_training_path_launches_no_kernel():
                 port_flash.flash_attention_nhd_backward, port_xl.flash_xl_attention_nhd,
                 port_xl.flash_xl_attention_nhd_lse, port_xl.flash_xl_attention_nhd_backward,
                 port_xl.flash_xl_attention, port_xl.flash_xl_attention_lse,
-                port_xl.flash_xl_attention_backward,
+                port_xl.flash_xl_attention_backward, port_xl.flash_xl_bwd_prepass,
+                port_xl.flash_xl_bwd_postpass,
                 port_window.window_attention, port_window.window_attention_backward)
     before = [f.launches for f in counters]
     for d in (16, 64):  # the head-major and the heads-in-lanes XL families
@@ -297,6 +312,99 @@ def test_cpu_training_path_launches_no_kernel():
     wq, wk, wv, bias, _ = (x.requires_grad_() for x in _t(*_window_data(2, 16, 2, 8, 1, False, 9)))
     port_window.swin_window_attention(wq, wk, wv, bias, None, 1, 0.3).sum().backward()
     assert [f.launches for f in counters] == before
+
+
+# -- the XL backwards' passes against the JAX wrappers' XLA code --------------------------
+
+
+@pytest.mark.parametrize("lanes", [True, False])
+def test_xl_bwd_prepass_plain_matches_the_jax_wrappers_xla_code(lanes):
+    """The plain pre-pass against the XLA code it takes over, on the same
+    seeded inputs: delta of ``_xl_nhd_backward`` (xl_attention.py:912-916;
+    row 13) or of ``_xl_backward`` (:476; row 11), zero past T; for row 13
+    also qu and qv in bf16 as the JAX dispatch forms them (:1043-1044)."""
+    b, t, h, d = 2, 70, 4, 16
+    rng = np.random.RandomState(11)
+    q, o, g = (rng.randn(b, t, h * d).astype(np.float32) for _ in range(3))
+    lse = rng.randn(b, h, t).astype(np.float32)
+    bu, bv = ((rng.randn(h, d) * 0.1).astype(np.float32) for _ in range(2))
+    t_pad = 128  # more rows than the port's 64-row padding, as the JAX wrappers pad
+    pad = lambda x: jnp.pad(x, ((0, 0), (0, t_pad - t), (0, 0)))  # noqa: E731
+    split = lambda x: x.reshape(b, -1, h, d).transpose(0, 2, 1, 3)  # noqa: E731
+
+    def xla(q, o, g, bu, bv):
+        f32 = jnp.float32
+        if lanes:
+            delta = jnp.transpose(
+                (pad(g).astype(f32) * pad(o).astype(f32)).reshape(b, t_pad, h, d).sum(-1),
+                (0, 2, 1))
+        else:
+            delta = jnp.sum(split(pad(g)).astype(f32) * split(pad(o)).astype(f32), axis=-1)
+        qh = split(q)
+        return (delta, (qh.astype(f32) + bu[None, :, None]).astype(q.dtype),
+                (qh.astype(f32) + bv[None, :, None]).astype(q.dtype))
+
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    delta, qu, qv = jit0(xla)(jq, *map(jnp.asarray, (o, g, bu, bv)))
+    tq = torch.from_numpy(q).bfloat16()
+    to, tg = (port_flash._split_heads(torch.from_numpy(x), h) for x in (o, g))
+    args = (port_flash._split_heads(tq, h), torch.from_numpy(bu), torch.from_numpy(bv))
+    side, dq_acc, dp_acc, ours_u, ours_v = port_xl.flash_xl_bwd_prepass(
+        to, tg, torch.from_numpy(lse), d if lanes else 2 * d, *(args if lanes else ()))
+    np.testing.assert_allclose(side[..., 1].numpy(), np.asarray(delta)[:, :, :side.shape[2]],
+                               atol=1e-5)
+    assert not dq_acc.any() and not dp_acc.any()
+    if lanes:
+        for ours, want in ((ours_u, qu), (ours_v, qv)):
+            assert ours.dtype == torch.bfloat16
+            np.testing.assert_array_equal(ours.float().numpy(),
+                                          np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("lanes", [True, False])
+def test_xl_bwd_postpass_plain_matches_the_jax_wrappers_xla_code(lanes):
+    """The plain post-pass against the XLA code it takes over, on the same
+    seeded partial sums: for row 13 ``_xl_nhd_backward``'s dq = dQu + dQv,
+    dbu and dbv as their (b, t) sums and the dP slice (xl_attention.py:
+    978-983); for row 11 ``_xl_backward``'s unpadded dqu, dqv and dP slice
+    (:524-527). The port's workspaces hold the same numbers in its own
+    layout: dQ head major, the column sums split over 128-row tiles, P row m
+    of the dP workspace at row 64 + m."""
+    b, t, h, d, scale = 2, 150, 4, 16, 0.25
+    t_pad, pad_lo, _ = jax_xl._geometry(t, 512, 256)
+    rng = np.random.RandomState(12)
+    dqu, dqv = (rng.randn(b, t_pad, h, d).astype(np.float32) for _ in range(2))
+    dp_full = rng.randn(h, pad_lo + 2 * t - 1 + 7, d).astype(np.float32)
+
+    def xla(dqu, dqv, dp_full):  # fed the scaled partial sums, as the TPU kernels return them
+        dp_out = dp_full[:, pad_lo:pad_lo + 2 * t - 1]
+        if not lanes:
+            return dqu[:, :t], dqv[:, :t], dp_out
+        dqu_f, dqv_f = dqu[:, :t], dqv[:, :t]
+        return dqu_f + dqv_f, dqu_f.sum((0, 1)), dqv_f.sum((0, 1)), dp_out
+
+    want = jit0(xla)(*(jnp.asarray(x * scale) for x in (dqu, dqv)), jnp.asarray(dp_full * scale))
+    tp, n_kt = port_flash.bwd_padded_rows(t), -(-t // port_xl.XB_KEYS)
+    hm = lambda x: torch.from_numpy(x[:, :tp]).transpose(1, 2)  # noqa: E731  [B, H, T_pad, d]
+    dq_acc = hm(dqu + dqv) if lanes else torch.cat([hm(dqu), hm(dqv)], -1)
+    colsum = None
+    if lanes:
+        tiles = np.stack([np.stack([x[:, k * 128:min(t, (k + 1) * 128)].sum(1) for x in (dqu, dqv)],
+                                   2) for k in range(n_kt)], 1)  # [B, n_kt, H, 2, d]
+        colsum = torch.from_numpy(tiles).permute(0, 2, 1, 3, 4)
+    dp_acc = torch.from_numpy(rng.randn(h, port_xl.xl_bwd_dp_rows(t), d).astype(np.float32))
+    dp_acc[:, port_xl.XB_PAD:port_xl.XB_PAD + 2 * t - 1] = torch.from_numpy(
+        dp_full[:, pad_lo:pad_lo + 2 * t - 1])
+    dq, dqv_out, dp = torch.empty(b, h, t, d), torch.empty(b, h, t, d), torch.empty(h, 2 * t - 1, d)
+    dq, dqv_out, dp, dbias = port_xl.flash_xl_bwd_postpass(
+        dq_acc.contiguous(), dp_acc, colsum, scale, dq, None if lanes else dqv_out, dp)
+    merge = lambda x: x.transpose(1, 2).numpy()  # noqa: E731  [B, T, H, d]
+    if lanes:
+        got = (merge(dq), dbias[0].numpy(), dbias[1].numpy(), dp.numpy())
+    else:
+        got = (merge(dq), merge(dqv_out), dp.numpy())
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(w).reshape(a.shape), atol=1e-5)
 
 
 # -- head-major XL attention (rows 9, 10 and 11 of the kernel table) -------------------
@@ -328,9 +436,14 @@ def test_xl_head_major_plain_versions_match_pallas(t, d, band):
     *arrays, g = _hm_data(b, h, t, d, seed=t + d)
     kw = dict(sm_scale=0.25, block_q=32, block_k=32, group=8, band_widths=band)
     jarr = [jnp.asarray(a) for a in arrays]
-    fwd = interpret0(jax_xl._xl_forward, *jarr, **kw)
-    o, lse = interpret0(jax_xl._xl_forward_lse, *jarr, **kw)
-    grads = interpret0(jax_xl._xl_backward, *jarr, o, lse, jnp.asarray(g), **kw)
+
+    def kernels(*args, interpret):  # the three kernels in one program: one compile
+        *x, g_ = args
+        o, lse = jax_xl._xl_forward_lse(*x, interpret=interpret, **kw)
+        return (jax_xl._xl_forward(*x, interpret=interpret, **kw), o, lse,
+                jax_xl._xl_backward(*x, o, lse, g_, interpret=interpret, **kw))
+
+    fwd, o, lse, grads = interpret0(kernels, *jarr, jnp.asarray(g))
     tarr = _t(*arrays)
     ours = port_xl.flash_xl_attention(*tarr, 0.25, band)
     np.testing.assert_allclose(ours.numpy(), np.asarray(fwd), atol=ATOL)

@@ -235,26 +235,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (issuer) mbar_arrive(&empty[s]);  // Q, dO and side rows consumed
 
     // the 64 x d/2 f32 partial to shared memory in the layout of the workspace's
-    // tensor map (rows of d/2 floats, swizzled), then one TMA reduction adds it.
-    // At d = 64 odd g store their column blocks in the order j ^ 2, so that the
-    // 16 lanes of each 8-byte store hit 16 distinct bank pairs.
+    // tensor map (rows of d/2 floats, swizzled), then one TMA reduction adds it
     float* sdq = reinterpret_cast<float*>(smem + L::DQ_OFF + ((it & 1) * 2 + wg) * L::DQ_TILE);
-    constexpr int FLIP = HD == 64 ? 2 : 0;
-    const bool flip = (g & 1) != 0;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = wl * 16 + g + 8 * r;
-      const int swz = HD == 64 ? (row & 7) : ((row >> 1) & 3);
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        const int j = flip ? k ^ FLIP : k;
-        const float x = flip ? dq[4 * (k ^ FLIP) + 2 * r] : dq[4 * k + 2 * r];
-        const float y = flip ? dq[4 * (k ^ FLIP) + 2 * r + 1] : dq[4 * k + 2 * r + 1];
-        const int chunk = (2 * j + (t >> 1)) ^ swz;
-        *reinterpret_cast<float2*>(sdq + row * (HD / 2) + chunk * 4 + (t & 1) * 2) =
-            make_float2(x, y);
-      }
-    }
+    stage_box<HD>(sdq, dq, wl, g, t);
     fence_proxy_async();
     bar_sync(2 + wg, 128);
     if (issuer && (int)blockIdx.x != skip_dq_tile) {
@@ -296,25 +279,11 @@ flash_bwd_prepass_kernel(Rows<const bf16> o, Rows<const bf16> dout, const float*
   const int r = row % n_pad;
   const long long bh = row / n_pad;
   const int b = bh / heads, h = bh % heads;
-  float acc = 0.f;
-  if (r < n) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o.at(b, h) + (long long)r * o.rs + part * 8);
-    const uint4 gv =
-        *reinterpret_cast<const uint4*>(dout.at(b, h) + (long long)r * dout.rs + part * 8);
-    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(ge[i]);
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const bool live = r < n;
+  hopper::side_pair<HD>(o.at(b, h) + (long long)r * o.rs, dout.at(b, h) + (long long)r * dout.rs,
+                        live ? lse[bh * n + r] : 0.f, live, part, side + row * 2);
   float4* z = reinterpret_cast<float4*>(dq_acc + row * HD + part * 8);
   z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (part == 0) {
-    const float l = r < n ? lse[bh * n + r] : -INFINITY;
-    *reinterpret_cast<float2*>(side + row * 2) =
-        make_float2(l == -INFINITY ? INFINITY : l * FB_LOG2E, acc);
-  }
 }
 
 // The post-pass: dq[b, h, r, :] = bf16(scale * workspace[b, h, r, :]) for r < T,
@@ -345,22 +314,6 @@ flash_bwd_postpass_kernel(const float* __restrict__ dq_acc, Rows<bf16> dq, int n
 
 static inline int padded_rows(int n) { return (n + FB_QROWS - 1) / FB_QROWS * FB_QROWS; }
 
-// A 2-D map (d, rows) over the f32 dQ workspace [B * H * T_pad, d], boxes of
-// 64 rows by d/2 columns (one warpgroup's partial), swizzled as the kernel
-// stores them.
-static bool workspace_map(hopper::EncodeTiledFn encode, CUtensorMap* map, float* dq_acc,
-                          long long rows, int hd) {
-  const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)hd * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)hd / 2, FB_QROWS};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, dq_acc, dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Launch the main kernel on `stream`; returns cudaGetLastError() after the
 // launch (0 = launched). side and dq_acc come from the pre-pass; the key tile
 // `skip_dq_tile` adds no dQ partial (-1: every tile adds its own).
@@ -377,7 +330,8 @@ static int launch_flash_bwd(int batch, int n, int heads, void* stream, Rows<cons
       !tensor_map(encode, &tk, k, batch, heads, n, HD, FB_KEYS) ||
       !tensor_map(encode, &tv, v, batch, heads, n, HD, FB_KEYS) ||
       !tensor_map(encode, &tdo, dout, batch, heads, n, HD, FB_QROWS) ||
-      !workspace_map(encode, &tdq, dq_acc, (long long)batch * heads * padded_rows(n), HD))
+      !hopper::f32_box_map(encode, &tdq, dq_acc, (long long)batch * heads * padded_rows(n), HD,
+                               HD / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = FbSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<HD>,

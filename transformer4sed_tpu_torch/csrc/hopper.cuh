@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash attention forward
-// (flash_fwd.cuh) and backward (flash_bwd.cuh): warpgroup products (wgmma),
-// their shared-memory descriptors, mbarriers, named barriers, TMA tile copies
-// and reductions, bulk copies, cp.async copies that land on an mbarrier, and
-// on the host the tensor maps those copies read. The mma.sync kernels
-// (xl.cuh, window.cuh) do not include it.
+// (flash_fwd.cuh) and the flash and XL backwards (flash_bwd.cuh, xl_bwd.cuh):
+// warpgroup products (wgmma), their shared-memory descriptors, mbarriers,
+// named barriers, TMA tile copies and reductions, bulk copies, cp.async copies
+// that land on an mbarrier, and on the host the tensor maps those copies
+// read. The mma.sync kernels (xl.cuh, window.cuh) do not include it.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate), issued by one warpgroup of four
 // warps. Accumulator layout, with w the warp in the group, g = lane / 4 and
@@ -229,6 +229,55 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// A warpgroup's m64n(HD/2) f32 accumulator (w the warp in the group) to shared
+// memory as one TMA box of 64 rows by HD/2 floats, in the swizzle of the f32
+// maps of f32_box_map (128-byte rows at HD = 64, 64-byte rows at HD = 32). At
+// HD = 64 odd g store their column blocks in the order j ^ 2, so that the 16
+// lanes of each 8-byte store hit 16 distinct bank pairs.
+template <int HD>
+__device__ __forceinline__ void stage_box(float* dst, const float (&acc)[HD / 4], int w, int g,
+                                          int t) {
+  constexpr int FLIP = HD == 64 ? 2 : 0;
+  const bool flip = (g & 1) != 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w * 16 + g + 8 * r;
+    const int swz = HD == 64 ? (row & 7) : ((row >> 1) & 3);
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) {
+      const int j = flip ? k ^ FLIP : k;
+      const float x = flip ? acc[4 * (k ^ FLIP) + 2 * r] : acc[4 * k + 2 * r];
+      const float y = flip ? acc[4 * (k ^ FLIP) + 2 * r + 1] : acc[4 * k + 2 * r + 1];
+      const int chunk = (2 * j + (t >> 1)) ^ swz;
+      *reinterpret_cast<float2*>(dst + row * (HD / 2) + chunk * 4 + (t & 1) * 2) =
+          make_float2(x, y);
+    }
+  }
+}
+
+// The backwards' side pair of one query row: (L * log2 e, delta = rowsum(dO *
+// O) in f32) for a row < T (`live`), +inf and 0 past T, +inf where L is -inf,
+// so that the row's weights are 0 without a test. HD / 8 neighbouring lanes
+// take one row, 16 bytes of O and dO each (`part`); part 0 writes the pair.
+template <int HD>
+__device__ __forceinline__ void side_pair(const bf16* o_row, const bf16* do_row, float l,
+                                          bool live, int part, float* dst) {
+  float acc = 0.f;
+  if (live) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o_row + part * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(do_row + part * 8);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc += __bfloat162float(oe[i]) * __bfloat162float(ge[i]);
+  }
+#pragma unroll
+  for (int off = HD / 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0)
+    *reinterpret_cast<float2*>(dst) =
+        make_float2(!live || l == -INFINITY ? INFINITY : l * 1.4426950408889634f, acc);
+}
+
 // Hand registers back to (dec) or take them from (inc) the block's pool, for
 // every thread of the calling warpgroup; N a multiple of 8 in [24, 256].
 template <int N>
@@ -396,6 +445,22 @@ static bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, Rows<const bf16> 
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x.ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map (columns, rows) over a row-major f32 array [rows, cols], boxes of
+// 64 rows by `box_cols` floats (32 or 16: one stage_box), swizzled as
+// stage_box stores them; the target of the backwards' TMA reductions.
+static bool f32_box_map(EncodeTiledFn encode, CUtensorMap* map, float* base, long long rows,
+                        int cols, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

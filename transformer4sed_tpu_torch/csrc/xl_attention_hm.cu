@@ -7,7 +7,7 @@
 // _xl_kernel line 50, key blocks with an online softmax for long T);
 // t4s_xl_hm_fwd_lse replaces :_xl_forward_lse (line 410, body
 // _xl_row_lse_kernel), which also writes the natural-log row log-sum-exp
-// lse [B, H, T] f32 for the backward (xl_attention_hm_bwd.cu).
+// lse [B, H, T] f32 for the backward (xl_attention_bwd.cu).
 //   softmax(scale * (qu K^T + relshift(qv P^T))) V
 // on head-major operands qu, qv, k, v [B, H, T, d], each with its own batch,
 // head and row strides (a [B, T, H*d] projection slice viewed as [B, H, T, d]

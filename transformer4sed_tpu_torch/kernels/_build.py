@@ -23,8 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_hm",
            "flash_attention_hm_bwd", "xl_attention", "xl_attention_bwd", "xl_attention_hm",
-           "xl_attention_hm_bwd", "window_attention", "window_attention_bwd",
-           "flash_attention_bias", "flash_variants")
+           "window_attention", "window_attention_bwd", "flash_attention_bias", "flash_variants")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

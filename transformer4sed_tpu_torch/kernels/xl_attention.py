@@ -14,23 +14,31 @@ T-1 ... -(T-1), and an optional per-head band (row i attends
     added in the kernel): ``csrc/xl_attention.cu`` ``t4s_xl_nhd_fwd`` for
     ``_xl_nhd_forward`` (no-grad calls: serving, the mean teacher), the same
     source's ``t4s_xl_nhd_fwd_lse`` for ``_xl_nhd_forward_lse``, and
-    ``csrc/xl_attention_bwd.cu`` for ``_xl_nhd_backward`` (dq, dk, dv,
-    d``pos_bias_u``, d``pos_bias_v`` and dP);
+    ``csrc/xl_attention_bwd.cu`` ``t4s_xl_bwd`` for ``_xl_nhd_backward``
+    (dq, dk, dv, d``pos_bias_u``, d``pos_bias_v`` and dP);
   * head major, head dims 32 and 64 (qu, qv, k, v as [B, H, T, d] views with
     any batch, head and row strides; qu and qv given, dqu and dqv returned
     apart): ``csrc/xl_attention_hm.cu`` ``t4s_xl_hm_fwd`` for ``_xl_forward``,
     ``t4s_xl_hm_fwd_lse`` for ``_xl_forward_lse`` and
-    ``csrc/xl_attention_hm_bwd.cu`` for ``_xl_backward``
+    ``csrc/xl_attention_bwd.cu`` ``t4s_xl_bwd`` for ``_xl_backward``
     (:func:`flash_xl_attention`, :class:`XLAttention`).
 
-The kernels do the rel-shift as index arithmetic on a position strip in
-shared memory; the plain versions below compute the full position scores
-and skew them (:func:`rel_shift`, and its adjoint :func:`rel_unshift` in
-the backward). :func:`flash_xl_attention_nhd` dispatches like the JAX
-``custom_vjp``: at head dim 64 differentiated calls run
-:class:`XLAttentionNHD` and others the plain forward kernel; any other head
-dim goes, as in the JAX package's fall-back, through strided head-major
-views to :func:`flash_xl_attention`.
+The forwards (``csrc/xl.cuh``) do the rel-shift as index arithmetic on a
+position strip in shared memory. Both backwards run one body
+(``csrc/xl_bwd.cuh``: wgmma on TMA tiles, the strip loaded by TMA, dQ and
+dP added by TMA reductions) between two passes of their own, in
+``csrc/xl_attention_bwd.cu``, where the JAX wrappers run XLA code:
+:func:`flash_xl_bwd_prepass` (delta = rowsum(dO * O) and the log-sum-exp
+in base 2 into one side buffer, the float32 workspaces zeroed, and for row
+13 qu = q + u and qv = q + v formed once) and :func:`flash_xl_bwd_postpass`
+(dq, or dqu and dqv, and dP in bf16 in the caller's layout, and for row 13
+the bias gradients). Each has a plain version and a launch counter. The
+plain versions compute the full position scores and skew them
+(:func:`rel_shift`, and its adjoint :func:`rel_unshift` in the backward).
+:func:`flash_xl_attention_nhd` dispatches like the JAX ``custom_vjp``: at
+head dim 64 differentiated calls run :class:`XLAttentionNHD` and others the
+plain forward kernel; any other head dim goes, as in the JAX package's
+fall-back, through strided head-major views to :func:`flash_xl_attention`.
 """
 
 from __future__ import annotations
@@ -45,11 +53,12 @@ from transformer4sed_tpu_torch.kernels.flash_attention import (
     _merge_heads,
     _split_heads,
     aligned_rows,
+    bwd_padded_rows,
     check_cuda_operands,
     check_f32_rows,
+    flash_bwd_prepass_reference,
     hm_empty,
     hm_strides,
-    row_delta,
 )
 
 _NEG_INF = -1e30
@@ -241,12 +250,13 @@ def flash_xl_attention_nhd_lse(q, k, v, bias_u, bias_v, p, num_heads: int, sm_sc
 
 def flash_xl_attention_nhd_backward(q, k, v, bias_u, bias_v, p, o, lse, do, num_heads: int,
                                     sm_scale: float,
-                                    band_widths: Optional[Sequence[int]] = None):
-    """(dq, dk, dv, dbu, dbv, dp) from the saved (o, lse): the backward
-    kernel for CUDA tensors (each result in its primal's dtype), its plain
-    version for CPU tensors (float32). dq = dQu + dQv and the bias
-    gradients (sums of dQu and dQv over batch and time) are formed here in
-    float32."""
+                                    band_widths: Optional[Sequence[int]] = None, fault: int = 0):
+    """(dq, dk, dv, dbu, dbv, dp) from the saved (o, lse): for CUDA tensors
+    the pre-pass (delta, qu = q + u and qv = q + v, zeroed workspaces), the
+    backward kernel and the post-pass (dq, dP and the bias gradients from
+    float32 sums, each result in its primal's dtype), for CPU tensors the
+    plain version (float32). ``fault`` plants one of ``XB_FAULTS``: 0 on
+    every real path."""
     if q.device.type == "cpu":
         return xl_attention_nhd_backward_reference(q, k, v, bias_u, bias_v, p, o, lse, do,
                                                    num_heads, sm_scale, band_widths)
@@ -259,28 +269,18 @@ def flash_xl_attention_nhd_backward(q, k, v, bias_u, bias_v, p, o, lse, do, num_
     check_cuda_operands(what, o, do)
     check_f32_rows(what, lse, (b, num_heads, t))
     band = _band_tensor(band_widths, num_heads, q.device)
-    delta = row_delta(o, do, num_heads)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dqu, dqv = torch.zeros((b, t, c), **f32), torch.zeros((b, t, c), **f32)
-    dp = torch.zeros((num_heads, 2 * t - 1, d), **f32)
-    dk = torch.empty((b, t, c), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, t, c), dtype=v.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        status = _build.function("xl_attention_bwd", "t4s_xl_nhd_bwd", 15, 14)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bu.data_ptr(),
-            bv.data_ptr(), p.data_ptr(), None if band is None else band.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dp.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, t, num_heads, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            do.stride(0), do.stride(1), p.stride(0), p.stride(1),
-            dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(status, what)
+    heads = lambda x: _split_heads(x, num_heads)  # noqa: E731  [B, H, T, d] views
+    side, dq_acc, dp_acc, qu, qv = flash_xl_bwd_prepass(heads(o), heads(do), lse, d, heads(q), bu,
+                                                        bv)
+    colsum = torch.empty((b, num_heads, -(-t // XB_KEYS), 2, d), dtype=torch.float32,
+                         device=q.device)
+    dq, dk, dv = (torch.empty((b, t, c), dtype=x.dtype, device=q.device) for x in (q, k, v))
+    dp = torch.empty(p.shape, dtype=p.dtype, device=q.device)
+    xl_backward_kernel(qu, qv, heads(k), heads(v), heads(do), p, band, side, dq_acc, dp_acc,
+                       colsum, heads(dk), heads(dv), sm_scale, fault)
     flash_xl_attention_nhd_backward.launches += 1
-    return ((dqu + dqv).to(q.dtype), dk, dv,
-            dqu.reshape(b, t, num_heads, d).sum((0, 1)).to(bias_u.dtype),
-            dqv.reshape(b, t, num_heads, d).sum((0, 1)).to(bias_v.dtype), dp.to(p.dtype))
+    _, _, _, dbias = flash_xl_bwd_postpass(dq_acc, dp_acc, colsum, sm_scale, heads(dq), None, dp)
+    return dq, dk, dv, dbias[0].to(bias_u.dtype), dbias[1].to(bias_v.dtype), dp
 
 
 class XLAttentionNHD(torch.autograd.Function):
@@ -359,11 +359,12 @@ def flash_xl_attention_lse(qu, qv, k, v, p, sm_scale: float,
 
 
 def flash_xl_attention_backward(qu, qv, k, v, p, o, lse, do, sm_scale: float,
-                                band_widths: Optional[Sequence[int]] = None):
-    """(dqu, dqv, dk, dv, dp) from the saved (o, lse): the head-major backward
-    kernel for CUDA tensors (each result in its primal's dtype; dqu, dqv and
-    dp are summed in float32 and rounded once), its plain version for CPU
-    tensors (float32)."""
+                                band_widths: Optional[Sequence[int]] = None, fault: int = 0):
+    """(dqu, dqv, dk, dv, dp) from the saved (o, lse): for CUDA tensors the
+    pre-pass, the head-major backward kernel and the post-pass (each result in
+    its primal's dtype; dqu, dqv and dp summed in float32 and rounded once),
+    for CPU tensors the plain version (float32). ``fault`` as in
+    :func:`flash_xl_attention_nhd_backward`."""
     if qu.device.type == "cpu":
         return flash_xl_attention_backward_reference(qu, qv, k, v, p, o, lse, do, sm_scale,
                                                      band_widths)
@@ -376,24 +377,160 @@ def flash_xl_attention_backward(qu, qv, k, v, p, o, lse, do, sm_scale: float,
     check_cuda_operands(what, o, do)
     check_f32_rows(what, lse, (b, h, t))
     band = _band_tensor(band_widths, h, qu.device)
-    delta = (do.float() * o.float()).sum(-1).contiguous()
-    dqu = hm_empty(qu.shape, torch.float32, qu.device, zero=True)
-    dqv = hm_empty(qu.shape, torch.float32, qu.device, zero=True)
-    dp = torch.zeros((h, 2 * t - 1, d), dtype=torch.float32, device=qu.device)
-    dk = hm_empty(qu.shape, k.dtype, qu.device)
-    dv = hm_empty(qu.shape, v.dtype, qu.device)
+    side, dq_acc, dp_acc, _, _ = flash_xl_bwd_prepass(o, do, lse, 2 * d)
+    dqu, dqv, dk, dv = (hm_empty(qu.shape, x.dtype, qu.device) for x in (qu, qv, k, v))
+    dp = torch.empty(p.shape, dtype=p.dtype, device=qu.device)
+    xl_backward_kernel(qu, qv, k, v, do, p, band, side, dq_acc, dp_acc, None, dk, dv, sm_scale,
+                       fault)
+    flash_xl_attention_backward.launches += 1
+    flash_xl_bwd_postpass(dq_acc, dp_acc, None, sm_scale, dqu, dqv, dp)
+    return dqu, dqv, dk, dv, dp
+
+
+def xl_backward_kernel(qu, qv, k, v, do, p, band, side, dq_acc, dp_acc, colsum, dk, dv,
+                       scale: float, fault: int = 0) -> None:
+    """The launch of row 13's kernel (``colsum`` given: dQu + dQv summed) or
+    row 11's (``colsum`` None) alone, between the passes, on [B, H, T, d]
+    operands the wrapper checked (the timing phase of ``chip_smoke.py`` times
+    it apart)."""
+    b, h, t, d = qu.shape
     with torch.cuda.device(qu.device):
-        status = _build.function("xl_attention_hm_bwd", "t4s_xl_hm_bwd", 14, 26)(
+        status = _build.function("xl_attention_bwd", "t4s_xl_bwd", 13, 23, n_ints=5)(
             qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            p.data_ptr(), None if band is None else band.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dp.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, t, h, d, *hm_strides(qu, qv, k, v, do), p.stride(0),
-            p.stride(1), *hm_strides(dqu, dk, dv), float(sm_scale),
+            p.data_ptr(), None if band is None else band.data_ptr(), side.data_ptr(),
+            dq_acc.data_ptr(), dp_acc.data_ptr(), None if colsum is None else colsum.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, t, h, d, fault, *hm_strides(qu, qv, k, v, do),
+            p.stride(0), p.stride(1), *hm_strides(dk, dv), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "t4s_xl_bwd")
+
+
+# -- the two passes around both XL backward kernels (csrc/xl_attention_bwd.cu) ---------
+
+XB_KEYS = 128  # keys a block of the XL backward (csrc/xl_bwd.cuh: XB_KEYS)
+XB_PAD = 64  # dP workspace rows before P row 0 (csrc/xl_bwd.cuh: XB_PAD)
+# planted faults of the XL backward kernel (csrc/xl_bwd.cuh: XbFault), for the
+# kernel check only
+XB_FAULTS = {"skip_dq_tile": 1, "clamp_strip": 2, "no_flush": 3}
+
+
+def xl_bwd_dp_rows(t: int) -> int:
+    """Rows per head of the dP workspace: every P row a strip piece of any
+    block reaches, -64 .. 2T + 191."""
+    return 2 * t + 256
+
+
+def flash_xl_bwd_prepass_reference(o, do, lse, ws_cols: int, q=None, bias_u=None, bias_v=None):
+    """Plain version of the XL backward's pre-pass on [B, H, T, d] views: the
+    side rows of :func:`flash_bwd_prepass_reference` ((L * log2 e, delta) per
+    row), the zeroed float32 workspaces dq_acc [B, H, T_pad, ws_cols] and
+    dp_acc [H, 2T + 256, d], and with q ([B, H, T, d]) and the biases [H, d]
+    qu = q + u and qv = q + v summed in float32 and rounded to q's dtype."""
+    b, h, t, d = o.shape
+    side, _ = flash_bwd_prepass_reference(o, do, lse)
+    f32 = dict(dtype=torch.float32, device=o.device)
+    dq_acc = torch.zeros((b, h, bwd_padded_rows(t), ws_cols), **f32)
+    dp_acc = torch.zeros((h, xl_bwd_dp_rows(t), d), **f32)
+    qu = qv = None
+    if q is not None:
+        qf = q.float()
+        qu, qv = ((qf + x.float()[None, :, None]).to(q.dtype) for x in (bias_u, bias_v))
+    return side, dq_acc, dp_acc, qu, qv
+
+
+def flash_xl_bwd_prepass(o, do, lse, ws_cols: int, q=None, bias_u=None, bias_v=None,
+                         ws: Optional[torch.Tensor] = None):
+    """(side, dq_acc, dp_acc, qu, qv) for the XL backward kernels from o, do
+    [B, H, T, d] (any batch, head and row strides) and lse f32 [B, H, T]:
+    the pre-pass kernel for CUDA tensors (bf16, head dim 32 or 64; with q,
+    head dim 64 and f32 biases), its plain version for CPU tensors.
+    ``ws_cols`` is d (row 13: dQu + dQv) or 2d (row 11: dQu, dQv); qu and qv
+    are None without q. ``ws`` is a flat f32 buffer to zero and split into
+    the two workspaces in place of a fresh one."""
+    if o.device.type == "cpu":
+        return flash_xl_bwd_prepass_reference(o, do, lse, ws_cols, q, bias_u, bias_v)
+    what = "flash_xl_bwd_prepass"
+    b, h, t, d = o.shape
+    if (do.shape != o.shape or d not in HM_HEAD_DIMS or ws_cols not in (d, 2 * d)
+            or (q is not None and (q.shape != o.shape or d != 64))):
+        raise ValueError(f"{what}: unsupported o {tuple(o.shape)} / do {tuple(do.shape)}, "
+                         f"{ws_cols} workspace columns, q {None if q is None else tuple(q.shape)}")
+    check_cuda_operands(what, o, do, *(() if q is None else (q,)))
+    check_f32_rows(what, lse, (b, h, t))
+    if q is not None:
+        for x in (bias_u, bias_v):
+            check_f32_rows(what, x, (h, d))
+    tp = bwd_padded_rows(t)
+    n_dq, n_dp = b * h * tp * ws_cols, h * xl_bwd_dp_rows(t) * d
+    f32 = dict(dtype=torch.float32, device=o.device)
+    side = torch.empty((b, h, tp, 2), **f32)
+    if ws is None:
+        ws = torch.empty(n_dq + n_dp, **f32)
+    check_f32_rows(what, ws, (n_dq + n_dp,))
+    qu = qv = None
+    if q is not None:
+        qu, qv = (torch.empty((b, h, t, d), dtype=q.dtype, device=o.device) for _ in range(2))
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(o.device):
+        status = _build.function("xl_attention_bwd", "t4s_xl_bwd_prepass", 10, 9, n_ints=5,
+                                 n_floats=0)(
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), side.data_ptr(), ws.data_ptr(), ptr(q),
+            ptr(bias_u if q is not None else None), ptr(bias_v if q is not None else None),
+            ptr(qu), ptr(qv), b, t, h, d, ws_cols, *hm_strides(o, do),
+            *(hm_strides(q) if q is not None else (0, 0, 0)),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
-    flash_xl_attention_backward.launches += 1
-    return dqu.to(qu.dtype), dqv.to(qv.dtype), dk, dv, dp.to(p.dtype)
+    flash_xl_bwd_prepass.launches += 1
+    return (side, ws[:n_dq].view(b, h, tp, ws_cols), ws[n_dq:].view(h, xl_bwd_dp_rows(t), d),
+            qu, qv)
+
+
+def flash_xl_bwd_postpass_reference(dq_acc, dp_acc, colsum, scale: float, dq, dqv, dp):
+    """Plain version of the post-pass: with ``colsum`` (row 13), ``dq`` =
+    scale * dq_acc[:, :, :T] and dbias [2, H, d] = scale * colsum [B, H,
+    n_kt, 2, d] summed over batch and key tiles; without (row 11), ``dq`` and
+    ``dqv`` = scale * each column half. ``dp`` = scale * the dP workspace's
+    rows of P rows 0 .. 2T-2. Returns (dq, dqv, dp, dbias or None)."""
+    t, d = dq.shape[2], dq.shape[3]
+    dq.copy_(dq_acc[:, :, :t, :d] * scale)
+    if colsum is None:
+        dqv.copy_(dq_acc[:, :, :t, d:] * scale)
+    dp.copy_(dp_acc[:, XB_PAD:XB_PAD + 2 * t - 1] * scale)
+    dbias = None if colsum is None else colsum.sum((0, 2)).transpose(0, 1) * scale
+    return dq, dqv, dp, dbias
+
+
+def flash_xl_bwd_postpass(dq_acc, dp_acc, colsum, scale: float, dq, dqv, dp):
+    """dq (and dqv), dp and the bias gradients from the f32 workspaces, as
+    :func:`flash_xl_bwd_postpass_reference` says: the post-pass kernel for
+    CUDA tensors (bf16 [B, H, T, d] views dq, dqv and a bf16 [H, 2T-1, d]
+    view dp, of any strides), its plain version for CPU tensors."""
+    if dq.device.type == "cpu":
+        return flash_xl_bwd_postpass_reference(dq_acc, dp_acc, colsum, scale, dq, dqv, dp)
+    what = "flash_xl_bwd_postpass"
+    b, h, t, d = dq.shape
+    if d not in HM_HEAD_DIMS or tuple(dp.shape) != (h, 2 * t - 1, d):
+        raise ValueError(f"{what}: unsupported dq {tuple(dq.shape)}, dp {tuple(dp.shape)}")
+    check_cuda_operands(what, dq, dp, *(() if dqv is None else (dqv,)))
+    check_f32_rows(what, dq_acc, (b, h, bwd_padded_rows(t), d if colsum is not None else 2 * d))
+    check_f32_rows(what, dp_acc, (h, xl_bwd_dp_rows(t), d))
+    dbias = None
+    if colsum is not None:
+        check_f32_rows(what, colsum, (b, h, -(-t // XB_KEYS), 2, d))
+        dbias = torch.empty((2, h, d), dtype=torch.float32, device=dq.device)
+    strides_v = hm_strides(dqv) if dqv is not None else (0, 0, 0)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(dq.device):
+        status = _build.function("xl_attention_bwd", "t4s_xl_bwd_postpass", 7, 8)(
+            dq_acc.data_ptr(), dp_acc.data_ptr(), ptr(colsum), dq.data_ptr(), ptr(dqv),
+            dp.data_ptr(), ptr(dbias), b, t, h, d, *hm_strides(dq), *strides_v, dp.stride(0),
+            dp.stride(1), float(scale), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    flash_xl_bwd_postpass.launches += 1
+    return dq, dqv, dp, dbias
 
 
 class XLAttention(torch.autograd.Function):
@@ -474,3 +611,5 @@ flash_xl_attention_lse.launches = 0
 flash_xl_attention_backward.launches = 0
 flash_xl_attention_nhd_lse.launches = 0
 flash_xl_attention_nhd_backward.launches = 0
+flash_xl_bwd_prepass.launches = 0
+flash_xl_bwd_postpass.launches = 0
