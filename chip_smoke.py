@@ -20,19 +20,25 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
-     backwards; check the build: no kernel of the flash family or of the XL
-     backward spills (rows 1, 3 to 8, 11, 13 and 16), the flash forward's
-     (rows 1, 3, 4, 5, 7, 16) and the flash and XL backwards' SASS hold
-     HGMMA and UTMALDG and no HMMA, row 4's LDGSTS (its bias by cp.async),
-     the backwards' UTMAREDG and no atomic (``cuobjdump`` of the built
-     libraries, fresh or cached);
+     backwards; check the build: no kernel of the flash family, of the
+     heads-in-lanes XL forward or of the XL backward spills (rows 1 to 8, 11
+     to 13 and 16), the flash forward's (rows 1, 3, 4, 5, 7, 16), the
+     heads-in-lanes XL forward's (rows 2, 12) and the flash and XL
+     backwards' SASS hold HGMMA and UTMALDG and no HMMA, row 4's LDGSTS (its
+     bias by cp.async), the backwards' UTMAREDG and no atomic (``cuobjdump``
+     of the built libraries, fresh or cached); the head-major XL forward's
+     (rows 9, 10, still on ``mma.sync``) is logged;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and on small ragged and banded cases (rows 1 and 8
      also at finetune2's window length N = 602, rows 1 and 7 at a negative
-     and a zero scale, and the flash and XL backwards' pre- and post-passes),
-     and show that the same check rejects planted faults (a dropped key
-     tile, the last key tile left unmasked, a dropped bias, a rel-shift off
-     by one, a band one key wider; for the backwards an LSE shifted by log 2,
+     and a zero scale, rows 2, 12 and 13 also at T = 320, 5 and 193, and the
+     flash and XL backwards' pre- and post-passes), and show that the same
+     check rejects planted faults (a dropped key tile, the last key tile
+     left unmasked, a dropped bias, a rel-shift off by one, a band one key
+     wider; in rows 2 and 12's kernel the strip tiles' start clamped at P
+     row 0, the newest strip tile read from the step before, the skew
+     one strip row off, pos_bias_u rounded to bf16 before the add (on inputs
+     with sharp scores); for the backwards an LSE shifted by log 2,
      a zeroed O, the last key tile's dQ partial left out, P rolled by one
      row, pos_bias_v dropped, and in row 13 the XL backward's own three: the
      last key tile's dQ partial left out, the strip pieces' start clamped at
@@ -398,6 +404,13 @@ def xl_inputs(b, t, c, h, seed):
     return q, k, v, bu, bv, p.reshape(2 * t - 1, h, c // h).transpose(0, 1)
 
 
+# planted faults of the heads-in-lanes XL forward (rows 2 and 12, csrc/xl_fwd.cuh)
+XL_FWD_FAULTS = (("clamp_strip", "the strip tiles' start clamped at P row 0, not zero-filled"),
+                 ("stale_tile", "the newest strip tile read from the step before"),
+                 ("skew", "the skew one strip row off"),
+                 ("round_u", "pos_bias_u rounded to bf16 before the add (sharp scores)"))
+
+
 def check_kernels(results):
     import torch
 
@@ -409,9 +422,11 @@ def check_kernels(results):
         flash_attention_nhd_reference,
     )
     from transformer4sed_tpu_torch.kernels.xl_attention import (
+        XF_FAULTS,
         flash_xl_attention_nhd,
         xl_attention_nhd_reference,
     )
+    from transformer4sed_tpu_torch.kernels.xl_attention import _forward_kernel as xl_forward_kernel
 
     rejected = []  # planted faults: each must fall outside the bound
 
@@ -461,6 +476,9 @@ def check_kernels(results):
         (8, 1000, 768, 12, wide_band, False),
         (2, 77, 768, 12, None, False),
         (1, 130, 256, 4, (3, 20, 1, 260), False),
+        (64, 320, 768, 12, None, False),  # HTSAT_CNN's decoder
+        (1, 5, 768, 12, None, False),  # T under one key tile: most strip rows zero-filled
+        (2, 193, 768, 12, None, False),  # a strip tile past P row 2T-2
     ]
     for b, t, c, h, band, main in cases:
         q, k, v, bu, bv, p = xl_inputs(b, t, c, h, seed=t)
@@ -481,11 +499,32 @@ def check_kernels(results):
             rejected.append(held("planted fault: pos_bias_u dropped", out, ref, ref_abs_v)[0])
             out = flash_xl_attention_nhd(q, k, v, bu, bv, p.roll(1, dims=1), h, scale)
             rejected.append(held("planted fault: rel-shift off by one", out, ref, ref_abs_v)[0])
+            for fault, what in XL_FWD_FAULTS[:3]:
+                out, _ = xl_forward_kernel(q, k, v, bu, bv, p, h, scale, None, with_lse=False,
+                                           fault=XF_FAULTS[fault])
+                rejected.append(held(f"planted fault: {what}", out, ref, ref_abs_v)[0])
         if band == wide_band:
             wider = tuple(w + 2 for w in band)
             out = flash_xl_attention_nhd(q, k, v, bu, bv, p, h, scale, wider)
             rejected.append(held("planted fault: band one key wider each side", out, ref,
                                  ref_abs_v)[0])
+        del ref, ref_abs_v, out
+        torch.cuda.empty_cache()
+    # pos_bias_u rounded to bf16 before the add moves q + u by at most one bf16
+    # step, which the 0.1-scale biases above hide under the bound; unit-scale
+    # biases and keys four times larger (exact in bf16) sharpen the scores
+    # until that step shows. The kernel itself is held to the same bound on them.
+    q, k, v, bu, bv, p = xl_inputs(2, 1000, 768, 12, seed=1001)
+    bu, bv, k = bu * 10, bv * 10, (k.float() * 4).to(torch.bfloat16)
+    ref, ref_abs_v = (xl_attention_nhd_reference(q, k.float(), vv, bu, bv, p.float(), 12, 0.125)
+                      for vv in (v.float(), v.float().abs()))
+    ok, _ = held("kernel flash_xl_attention_nhd B=2 T=1000 C=768 H=12, sharp scores",
+                 flash_xl_attention_nhd(q, k, v, bu, bv, p, 12, 0.125), ref, ref_abs_v)
+    check(ok, "flash_xl_attention_nhd disagrees with its plain version on sharp scores")
+    fault, what = XL_FWD_FAULTS[3]
+    out, _ = xl_forward_kernel(q, k, v, bu, bv, p, 12, 0.125, None, with_lse=False,
+                               fault=XF_FAULTS[fault])
+    rejected.append(held(f"planted fault: {what}", out, ref, ref_abs_v)[0])
     check_train_kernels(results, rejected)
     check_window_kernels(results, rejected)
     check_hm_kernels(results, rejected)
@@ -692,8 +731,9 @@ def check_train_kernels(results, rejected):
     """Rows 7, 8, 12 and 13: the LSE forwards (output and lse) and the
     backwards (every cotangent, fed the kernel forward's own o and lse)
     against their plain versions in f32 on the same bf16 inputs, at the
-    train step's shapes (B=24) and on ragged and banded cases; then seven
-    planted faults fed to the backwards, and the backwards' passes."""
+    train step's shapes (B=24) and on ragged and banded cases (rows 12 and
+    13 also at HTSAT_CNN's T = 320, T = 5 and T = 193); then eight planted
+    faults fed to the backwards, and the backwards' passes."""
     import math
 
     import torch
@@ -752,9 +792,14 @@ def check_train_kernels(results, rejected):
         torch.cuda.empty_cache()
 
     names = ("dq", "dk", "dv", "dbu", "dbv", "dP")
+    # T = 320: HTSAT_CNN's decoder; 5: under one key tile; 193: a strip tile
+    # of the forward past P row 2T-2
     for b, t, c, h, band, main in ((24, 1000, 768, 12, None, True),
                                    (2, 77, 768, 12, None, False),
-                                   (1, 130, 256, 4, (3, 20, 1, 260), False)):
+                                   (1, 130, 256, 4, (3, 20, 1, 260), False),
+                                   (64, 320, 768, 12, None, False),
+                                   (1, 5, 768, 12, None, False),
+                                   (2, 193, 768, 12, None, False)):
         tag = f"B={b} T={t} C={c} H={h} band={band}"
         q, k, v, bu, bv, p = xl_inputs(b, t, c, h, seed=t + 1)
         scale = (c // h) ** -0.5
@@ -2630,6 +2675,16 @@ def time_kernels(results):
     flops = 6.0 * b * h * t * t * d  # content QK^T, (q+v)P^T at the T^2 needed offsets, PV
     nbytes = 4.0 * b * t * c * 2 + h * (2 * t - 1) * d * 2 + 2 * h * d * 4
     bound(r, flops, nbytes)
+    # row 2 as the mean teacher runs it in the train step (B=24); logged, the
+    # record keeps the served batch's
+    bt = sum(TRAIN_SPLIT)
+    q, k, v, bu, bv, p = xl_inputs(bt, t, c, h, seed=1)
+    ms = cuda_ms(lambda: flash_xl_attention_nhd(q, k, v, bu, bv, p, h, d ** -0.5))
+    t_bound = max(6.0 * bt * h * t * t * d / PEAK_BF16_FLOPS,
+                  (4.0 * bt * t * c * 2 + h * (2 * t - 1) * d * 2 + 2 * h * d * 4) / PEAK_BYTES)
+    log(f"time flash_xl_attention_nhd at the teacher's shape [{bt}, {t}, {c}]: {ms:.4f} ms, "
+        f"bound {t_bound * 1e3:.4f} ms")
+    del q, k, v, bu, bv, p
     time_train_kernels(results)
     time_window_kernels(results)
     time_hm_kernels(results)
@@ -3267,16 +3322,24 @@ def sass_opcodes(path):
 
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
-    no kernel of the flash family or of the XL backward spills (no stack
-    frame, no local memory and no LDL or STL in the SASS); the forward's
-    kernels (rows 1, 3, 4, 5, 7, 16) run warpgroup products (HGMMA) on TMA
-    loads (UTMALDG) and no ``mma.sync`` (HMMA), row 4's with the bias copied
-    by cp.async (LDGSTS); the flash and XL backwards' main kernels (rows 6, 8,
-    11, 13) run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ, and dP in
-    XL) and no atomic."""
+    no kernel of the flash family or of the heads-in-lanes XL forward or the
+    XL backward spills (no stack frame, no local memory and no LDL or STL in
+    the SASS); the flash forward's kernels (rows 1, 3, 4, 5, 7, 16) and the
+    heads-in-lanes XL forward's (rows 2, 12) run warpgroup products (HGMMA)
+    on TMA loads (UTMALDG) and no ``mma.sync`` (HMMA), row 4's with the bias
+    copied by cp.async (LDGSTS); the flash and XL backwards' main kernels
+    (rows 6, 8, 11, 13) run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ,
+    and dP in XL) and no atomic. The head-major XL forward's (rows 9, 10) is
+    only logged: it still runs ``csrc/xl.cuh``'s ``mma.sync`` body (HMMA)
+    until its redesign (ROADMAP.md, queue 2)."""
+    usage, sass = resource_usage(paths["xl_attention_hm"]), sass_opcodes(paths["xl_attention_hm"])
+    for sym, (regs, stack, local) in usage.items():
+        ops = sass.get(sym, collections.Counter())
+        log(f"  xl_attention_hm {sym} (mma.sync body, HMMA allowed): {regs} registers, stack "
+            f"{stack} B, local {local} B, HMMA {ops['HMMA']}, HGMMA {ops['HGMMA']}")
     for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
                  "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants",
-                 "xl_attention_bwd"):
+                 "xl_attention", "xl_attention_bwd"):
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
         check(usage and usage.keys() == sass.keys(),
               f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
@@ -3286,7 +3349,8 @@ def check_build(paths):
             log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
-        kernel = ("xl_bwd_kernel" if name.startswith("xl") else
+        kernel = ("xl_fwd_kernel" if name == "xl_attention" else
+                  "xl_bwd_kernel" if name.startswith("xl") else
                   "flash_bwd_kernel" if name.endswith("_bwd") else "flash_fwd_kernel")
         main = [sym for sym in sass if kernel in sym]
         check(main, f"{name}: no {kernel} in the library")
@@ -3300,7 +3364,7 @@ def check_build(paths):
                   f"{name}: the SASS of {kernel} lacks HGMMA or UTMALDG, or runs HMMA")
             if name == "flash_attention_bias":
                 check(ops["LDGSTS"] > 0, f"{name}: the bias is not copied by cp.async")
-            if kernel != "flash_fwd_kernel":
+            if kernel.endswith("bwd_kernel"):
                 check(ops["UTMAREDG"] > 0, f"{name}: the backward's SASS lacks UTMAREDG")
                 check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
                       f"{name}: an atomic in the backward's SASS (dQ and dP go by TMA "

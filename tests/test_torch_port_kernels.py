@@ -9,6 +9,7 @@ are compared in float32.
 
 import functools
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -153,6 +154,28 @@ def test_kernel_sources_name_their_tpu_kernels():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert all(f in src for f in tpu_fns) and "What bounds it" in src and 'extern "C"' in src
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
+    # the device bodies that the entry points share name the kernels they replace too
+    for name, tpu_fns in (("xl_fwd", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),):
+        src = (_build.CSRC_DIR / f"{name}.cuh").read_text()
+        assert all(f in src for f in tpu_fns) and "What bounds it" in src
+    # xl.cuh's mma.sync body serves only the head-major forwards (rows 9 and 10)
+    users = {p.stem for p in _build.CSRC_DIR.glob("*.cu") if '"xl.cuh"' in p.read_text()}
+    assert users == {"xl_attention_hm"}
+
+
+@pytest.mark.parametrize("header,enum,table,name", [
+    ("xl_fwd", "XfFault", "XF_FAULTS", name) for name in port_xl.XF_FAULTS] + [
+    ("xl_bwd", "XbFault", "XB_FAULTS", name) for name in port_xl.XB_FAULTS])
+def test_planted_fault_numbers_match_the_kernel_enums(header, enum, table, name):
+    """The number a wrapper passes for each planted fault is that fault's
+    value in the device body's enum, so ``chip_smoke.py`` plants the fault it
+    names; 0 is no fault."""
+    src = (port_xl._build.CSRC_DIR / f"{header}.cuh").read_text()
+    body = re.search(r"enum %s \{([^}]*)\}" % enum, src).group(1)
+    members = [m.split("=")[0].strip() for m in body.split(",")]
+    prefix = enum[:2].upper() + "_FAULT_"
+    assert members[0] == prefix + "NONE" and "= 0" in body.split(",")[0]
+    assert members.index(prefix + name.upper()) == getattr(port_xl, table)[name]
 
 
 def test_cuda_operand_checks_reject_what_the_kernels_do_not_take():
@@ -167,6 +190,16 @@ def test_cuda_operand_checks_reject_what_the_kernels_do_not_take():
         port_flash.check_cuda_operands("k", good[..., 1:33])
     with pytest.raises(ValueError, match="aligned"):
         port_flash.check_cuda_operands("k", good.transpose(1, 2))
+    # TMA reads every operand: strides that are multiples of 8 elements (16
+    # bytes) and a 16-byte aligned base; P as the decoder makes it, a
+    # [2T-1, H*d] projection viewed as [H, 2T-1, d], is taken
+    with pytest.raises(ValueError, match="aligned"):
+        port_flash.check_cuda_operands("k", torch.zeros(2, 8, 68, dtype=torch.bfloat16)[..., :64])
+    p = torch.zeros(15, 4 * 64, dtype=torch.bfloat16).reshape(15, 4, 64).transpose(0, 1)
+    port_flash.check_cuda_operands("k", p)
+    with pytest.raises(ValueError, match="aligned"):
+        port_flash.check_cuda_operands(
+            "k", torch.zeros(15 * 256 + 4, dtype=torch.bfloat16)[4:].view(15, 4, 64))
     port_flash.check_cuda_operands("k", good.clone().requires_grad_())
     with pytest.raises(ValueError, match="float32"):
         port_flash.check_f32_rows("lse", torch.zeros(2, 4, 8).transpose(1, 2), (2, 8, 4))

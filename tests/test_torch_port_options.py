@@ -11,6 +11,8 @@ the CPU.
     with explicit [T, T], [H, T, T] and [B, H, T, T] masks (JAX's masked
     branch under ``use_flash``), forward and ``jax.vjp``.
   * ``load_jax_params`` on a finetune2 PaSST_SED.
+  * Options the JAX package takes and the port has not ported raise
+    ``NotImplementedError`` naming their ROADMAP queue item.
 
 The JAX models are never initialised: the port model is seeded and its state
 dict goes through the JAX package's ``convert_torch_checkpoint``. Inputs come
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from transformer4sed_tpu.core import losses as jax_losses
 from transformer4sed_tpu.models import slide as jax_slide
 from transformer4sed_tpu.models.passt_cnn import PaSST_CNN as JaxPaSSTCNN
 from transformer4sed_tpu.models.passt_sed import PaSST_SED as JaxSED
@@ -36,6 +39,7 @@ from transformer4sed_tpu.models.xl import build_band_mask
 from transformer4sed_tpu.train import mean_teacher as jax_mt
 from transformer4sed_tpu.train import optim as jax_optim
 from transformer4sed_tpu.utils.torch_import import convert_torch_checkpoint
+from transformer4sed_tpu_torch.core import losses
 from transformer4sed_tpu_torch.models import slide
 from transformer4sed_tpu_torch.models.passt import PaSST, PatchoutDraws
 from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
@@ -273,6 +277,24 @@ def test_xl_block_with_an_explicit_mask_matches_jax_masked_branch(tiny, kind):
             mod = getattr(mod, part)
         np.testing.assert_allclose(mod.grad.numpy(), np.asarray(want), atol=ATOL_BLOCK_GRAD,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["lora_rank", "ReweightedASL", "AsymmetricalFocalLoss"])
+def test_unported_options_raise_naming_their_queue_item(name):
+    """LoRA (config/pmam/post_pretrain.yaml's ``lora_rank: 8``) and the two
+    losses of the JAX registry that the port lacks raise
+    ``NotImplementedError`` citing ROADMAP.md queue 1, items 8 and 9, where
+    the JAX package takes them; nothing is built first."""
+    if name == "lora_rank":
+        assert {"lora_rank", "lora_alpha"} <= set(JaxSED.__dataclass_fields__)
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            PaSST_SED(**TINY, lora_rank=8, lora_alpha=16.0, device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            PaSST_CNN(**TINY_PMAM, lora_rank=8, device="cpu")
+    else:
+        assert callable(jax_losses.loss_function_factory(name, {}))
+        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+            losses.loss_function_factory(name, {})
 
 
 def test_window_backbone_call_stops_at_the_tap_layer():

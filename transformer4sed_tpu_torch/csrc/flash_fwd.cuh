@@ -427,15 +427,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// The number of SMs of the current device (the persistent grid's size).
-static int ff_sm_count() {
-  int dev = 0, count = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return count;
-}
-
 // Launch on `stream`: lse null for the plain forward (FF_EXP2 only takes
 // one); bias (FF_BIAS only) a [B, H, T, T] f32 view with unit column stride;
 // skip_tail_mask 1 only for a planted fault; any sm_scale, zero and negative
@@ -469,7 +460,7 @@ static int launch_flash_fwd(int batch, int n, int heads, void* stream, Rows<cons
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static const int sms = ff_sm_count();
+  static const int sms = hopper::sm_count();
   const int items = (n + Sh::QROWS - 1) / Sh::QROWS * heads * batch;
   const int grid = sms > 0 && sms < items ? sms : items;
   kernel<<<grid, Sh::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(

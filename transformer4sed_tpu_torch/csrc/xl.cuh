@@ -1,6 +1,8 @@
-// Fused Transformer-XL attention forward for Hopper (sm_90a): the device code
-// shared by the heads-in-lanes entry points (xl_attention.cu) and the
-// head-major ones (xl_attention_hm.cu).
+// Fused Transformer-XL attention forward for Hopper (sm_90a) on mma.sync: the
+// device code of the head-major entry points (xl_attention_hm.cu, rows 9 and
+// 10). The heads-in-lanes ones (xl_attention.cu, rows 2 and 12) run
+// xl_fwd.cuh, so the BIAS form here has no caller; this file goes when rows 9
+// and 10 move to xl_fwd.cuh.
 //
 //   softmax(scale * (qu K^T + relshift(qv P^T))) V
 // per (batch, head), P the projected position table [H, 2T-1, d] (offsets

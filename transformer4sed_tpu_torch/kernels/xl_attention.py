@@ -23,8 +23,11 @@ T-1 ... -(T-1), and an optional per-head band (row i attends
     ``csrc/xl_attention_bwd.cu`` ``t4s_xl_bwd`` for ``_xl_backward``
     (:func:`flash_xl_attention`, :class:`XLAttention`).
 
-The forwards (``csrc/xl.cuh``) do the rel-shift as index arithmetic on a
-position strip in shared memory. Both backwards run one body
+The forwards do the rel-shift as index arithmetic on a position strip in
+shared memory: the heads-in-lanes ones on ``csrc/xl_fwd.cuh`` (wgmma on TMA
+tiles, the strip in 128-row TMA tiles, the skew in registers by quad
+shuffles), the head-major ones on ``csrc/xl.cuh`` (``mma.sync``). Both
+backwards run one body
 (``csrc/xl_bwd.cuh``: wgmma on TMA tiles, the strip loaded by TMA, dQ and
 dP added by TMA reductions) between two passes of their own, in
 ``csrc/xl_attention_bwd.cu``, where the JAX wrappers run XLA code:
@@ -211,8 +214,15 @@ def _check(what, q, k, v, bias_u, bias_v, p, num_heads):
                  for x in (bias_u, bias_v))
 
 
+# planted faults of the heads-in-lanes XL forward (csrc/xl_fwd.cuh: XfFault), for
+# the kernel check only
+XF_FAULTS = {"clamp_strip": 1, "stale_tile": 2, "skew": 3, "round_u": 4}
+
+
 def _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths,
-                    with_lse: bool):
+                    with_lse: bool, fault: int = 0):
+    """The launch of row 12 (``with_lse``) or row 2; ``fault`` plants one of
+    ``XF_FAULTS``: 0 on every real path."""
     what = "flash_xl_attention_nhd_lse" if with_lse else "flash_xl_attention_nhd"
     bu, bv = _check(what, q, k, v, bias_u, bias_v, p, num_heads)
     b, t, c = q.shape
@@ -225,8 +235,8 @@ def _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths
         ptrs.append(lse.data_ptr())
     symbol = "t4s_xl_nhd_fwd_lse" if with_lse else "t4s_xl_nhd_fwd"
     with torch.cuda.device(q.device):
-        status = _build.function("xl_attention", symbol, len(ptrs), 10)(
-            *ptrs, b, t, num_heads, c // num_heads,
+        status = _build.function("xl_attention", symbol, len(ptrs), 10, n_ints=5)(
+            *ptrs, b, t, num_heads, c // num_heads, fault,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             p.stride(0), p.stride(1), out.stride(0), out.stride(1),
             float(sm_scale), torch.cuda.current_stream().cuda_stream,

@@ -45,6 +45,7 @@ from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 _LATER = "is not ported yet: ROADMAP.md, queue 1, item 12 (head and decoder options)"
+_LORA = "is not ported yet: ROADMAP.md, queue 1, item 8 (PMAM remainder and LoRA)"
 
 
 class PaSST_SED(nn.Module):
@@ -74,10 +75,15 @@ class PaSST_SED(nn.Module):
         backbone_img_size: Tuple[int, int] = (128, 998),
         decoder_num_heads: int = 12,
         at_adapter_heads: int = 12,
+        lora_rank: int = 0,
+        lora_alpha: float = 1.0,
         dtype=torch.float32,
         device=None,
     ):
         super().__init__()
+        # lora_alpha scales the LoRA branch, which exists only with a rank
+        if lora_rank:
+            raise NotImplementedError(f"lora_rank={lora_rank!r} {_LORA}")
         if f_pool not in ("mean_pool", "attention"):
             raise NotImplementedError(f"f_pool={f_pool!r} {_LATER}")
         if decoder != "transformerXL":
