@@ -21,13 +21,14 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
      backwards; check the build: no kernel of the flash family, of the
-     heads-in-lanes XL forward or of the XL backward spills (rows 1 to 8, 11
-     to 13 and 16), the flash forward's (rows 1, 3, 4, 5, 7, 16), the
-     heads-in-lanes XL forward's (rows 2, 12) and the flash and XL
-     backwards' SASS hold HGMMA and UTMALDG and no HMMA, row 4's LDGSTS (its
-     bias by cp.async), the backwards' UTMAREDG and no atomic (``cuobjdump``
-     of the built libraries, fresh or cached); the head-major XL forward's
-     (rows 9, 10, still on ``mma.sync``) is logged;
+     heads-in-lanes XL forward, of the XL backward or of the Swin window
+     attention spills (rows 1 to 8, 11 to 16), the flash forward's (rows 1,
+     3, 4, 5, 7, 16), the heads-in-lanes XL forward's (rows 2, 12), the
+     window forward's (row 14) and the flash, XL and window backwards' SASS
+     hold HGMMA and UTMALDG and no HMMA, row 4's LDGSTS (its bias by
+     cp.async), the backwards' UTMAREDG and no atomic (``cuobjdump`` of the
+     built libraries, fresh or cached); the head-major XL forward's (rows 9,
+     10, still on ``mma.sync``) is logged;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and on small ragged and banded cases (rows 1 and 8
      also at finetune2's window length N = 602, rows 1 and 7 at a negative
@@ -44,10 +45,14 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      last key tile's dQ partial left out, the strip pieces' start clamped at
      P row 0, the last step's dP carry never added); the Swin window forward
      and backward at HTSAT-tiny's four
-     stage shapes at B=64, shifted and unshifted, with four more planted
-     faults (head 0's bias for every head, window 0's shift mask for every
-     window, head-dim lanes 24..31 read from the next head, a dbias that
-     misses the last window); the head-major XL forward, LSE forward and
+     stage shapes at B=64, shifted and unshifted, and at two and one heads
+     (the layout's heads a rank under tensor parallelism; one head also over
+     stage 0's 4096 windows, past the wrap of the kernels' rings), with six more
+     planted faults (head 0's bias for every head, window 0's shift mask for
+     every window, head-dim lanes 24..31 read from the next head, a dbias
+     that misses the last window, K read from the slot of the group's other
+     head, the last chunk's dbias and dshift reductions skipped); the
+     head-major XL forward, LSE forward and
      backward at PMAM's decoder shapes ([8, 12, 1000, 32] and [18, 12, 1000,
      32], strided views of [B, T, 3*384] projections), on ragged and banded
      cases, at head dim 64 and once at [2, 12, 3000, 64], with eight more
@@ -171,7 +176,10 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
  23. finetune2 train parity: both steps, 2 steps at B=3 with windows of 512
      at a step of 490 (two width groups), CPU f32 against card bf16, held as
      in phase 6;
-then, inside phases 7 and 8, the window, head-major XL, head-major flash,
+then, inside phases 7 and 8, the window kernels at the four stages (device
+and host times, and their sums over an HTSAT_CNN step beside the bound),
+the head-major XL,
+head-major flash,
 biased and variant flash kernels' times beside their bounds and plain versions
 (and SDPA for the window and flash kernels, with the bias as a float mask for
 row 4), rows 1, 7 and 8 at the window shape beside SDPA's forward and
@@ -289,9 +297,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """ms a call of ``fn`` over ``iters`` back-to-back calls, by CUDA events:
+    the host's time and the device's, whichever is longer. ``queued``: the
+    device's alone (``queued_ms``)."""
     import torch
 
+    if queued:
+        return queued_ms(fn, iters, warmup)[0]
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -302,6 +315,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, host ms) a call of ``fn``: ``iters`` calls enqueued behind
+    a 20 ms GPU sleep, so that the CUDA events around them time the device
+    alone, not the host's enqueueing of calls whose device time is shorter
+    than their host time (the window kernels past stage 0); the host's
+    time, by its clock over the enqueueing, is what each call costs the
+    host: its checks, tensor maps and launch."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3.5e7))  # about 20 ms at the H100's 1.98 GHz boost clock
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host
 
 
 def held(what, out, ref, abs_term):
@@ -850,11 +887,21 @@ def check_train_kernels(results, rejected):
 # batch of 64: 64 * nW * H = 16384, 8192, 4096 and 2048 (window, head) pairs
 HTSAT_STAGES = ((4, 64), (8, 16), (16, 4), (32, 1))
 HTSAT_BATCH = 64
-# dbias and dshift are f32 sums of the f32 dS over n_terms windows, added in an
-# order that changes from run to run (atomics): |sum - ref| <= 2^-24 * (n_terms
+# dbias and dshift are f32 sums of the f32 dS over n_terms windows: each
+# block's over its windows in registers, the blocks' added by TMA reductions
+# in an order that changes from run to run: |sum - ref| <= 2^-24 * (n_terms
 # + F32_TERM) * sum |dS|, the worst case of an f32 sum (Higham) plus F32_TERM
 # ulps for each term's own f32 error (24- and 64-term dots, exp2 for exp)
 F32_TERM = 512
+# the Swin blocks an HTSAT_CNN step runs at each stage, (unshifted, shifted):
+# depths (2, 2, 6, 2), every second block shifted where the stage has more
+# than one window (stage 3 has one)
+HTSAT_STAGE_BLOCKS = ((1, 1), (1, 1), (3, 3), (2, 0))
+# (H, nW, B, shifted): the heads a rank under tensor parallelism (HTSAT stage
+# 0 at tp2, and one head: the kernels' G = 1 walk), at B=3, three windows a
+# position, an odd count; and one head over stage 0's 4096 windows unshifted:
+# odd counts of 31 windows a block, 16 steps, past the wrap of either ring
+WINDOW_FEW_HEADS = ((2, 64, 3, True), (1, 64, 3, True), (1, 64, 64, False))
 
 
 def window_inputs(b, h, nw, shifted, seed):
@@ -941,14 +988,19 @@ def window_bwd_held(what, grads, refs, terms, n_windows_total, heads, nw):
 
 def check_window_kernels(results, rejected):
     """Rows 14 and 15 against their plain versions in f32 on the same bf16
-    inputs, at the four HTSAT stage shapes at B=64, shifted and unshifted
-    (the backward fed the kernel forward's own output); then four planted
+    inputs, at the four HTSAT stage shapes at B=64, shifted and unshifted,
+    and at stage 0's windows with two heads and with one (WINDOW_FEW_HEADS;
+    the backward fed the kernel forward's own output); then six planted
     faults: head 0's bias for every head, window 0's shift mask for every
-    window, head-dim lanes 24..31 read from the neighbouring head, and a
-    dbias that misses the last window."""
+    window, head-dim lanes 24..31 read from the neighbouring head, a dbias
+    that misses the last window, K read from the slot of the group's other
+    head (csrc/window.cuh: WA_FAULT_SLOT, forward and backward), and the
+    last chunk's dbias and dshift reductions skipped (WA_FAULT_SKIP_REDUCE,
+    at stage 2 shifted: four chunks; dbias and dshift each held)."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.window_attention import (
+        WA_FAULTS,
         window_attention,
         window_attention_backward,
         window_attention_backward_plain,
@@ -957,55 +1009,74 @@ def check_window_kernels(results, rejected):
 
     scale = 24 ** -0.5
     worst_fwd = worst_bwd = 0.0
-    for stage, (h, nw) in enumerate(HTSAT_STAGES):
-        for shifted in (False, True):
-            tag = f"stage {stage} B={HTSAT_BATCH} nW={nw} H={h} {'shifted' if shifted else 'plain'}"
-            qkv, q, k, v, bias, mask = window_inputs(HTSAT_BATCH, h, nw, shifted, seed=10 * stage)
-            bnw = q.shape[0]
-            qf, kf, vf = q.float(), k.float(), v.float()
-            ref = window_attention_plain(qf, kf, vf, bias, mask, nw, scale)
-            ref_abs_v = window_attention_plain(qf, kf, vf.abs(), bias, mask, nw, scale)
-            out = window_attention(q, k, v, bias, mask, nw, scale)
-            ok, mx = held(f"kernel window_attention {tag}", out, ref, ref_abs_v)
-            check(ok, "window_attention disagrees with its plain version")
-            worst_fwd = max(worst_fwd, mx)
-            if stage == 0 and shifted:
-                bad = window_attention(q, k, v, bias[:1].expand(h, -1, -1).contiguous(), mask, nw,
-                                       scale)
-                rejected.append(held("planted fault: head 0's bias for every head", bad, ref,
-                                     ref_abs_v)[0])
-                bad = window_attention(q, k, v, bias, mask[:1].expand(nw, -1, -1).contiguous(),
-                                       nw, scale)
-                rejected.append(held("planted fault: window 0's shift mask for every window", bad,
-                                     ref, ref_abs_v)[0])
-                # a kernel that padded the head dim to 32 by reading on: 32-lane
-                # q and k slices of the qkv row, lanes 24..31 the next head's
-                rows = qkv.reshape(bnw, 64, 3 * h * 24).float()
-                c = h * 24
-                q32 = torch.stack([rows[..., i * 24:i * 24 + 32] for i in range(h)], 2)
-                k32 = torch.stack([rows[..., c + i * 24:c + i * 24 + 32] for i in range(h)], 2)
-                bad = window_attention_plain(q32, k32, vf, bias, mask, nw, scale)
-                rejected.append(held("planted fault: lanes 24..31 read from the next head",
-                                     bad.to(torch.bfloat16), ref, ref_abs_v)[0])
-                del rows, q32, k32, bad
-            del ref, ref_abs_v
+    cases = [(stage, h, nw, HTSAT_BATCH, shifted, 10 * stage)
+             for stage, (h, nw) in enumerate(HTSAT_STAGES) for shifted in (False, True)]
+    cases += [(0, h, nw, b, shifted, 100 + 10 * h + b)
+              for h, nw, b, shifted in WINDOW_FEW_HEADS]
+    for stage, h, nw, b, shifted, seed in cases:
+        tag = f"stage {stage} B={b} nW={nw} H={h} {'shifted' if shifted else 'plain'}"
+        qkv, q, k, v, bias, mask = window_inputs(b, h, nw, shifted, seed=seed)
+        bnw = q.shape[0]
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = window_attention_plain(qf, kf, vf, bias, mask, nw, scale)
+        ref_abs_v = window_attention_plain(qf, kf, vf.abs(), bias, mask, nw, scale)
+        out = window_attention(q, k, v, bias, mask, nw, scale)
+        ok, mx = held(f"kernel window_attention {tag}", out, ref, ref_abs_v)
+        check(ok, "window_attention disagrees with its plain version")
+        worst_fwd = max(worst_fwd, mx)
+        if stage == 0 and shifted and h == HTSAT_STAGES[0][0]:
+            bad = window_attention(q, k, v, bias, mask, nw, scale, fault=WA_FAULTS["slot"])
+            rejected.append(held("planted fault: K read from the group's other head's slot",
+                                 bad, ref, ref_abs_v)[0])
+            bad = window_attention(q, k, v, bias[:1].expand(h, -1, -1).contiguous(), mask, nw,
+                                   scale)
+            rejected.append(held("planted fault: head 0's bias for every head", bad, ref,
+                                 ref_abs_v)[0])
+            bad = window_attention(q, k, v, bias, mask[:1].expand(nw, -1, -1).contiguous(),
+                                   nw, scale)
+            rejected.append(held("planted fault: window 0's shift mask for every window", bad,
+                                 ref, ref_abs_v)[0])
+            # a kernel that padded the head dim to 32 by reading on: 32-lane
+            # q and k slices of the qkv row, lanes 24..31 the next head's
+            rows = qkv.reshape(bnw, 64, 3 * h * 24).float()
+            c = h * 24
+            q32 = torch.stack([rows[..., i * 24:i * 24 + 32] for i in range(h)], 2)
+            k32 = torch.stack([rows[..., c + i * 24:c + i * 24 + 32] for i in range(h)], 2)
+            bad = window_attention_plain(q32, k32, vf, bias, mask, nw, scale)
+            rejected.append(held("planted fault: lanes 24..31 read from the next head",
+                                 bad.to(torch.bfloat16), ref, ref_abs_v)[0])
+            del rows, q32, k32, bad
+        del ref, ref_abs_v
 
-            g = grad_output(tuple(q.shape), seed=10 * stage + 1)
-            refs = window_attention_backward_plain(qf, kf, vf, out.float(), g.float(), bias, mask,
-                                                   nw, scale)
-            terms = window_bwd_terms(q, k, v, out, g, bias, mask, nw, scale)
-            grads = window_attention_backward(q, k, v, out, g, bias, mask, nw, scale)
-            ok, mx = window_bwd_held(f"kernel window_attention_backward {tag}", grads, refs, terms,
-                                     bnw, h, nw)
-            check(ok, "window_attention_backward disagrees with its plain version")
-            worst_bwd = max(worst_bwd, mx)
-            if stage == 3 and not shifted:
-                bad = window_attention_backward(q[:-1], k[:-1], v[:-1], out[:-1], g[:-1], bias,
-                                                None, 1, scale)
-                rejected.append(f32_held("planted fault: dbias misses the last window", bad[3],
-                                         refs[3], terms[3], bnw)[0])
-            del refs, terms, grads, qf, kf, vf
-            torch.cuda.empty_cache()
+        g = grad_output(tuple(q.shape), seed=seed + 1)
+        refs = window_attention_backward_plain(qf, kf, vf, out.float(), g.float(), bias, mask,
+                                               nw, scale)
+        terms = window_bwd_terms(q, k, v, out, g, bias, mask, nw, scale)
+        grads = window_attention_backward(q, k, v, out, g, bias, mask, nw, scale)
+        ok, mx = window_bwd_held(f"kernel window_attention_backward {tag}", grads, refs, terms,
+                                 bnw, h, nw)
+        check(ok, "window_attention_backward disagrees with its plain version")
+        worst_bwd = max(worst_bwd, mx)
+        if stage == 0 and shifted and h == HTSAT_STAGES[0][0]:
+            bad = window_attention_backward(q, k, v, out, g, bias, mask, nw, scale,
+                                            fault=WA_FAULTS["slot"])
+            rejected.append(window_bwd_held(
+                "planted fault: K read from the group's other head's slot", bad, refs, terms,
+                bnw, h, nw)[0])
+        if stage == 3 and not shifted:
+            bad = window_attention_backward(q[:-1], k[:-1], v[:-1], out[:-1], g[:-1], bias,
+                                            None, 1, scale)
+            rejected.append(f32_held("planted fault: dbias misses the last window", bad[3],
+                                     refs[3], terms[3], bnw)[0])
+        if stage == 2 and shifted:
+            bad = window_attention_backward(q, k, v, out, g, bias, mask, nw, scale,
+                                            fault=WA_FAULTS["skip_reduce"])
+            what = "planted fault: the last chunk's dbias and dshift reductions skipped"
+            rejected.append(f32_held(f"{what}: dbias", bad[3], refs[3], terms[3], bnw)[0])
+            rejected.append(f32_held(f"{what}: dshift", bad[4], refs[4], terms[4],
+                                     h * bnw // nw)[0])
+        del refs, terms, grads, qf, kf, vf
+        torch.cuda.empty_cache()
     results["window_attention"]["max_abs_err"] = worst_fwd
     results["window_attention_backward"]["max_abs_err"] = worst_bwd
 
@@ -2776,13 +2847,19 @@ def time_train_kernels(results):
 
 
 def time_window_kernels(results):
-    """Rows 14 and 15 at the stage-0 and stage-3 shapes at B=64, each
-    wrapper as the autograd Function calls it (the backward with its zeroed
-    dbias / dshift); the plain versions; and SDPA on the same
-    [B*nW, H, 64, 24] problem with bias and shift mask folded into one
-    ``attn_mask``, forward and backward through autograd (dq, dk, dv only:
-    it has no reduced bias gradient). The record keeps the stage-0 shifted
-    shape, the main path's costliest."""
+    """Rows 14 and 15 at the four HTSAT stage shapes at B=64, unshifted and,
+    where the stage shifts, shifted, each wrapper as the autograd Function
+    calls it (the backward with its zeroed dbias / dshift); the plain
+    versions; and SDPA on the same [B*nW, H, 64, 24] problem with bias and
+    shift mask folded into one ``attn_mask``, forward and backward through
+    autograd (dq, dk, dv only: it has no reduced bias gradient). Device
+    times (``queued_ms``): past stage 0 a launch takes the host longer than
+    the card. Each wrapper's host time a call is logged beside them, and
+    its time by back-to-back events as the other rows are timed (the host's
+    and the card's, whichever is longer). Then every time and bound summed
+    over an HTSAT_CNN step's launches (HTSAT_STAGE_BLOCKS: 12 of each
+    kernel). The record keeps the stage-0 shifted shape, the step's
+    costliest launch."""
     import torch
     import torch.nn.functional as F
 
@@ -2794,45 +2871,67 @@ def time_window_kernels(results):
     )
 
     scale = 24 ** -0.5
-    for stage, shifted in ((0, True), (0, False), (3, False)):
-        h, nw = HTSAT_STAGES[stage]
-        _, q, k, v, bias, mask = window_inputs(HTSAT_BATCH, h, nw, shifted, seed=stage)
-        bnw = q.shape[0]
-        g = grad_output(tuple(q.shape), seed=stage + 1)
-        fwd = {"ms": cuda_ms(lambda: window_attention(q, k, v, bias, mask, nw, scale)),
-               "plain_ms": cuda_ms(lambda: window_attention_plain(q, k, v, bias, mask, nw, scale),
-                                   iters=5)}
-        out = window_attention(q, k, v, bias, mask, nw, scale)
-        bwd = {"ms": cuda_ms(lambda: window_attention_backward(q, k, v, out, g, bias, mask, nw,
-                                                               scale)),
-               "plain_ms": cuda_ms(lambda: window_attention_backward_plain(
-                   q, k, v, out, g, bias, mask, nw, scale), iters=3)}
-        heads = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731  [B*nW, H, 64, 24] views
-        am = bias[None].expand(bnw, -1, -1, -1)
-        if mask is not None:
-            am = am + mask[torch.arange(bnw, device="cuda") % nw][:, None]
-        am = am.to(torch.bfloat16).contiguous()
-        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), attn_mask=am, scale=scale))
-        qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am, scale=scale)
-        bwd["library_ms"] = cuda_ms(
-            lambda: torch.autograd.grad(sdpa, (qh, kh, vh), heads(g), retain_graph=True))
-        pairs, side = bnw * h, (h + (nw if shifted else 0)) * 64 * 64 * 4
-        # two products of 2 * 64 * 64 * 24; q, k, v in, o out, bias and shift in
-        bound(fwd, 2 * 2.0 * 64 * 64 * 24 * pairs, 4.0 * pairs * 64 * 24 * 2 + side)
-        # five products (S, G V^T, dV, dQ, dK); q, k, v, o, g in, dq, dk, dv out,
-        # bias and shift in, dbias and dshift out
-        bound(bwd, 5 * 2.0 * 64 * 64 * 24 * pairs, 8.0 * pairs * 64 * 24 * 2 + 2 * side)
-        tag = f"stage {stage} B={HTSAT_BATCH} nW={nw} H={h} {'shifted' if shifted else 'plain'}"
-        for name, r in (("window_attention", fwd), ("window_attention_backward", bwd)):
-            log(f"time {name} {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, SDPA "
-                f"{r['library_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-                f"({r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB)")
-            if stage == 0 and shifted:
-                results[name].update(r)
-        del out, sdpa, qh, kh, vh, am
-        torch.cuda.empty_cache()
+    keys = ("ms", "host_ms", "event_ms", "plain_ms", "library_ms", "bound_ms")
+    step = {name: dict.fromkeys(keys, 0.0)
+            for name in ("window_attention", "window_attention_backward")}
+    for stage, (h, nw) in enumerate(HTSAT_STAGES):
+        for shifted, blocks in zip((False, True), HTSAT_STAGE_BLOCKS[stage]):
+            if not blocks:
+                continue
+            _, q, k, v, bias, mask = window_inputs(HTSAT_BATCH, h, nw, shifted, seed=stage)
+            bnw = q.shape[0]
+            g = grad_output(tuple(q.shape), seed=stage + 1)
+            out = window_attention(q, k, v, bias, mask, nw, scale)
+            fwd, bwd = {}, {}
+            for r, fn in ((fwd, lambda: window_attention(q, k, v, bias, mask, nw, scale)),
+                          (bwd, lambda: window_attention_backward(q, k, v, out, g, bias, mask,
+                                                                  nw, scale))):
+                r["ms"], r["host_ms"] = queued_ms(fn)
+                r["event_ms"] = cuda_ms(fn)
+            fwd["plain_ms"] = cuda_ms(
+                lambda: window_attention_plain(q, k, v, bias, mask, nw, scale), iters=5,
+                queued=True)
+            bwd["plain_ms"] = cuda_ms(lambda: window_attention_backward_plain(
+                q, k, v, out, g, bias, mask, nw, scale), iters=3, queued=True)
+            heads = lambda x: x.permute(0, 2, 1, 3)  # noqa: E731  [B*nW, H, 64, 24] views
+            am = bias[None].expand(bnw, -1, -1, -1)
+            if mask is not None:
+                am = am + mask[torch.arange(bnw, device="cuda") % nw][:, None]
+            am = am.to(torch.bfloat16).contiguous()
+            fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), attn_mask=am, scale=scale), queued=True)
+            qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am, scale=scale)
+            bwd["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(sdpa, (qh, kh, vh), heads(g), retain_graph=True),
+                queued=True)
+            pairs, side = bnw * h, (h + (nw if shifted else 0)) * 64 * 64 * 4
+            # two products of 2 * 64 * 64 * 24; q, k, v in, o out, bias and shift in
+            bound(fwd, 2 * 2.0 * 64 * 64 * 24 * pairs, 4.0 * pairs * 64 * 24 * 2 + side)
+            # five products (S, G V^T, dV, dQ, dK); q, k, v, o, g in, dq, dk, dv out,
+            # bias and shift in, dbias and dshift out
+            bound(bwd, 5 * 2.0 * 64 * 64 * 24 * pairs, 8.0 * pairs * 64 * 24 * 2 + 2 * side)
+            tag = (f"stage {stage} B={HTSAT_BATCH} nW={nw} H={h} "
+                   f"{'shifted' if shifted else 'plain'}")
+            for name, r in (("window_attention", fwd), ("window_attention_backward", bwd)):
+                log(f"time {name} {tag}: {r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms "
+                    f"of host a call, {r['event_ms']:.4f} ms back to back (plain "
+                    f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms), bound "
+                    f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP, "
+                    f"{r['bytes'] / 1e6:.1f} MB), {blocks} a step")
+                for key in keys:
+                    step[name][key] += blocks * r[key]
+                if stage == 0 and shifted:
+                    results[name].update(r)
+            del out, sdpa, qh, kh, vh, am
+            torch.cuda.empty_cache()
+    launches = sum(map(sum, HTSAT_STAGE_BLOCKS))
+    for name, r in step.items():
+        log(f"time {name} summed over an HTSAT_CNN step's {launches} launches (B={HTSAT_BATCH}): "
+            f"{r['ms']:.4f} ms on the device, {r['host_ms']:.4f} ms of host, "
+            f"{r['event_ms']:.4f} ms back to back (plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms, "
+            f"{r['ms'] / r['bound_ms']:.2f}x the bound")
 
 
 def time_hm_kernels(results):
@@ -3322,16 +3421,19 @@ def sass_opcodes(path):
 
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
-    no kernel of the flash family or of the heads-in-lanes XL forward or the
-    XL backward spills (no stack frame, no local memory and no LDL or STL in
-    the SASS); the flash forward's kernels (rows 1, 3, 4, 5, 7, 16) and the
-    heads-in-lanes XL forward's (rows 2, 12) run warpgroup products (HGMMA)
-    on TMA loads (UTMALDG) and no ``mma.sync`` (HMMA), row 4's with the bias
-    copied by cp.async (LDGSTS); the flash and XL backwards' main kernels
+    no kernel of the flash family, the heads-in-lanes XL forward, the XL
+    backward or the window attention spills (no stack frame, no local
+    memory and no LDL or STL in the SASS); the flash forward's kernels
+    (rows 1, 3, 4, 5, 7, 16) and the heads-in-lanes XL forward's (rows 2,
+    12) run warpgroup products (HGMMA) on TMA loads (UTMALDG) and no
+    ``mma.sync`` (HMMA), row 4's with the bias copied by cp.async (LDGSTS);
+    the flash and XL backwards' main kernels
     (rows 6, 8, 11, 13) run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ,
     and dP in XL) and no atomic. The head-major XL forward's (rows 9, 10) is
     only logged: it still runs ``csrc/xl.cuh``'s ``mma.sync`` body (HMMA)
-    until its redesign (ROADMAP.md, queue 2)."""
+    until its redesign (ROADMAP.md, queue 2). The Swin window forward and
+    backward (rows 14, 15) are held as the flash family: no spill, HGMMA on
+    TMA loads, no HMMA, and the backward's sums by UTMAREDG, no atomic."""
     usage, sass = resource_usage(paths["xl_attention_hm"]), sass_opcodes(paths["xl_attention_hm"])
     for sym, (regs, stack, local) in usage.items():
         ops = sass.get(sym, collections.Counter())
@@ -3339,7 +3441,7 @@ def check_build(paths):
             f"{stack} B, local {local} B, HMMA {ops['HMMA']}, HGMMA {ops['HGMMA']}")
     for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
                  "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants",
-                 "xl_attention", "xl_attention_bwd"):
+                 "xl_attention", "xl_attention_bwd", "window_attention", "window_attention_bwd"):
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
         check(usage and usage.keys() == sass.keys(),
               f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
@@ -3350,6 +3452,8 @@ def check_build(paths):
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
         kernel = ("xl_fwd_kernel" if name == "xl_attention" else
+                  "window_fwd_kernel" if name == "window_attention" else
+                  "window_bwd_kernel" if name == "window_attention_bwd" else
                   "xl_bwd_kernel" if name.startswith("xl") else
                   "flash_bwd_kernel" if name.endswith("_bwd") else "flash_fwd_kernel")
         main = [sym for sym in sass if kernel in sym]
@@ -3357,6 +3461,7 @@ def check_build(paths):
         for sym in main:
             ops = sass[sym]
             shown = {op: ops[op] for op in ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "UTMAREDG",
+                                            "UTMASTG",
                                             "LDGSTS", "RED", "REDG", "ATOM", "ATOMG", "STS",
                                             "STSM", "BAR", "MUFU")}
             log(f"  {name} SASS of {sym}: {shown}")
@@ -3367,8 +3472,8 @@ def check_build(paths):
             if kernel.endswith("bwd_kernel"):
                 check(ops["UTMAREDG"] > 0, f"{name}: the backward's SASS lacks UTMAREDG")
                 check(not any(ops[op] for op in ("RED", "REDG", "ATOM", "ATOMG")),
-                      f"{name}: an atomic in the backward's SASS (dQ and dP go by TMA "
-                      "reductions)")
+                      f"{name}: an atomic in the backward's SASS (dQ, dP, dbias and dshift go "
+                      "by TMA reductions)")
 
 
 def main(argv=None) -> int:

@@ -158,14 +158,18 @@ def test_kernel_sources_name_their_tpu_kernels():
     for name, tpu_fns in (("xl_fwd", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),):
         src = (_build.CSRC_DIR / f"{name}.cuh").read_text()
         assert all(f in src for f in tpu_fns) and "What bounds it" in src
-    # xl.cuh's mma.sync body serves only the head-major forwards (rows 9 and 10)
+    # xl.cuh's mma.sync body serves only the head-major forwards (rows 9 and 10),
+    # and it is the last body with mma.sync products
     users = {p.stem for p in _build.CSRC_DIR.glob("*.cu") if '"xl.cuh"' in p.read_text()}
     assert users == {"xl_attention_hm"}
+    mma_sync = {p.name for p in _build.CSRC_DIR.glob("*.cu*") if "mma_16816(" in p.read_text()}
+    assert mma_sync == {"mma.cuh", "xl.cuh"}
 
 
 @pytest.mark.parametrize("header,enum,table,name", [
     ("xl_fwd", "XfFault", "XF_FAULTS", name) for name in port_xl.XF_FAULTS] + [
-    ("xl_bwd", "XbFault", "XB_FAULTS", name) for name in port_xl.XB_FAULTS])
+    ("xl_bwd", "XbFault", "XB_FAULTS", name) for name in port_xl.XB_FAULTS] + [
+    ("window", "WaFault", "WA_FAULTS", name) for name in port_window.WA_FAULTS])
 def test_planted_fault_numbers_match_the_kernel_enums(header, enum, table, name):
     """The number a wrapper passes for each planted fault is that fault's
     value in the device body's enum, so ``chip_smoke.py`` plants the fault it
@@ -175,7 +179,8 @@ def test_planted_fault_numbers_match_the_kernel_enums(header, enum, table, name)
     members = [m.split("=")[0].strip() for m in body.split(",")]
     prefix = enum[:2].upper() + "_FAULT_"
     assert members[0] == prefix + "NONE" and "= 0" in body.split(",")[0]
-    assert members.index(prefix + name.upper()) == getattr(port_xl, table)[name]
+    module = port_window if table == "WA_FAULTS" else port_xl
+    assert members.index(prefix + name.upper()) == getattr(module, table)[name]
 
 
 def test_cuda_operand_checks_reject_what_the_kernels_do_not_take():
@@ -608,6 +613,11 @@ WINDOW_CASES = [
     (8, 64, 4, 24, 4, False),  # the card's window and head dim, plain
     (8, 64, 4, 24, 4, True),   # shifted windows, two images
     (6, 16, 2, 8, 1, False),   # the tiny test model's shapes
+    # the heads of a rank under tensor parallelism at stage 0 (two of four,
+    # one) over three images, an odd count of windows a position, and an
+    # odd head count: the kernels' walks over two heads and over one
+    (12, 64, 2, 24, 4, True), (12, 64, 1, 24, 4, True), (12, 64, 1, 24, 1, False),
+    (8, 64, 3, 24, 4, True),
 ]
 
 

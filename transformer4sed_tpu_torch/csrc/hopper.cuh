@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the flash attention forward
-// (flash_fwd.cuh), the heads-in-lanes XL forward (xl_fwd.cuh) and the flash
-// and XL backwards (flash_bwd.cuh, xl_bwd.cuh):
+// (flash_fwd.cuh), the heads-in-lanes XL forward (xl_fwd.cuh), the flash
+// and XL backwards (flash_bwd.cuh, xl_bwd.cuh) and the Swin window
+// attention (window.cuh):
 // warpgroup products (wgmma), their shared-memory descriptors, mbarriers,
 // named barriers, TMA tile copies and reductions, bulk copies, cp.async copies
 // that land on an mbarrier, and on the host the tensor maps those copies
-// read. The mma.sync kernels (xl.cuh, window.cuh) do not include it.
+// read. The mma.sync kernels (xl.cuh) do not include it.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate), issued by one warpgroup of four
 // warps. Accumulator layout, with w the warp in the group, g = lane / 4 and
@@ -19,7 +20,9 @@
 // of 8 rows (SBO) and the swizzle. Read "K-major" (the reduction dim along
 // the row: trans 0) a k16 step is 32 bytes further along the row; read
 // "MN-major" (the row is the M or N dim: trans 1) a k16 step is 16 rows
-// further down.
+// further down. Without a swizzle (desc_ns) an operand is a grid of core
+// matrices of 8 rows by 16 bytes, each 128 contiguous bytes, with strides of
+// their own along K (leading offset) and along M or N (stride offset).
 #pragma once
 
 #include <cuda.h>
@@ -98,6 +101,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 3-D tensor map at coordinates (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16) contiguous bytes from 16-byte aligned global memory.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
@@ -142,6 +155,17 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const 
       : "memory");
 }
 
+// Write a shared-memory box to global memory at coordinates (c0, c1, c2) of
+// a 3-D tensor map, in one bulk group of the calling thread.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -169,6 +193,13 @@ constexpr uint64_t SWIZZLE_128B = 1, SWIZZLE_64B = 2;
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t sbo, uint64_t swizzle) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
+}
+
+// Descriptor of an operand without swizzle starting at `p`: `lbo` the byte
+// stride between core matrices along K, `sbo` along M or N.
+__device__ __forceinline__ uint64_t desc_ns(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -303,9 +334,9 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
 }
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16. wgmma_ss (N = 128, 64, 32,
-// 16): A and B from shared memory (descriptors; TA, TB: 1 = MN-major; at
-// N = 128, SA = -1 negates A); wgmma_rs (N = 128, 64, 32): A from registers,
-// B from shared memory. acc = 0 overwrites D.
+// 24, 16): A and B from shared memory (descriptors; TA, TB: 1 = MN-major; at
+// N = 128, SA = -1 negates A); wgmma_rs (N = 128, 64, 32, 24): A from
+// registers, B from shared memory. acc = 0 overwrites D.
 template <int TA, int TB, int SA = 1>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -428,6 +459,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[12], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[12], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 

@@ -91,11 +91,11 @@ def function(name: str, symbol: str, n_ptrs: int, n_strides: int, n_ints: int = 
              n_floats: int = 1):
     """ctypes binding of ``symbol`` in ``csrc/<name>.cu``, the attention
     launchers' C interface: ``n_ptrs`` pointers, ``n_ints`` ints (batch,
-    length, heads, head dim; the window kernels add the windows per image,
-    the flash backwards a planted fault's key tile, the flash forwards a
-    planted fault's switch, the XL kernels a planted fault), ``n_strides`` 64-bit
-    strides, ``n_floats`` floats (the softmax scale) and the stream; returns
-    cudaError_t. Bound once per process."""
+    length, heads, head dim; the window kernels add the windows per image
+    and a planted fault, the flash backwards a planted fault's key tile, the
+    flash forwards a planted fault's switch, the XL kernels a planted
+    fault), ``n_strides`` 64-bit strides, ``n_floats`` floats (the softmax
+    scale) and the stream; returns cudaError_t. Bound once per process."""
     key = (name, symbol)
     fn = _FNS.get(key)
     if fn is None:

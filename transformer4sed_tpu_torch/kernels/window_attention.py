@@ -7,12 +7,17 @@ backbone's attention, ``models/htsat.py:190-198``): per window and head
 
 with q/k/v ``[B*nW, n, H, d]`` (the lane slices of the qkv projection, read
 by stride), the relative-position bias ``[H, n, n]`` and the optional
-additive shifted-window mask ``[nW, n, n]`` (0 / -100). Two kernels:
+additive shifted-window mask ``[nW, n, n]`` (0 / -100). Two kernels, on one
+Hopper body (``csrc/window.cuh``):
 
   * ``csrc/window_attention.cu`` ``t4s_window_fwd`` for ``_window_forward``;
   * ``csrc/window_attention_bwd.cu`` ``t4s_window_bwd`` for
     ``_window_backward``: no log-sum-exp is saved, the scores are recomputed
     and delta comes from the saved output.
+
+Both take every operand by TMA and run work items of a window position and
+a group of heads over a slice of the images, planned in ``csrc/window.cuh``
+(``wa_plan``) from the card's SM count.
 
 :func:`swin_window_attention` dispatches like the JAX ``custom_vjp``: with
 autograd recording and an operand that requires grad it runs
@@ -32,6 +37,9 @@ from transformer4sed_tpu_torch.kernels import _build
 from transformer4sed_tpu_torch.kernels.flash_attention import check_cuda_operands, check_f32_rows
 
 WINDOW_TOKENS, HEAD_DIM = 64, 24  # what the CUDA kernels are built for
+# planted faults of the window kernels (csrc/window.cuh: WaFault), for the
+# kernel check only
+WA_FAULTS = {"slot": 1, "skip_reduce": 2}
 
 
 def _window_index(bnw: int, n_windows: int, device) -> torch.Tensor:
@@ -94,7 +102,8 @@ def window_attention_backward_plain(q, k, v, o, g, bias, shift_mask, n_windows: 
     return dq, dk, dv, dbias, dshift
 
 
-def _check_cuda_call(what: str, operands, bias, shift_mask, n_windows: int) -> Tuple[int, ...]:
+def _check_cuda_call(what: str, operands, bias, shift_mask, n_windows: int) -> None:
+    """Check a launch's operands."""
     q = operands[0]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
@@ -111,7 +120,6 @@ def _check_cuda_call(what: str, operands, bias, shift_mask, n_windows: int) -> T
     _check_windows(what, bnw, shift_mask, n_windows)
     if shift_mask is not None:
         check_f32_rows(what, shift_mask, (n_windows, n, n))
-    return bnw, n, h, d
 
 
 def _strides(*tensors):
@@ -122,19 +130,21 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def window_attention(q, k, v, bias, shift_mask, n_windows: int, sm_scale: float):
+def window_attention(q, k, v, bias, shift_mask, n_windows: int, sm_scale: float,
+                     fault: int = 0):
     """The forward alone: the kernel for CUDA tensors, the plain version for
     CPU tensors. ``n_windows`` is read only with a mask (without one every
-    window is alike)."""
+    window is alike). ``fault`` plants one of ``WA_FAULTS``: 0 on every
+    real path."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, shift_mask, n_windows, sm_scale)
     what = "window_attention"
-    bnw, n, h, d = _check_cuda_call(what, (q, k, v), bias, shift_mask, n_windows)
-    out = torch.empty((bnw, n, h, d), dtype=q.dtype, device=q.device)
+    _check_cuda_call(what, (q, k, v), bias, shift_mask, n_windows)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        status = _build.function("window_attention", "t4s_window_fwd", 6, 8, n_ints=5)(
+        status = _build.function("window_attention", "t4s_window_fwd", 6, 8, n_ints=6)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(shift_mask),
-            out.data_ptr(), bnw, n, h, d, n_windows if shift_mask is not None else 1,
+            out.data_ptr(), *q.shape, n_windows if shift_mask is not None else 1, fault,
             *_strides(q, k, v, out), sm_scale, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
@@ -142,27 +152,30 @@ def window_attention(q, k, v, bias, shift_mask, n_windows: int, sm_scale: float)
     return out
 
 
-def window_attention_backward(q, k, v, o, g, bias, shift_mask, n_windows: int, sm_scale: float):
+def window_attention_backward(q, k, v, o, g, bias, shift_mask, n_windows: int, sm_scale: float,
+                              fault: int = 0):
     """(dq, dk, dv, dbias, dshift-or-None) from the saved output: the backward
     kernel for CUDA tensors (bf16 dq, dk, dv; f32 dbias and dshift), its
-    plain version for CPU tensors (all float32)."""
+    plain version for CPU tensors (all float32). ``fault`` as for
+    :func:`window_attention`."""
     if q.device.type == "cpu":
         return window_attention_backward_plain(q, k, v, o, g, bias, shift_mask, n_windows,
                                                sm_scale)
     what = "window_attention_backward"
-    bnw, n, h, d = _check_cuda_call(what, (q, k, v, o, g), bias, shift_mask, n_windows)
-    dq, dk, dv = (torch.empty((bnw, n, h, d), dtype=x.dtype, device=q.device) for x in (q, k, v))
+    _check_cuda_call(what, (q, k, v, o, g), bias, shift_mask, n_windows)
+    _, n, h, _ = q.shape
+    dq, dk, dv = (torch.empty(q.shape, dtype=x.dtype, device=q.device) for x in (q, k, v))
     dbias = torch.zeros((h, n, n), dtype=torch.float32, device=q.device)
     dshift = None
     if shift_mask is not None:
         dshift = torch.zeros((n_windows, n, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        status = _build.function("window_attention_bwd", "t4s_window_bwd", 12, 10, n_ints=5)(
+        status = _build.function("window_attention_bwd", "t4s_window_bwd", 12, 10, n_ints=6)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
             bias.data_ptr(), _ptr(shift_mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), _ptr(dshift), bnw, n, h, d,
-            n_windows if shift_mask is not None else 1, *_strides(q, k, v, o, g), sm_scale,
-            torch.cuda.current_stream().cuda_stream,
+            dbias.data_ptr(), _ptr(dshift), *q.shape,
+            n_windows if shift_mask is not None else 1, fault, *_strides(q, k, v, o, g),
+            sm_scale, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
     window_attention_backward.launches += 1
