@@ -1137,11 +1137,16 @@ def check_hm_kernels(results, rejected):
     bound plus an f32-sum term; the backward also at [2, 12, 3000, 64]. Then
     eight planted faults: qv read for qu, k's head stride taken as its row
     stride, a band one key wider, dqu and dqv swapped, a dP that misses the
-    last batch, and XL_BWD_FAULTS; and the backward's passes at head dim 32."""
+    last batch, and XL_BWD_FAULTS; and the backward's passes at head dim 32.
+    The forward at d = 32 also with three planted faults of its body
+    (XL_FWD_FAULTS but round_u, which its mode refuses) and at a negative
+    and a zero scale."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.xl_attention import (
         XB_FAULTS,
+        XF_FAULTS,
+        _hm_forward_kernel,
         flash_xl_attention,
         flash_xl_attention_backward,
         flash_xl_attention_backward_reference,
@@ -1183,6 +1188,18 @@ def check_hm_kernels(results, rejected):
             out = flash_xl_attention(qu, qv, bad_k, v, p, scale)
             rejected.append(held("planted fault: k's head stride taken as its row stride", out,
                                  ref, ref_abs_v)[0])
+            for fault, what in XL_FWD_FAULTS[:3]:
+                out, _ = _hm_forward_kernel(qu, qv, k, v, p, scale, None, with_lse=False,
+                                            fault=XF_FAULTS[fault])
+                rejected.append(held(f"planted fault: {what} (head major, d={dd})", out, ref,
+                                     ref_abs_v)[0])
+            try:  # the biases are given: nothing to round
+                _hm_forward_kernel(qu, qv, k, v, p, scale, None, with_lse=False,
+                                   fault=XF_FAULTS["round_u"])
+                refused = False
+            except RuntimeError:
+                refused = True
+            check(refused, "the head-major forward took the round_u fault, which has no bias")
         if band == pmam_band:
             wider = tuple(w + 2 for w in band)
             out = flash_xl_attention(qu, qv, k, v, p, scale, wider)
@@ -1190,6 +1207,20 @@ def check_hm_kernels(results, rejected):
                                  ref_abs_v)[0])
         del ref, ref_abs_v, out
         torch.cuda.empty_cache()
+    # rows 9 and 10 take any scale the reference takes: negative and zero too
+    qu, qv, k, v, p = hm_inputs(2, 203, h, d, seed=204)
+    kf, vf, pf = k.float(), v.float(), p.float()
+    for scale in (-0.125, 0.0):
+        tag = f"B=2 H={h} T=203 d={d} scale={scale}"
+        ref, ref_lse = flash_xl_attention_lse_reference(qu, qv, kf, vf, pf, scale)
+        ref_abs_v = flash_xl_attention_reference(qu, qv, kf, vf.abs(), pf, scale)
+        out = flash_xl_attention(qu, qv, k, v, p, scale)
+        ok, _ = held(f"kernel flash_xl_attention {tag}", out, ref, ref_abs_v)
+        out, lse = flash_xl_attention_lse(qu, qv, k, v, p, scale)
+        ok_o, _ = held(f"kernel flash_xl_attention_lse {tag} out", out, ref, ref_abs_v)
+        ok_l, _ = lse_held(f"kernel flash_xl_attention_lse {tag}", lse, ref_lse)
+        check(ok and ok_o and ok_l, f"rows 9 and 10 disagree with their plain versions at "
+              f"scale {scale}")
 
     names = ("dqu", "dqv", "dk", "dv", "dP")
     cases = [
@@ -2939,7 +2970,10 @@ def time_hm_kernels(results):
     rows 10 and 11 at the trained B=18), operands as the dispatch hands them
     over (strided views), the backward as the autograd Function calls it
     (with delta, workspace zeroing and casts); their plain versions. No one
-    PyTorch call computes relative-position attention: no library time."""
+    PyTorch call computes relative-position attention: no library time.
+    Rows 9 and 10 are logged beside their bound with the ex2 floor: one
+    ex2 a score at the MUFU's 16 a clock an SM, at the card's highest SM
+    clock."""
     import torch
 
     from transformer4sed_tpu_torch.kernels.xl_attention import (
@@ -2962,6 +2996,7 @@ def time_hm_kernels(results):
     r["library_ms"] = None
     # content qu K^T, qv P^T at the T^2 needed offsets, A V; qu, qv, k, v, P in, o out
     bound(r, 6.0 * b * h * t * t * d, 5.0 * b * h * t * d * 2 + p_bytes)
+    ex2_floor("flash_xl_attention", r, b * h * t * t)
 
     b = PMAM_TRAIN_BATCH
     qu, qv, k, v, p = hm_inputs(b, t, h, d, seed=1)
@@ -2972,6 +3007,7 @@ def time_hm_kernels(results):
                             iters=3)
     r["library_ms"] = None
     bound(r, 6.0 * b * h * t * t * d, 5.0 * b * h * t * d * 2 + p_bytes + b * h * t * 4)
+    ex2_floor("flash_xl_attention_lse", r, b * h * t * t)
     o, lse = flash_xl_attention_lse(qu, qv, k, v, p, scale)
     r = results["flash_xl_attention_backward"]
     r["ms"] = cuda_ms(lambda: flash_xl_attention_backward(qu, qv, k, v, p, o, lse, do, scale))
@@ -2985,6 +3021,21 @@ def time_hm_kernels(results):
     time_xl_bwd_parts("flash_xl_attention_backward", k, v, p, o, lse, do, scale, qu=qu, qv=qv)
     del o, lse
     torch.cuda.empty_cache()
+
+
+def ex2_floor(name, r, scores):
+    """Log a kernel's time beside its bound and the MUFU's floor: one ex2 a
+    score, 16 a clock on each SM, at the highest SM clock nvidia-smi gives."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = scores / (sms * 16 * mhz * 1e6) * 1e3
+    log(f"time {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+        f"ex2 floor {floor:.4f} ms ({scores / 1e6:.0f} M scores, {sms} SMs x 16 a clock at "
+        f"{mhz:.0f} MHz)")
 
 
 def time_flash_hm_kernels(results):
@@ -3421,27 +3472,17 @@ def sass_opcodes(path):
 
 def check_build(paths):
     """From the built libraries, whether built by this process or before it:
-    no kernel of the flash family, the heads-in-lanes XL forward, the XL
-    backward or the window attention spills (no stack frame, no local
-    memory and no LDL or STL in the SASS); the flash forward's kernels
-    (rows 1, 3, 4, 5, 7, 16) and the heads-in-lanes XL forward's (rows 2,
-    12) run warpgroup products (HGMMA) on TMA loads (UTMALDG) and no
-    ``mma.sync`` (HMMA), row 4's with the bias copied by cp.async (LDGSTS);
-    the flash and XL backwards' main kernels
-    (rows 6, 8, 11, 13) run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ,
-    and dP in XL) and no atomic. The head-major XL forward's (rows 9, 10) is
-    only logged: it still runs ``csrc/xl.cuh``'s ``mma.sync`` body (HMMA)
-    until its redesign (ROADMAP.md, queue 2). The Swin window forward and
-    backward (rows 14, 15) are held as the flash family: no spill, HGMMA on
-    TMA loads, no HMMA, and the backward's sums by UTMAREDG, no atomic."""
-    usage, sass = resource_usage(paths["xl_attention_hm"]), sass_opcodes(paths["xl_attention_hm"])
-    for sym, (regs, stack, local) in usage.items():
-        ops = sass.get(sym, collections.Counter())
-        log(f"  xl_attention_hm {sym} (mma.sync body, HMMA allowed): {regs} registers, stack "
-            f"{stack} B, local {local} B, HMMA {ops['HMMA']}, HGMMA {ops['HGMMA']}")
-    for name in ("flash_attention", "flash_attention_hm", "flash_attention_bwd",
-                 "flash_attention_hm_bwd", "flash_attention_bias", "flash_variants",
-                 "xl_attention", "xl_attention_bwd", "window_attention", "window_attention_bwd"):
+    no kernel of the port spills (no stack frame, no local memory and no
+    LDL or STL in the SASS); the flash forward's kernels (rows 1, 3, 4, 5,
+    7, 16) and the XL forward's (rows 2, 12 heads in lanes, rows 9, 10 head
+    major: one body) run warpgroup products (HGMMA) on TMA loads (UTMALDG)
+    and no ``mma.sync`` (HMMA), row 4's with the bias copied by cp.async
+    (LDGSTS); the flash and XL backwards' main kernels (rows 6, 8, 11, 13)
+    run HGMMA, UTMALDG and TMA reductions (UTMAREDG: dQ, and dP in XL) and
+    no atomic. The Swin window forward and backward (rows 14, 15) are held
+    as the flash family: no spill, HGMMA on TMA loads, no HMMA, and the
+    backward's sums by UTMAREDG, no atomic."""
+    for name in paths:  # every source of the port
         usage, sass = resource_usage(paths[name]), sass_opcodes(paths[name])
         check(usage and usage.keys() == sass.keys(),
               f"{name}: cuobjdump names kernels {sorted(usage)} and SASS {sorted(sass)}")
@@ -3451,7 +3492,7 @@ def check_build(paths):
             log(f"  {name} {sym}: {regs} registers, stack {stack} B, local {local} B, "
                 f"LDL {ops['LDL']}, STL {ops['STL']}")
             check(not spilled, f"{name} {sym} spills")
-        kernel = ("xl_fwd_kernel" if name == "xl_attention" else
+        kernel = ("xl_fwd_kernel" if name in ("xl_attention", "xl_attention_hm") else
                   "window_fwd_kernel" if name == "window_attention" else
                   "window_bwd_kernel" if name == "window_attention_bwd" else
                   "xl_bwd_kernel" if name.startswith("xl") else

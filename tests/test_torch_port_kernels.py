@@ -155,15 +155,19 @@ def test_kernel_sources_name_their_tpu_kernels():
         assert all(f in src for f in tpu_fns) and "What bounds it" in src and 'extern "C"' in src
     assert set(_build.SOURCES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
     # the device bodies that the entry points share name the kernels they replace too
-    for name, tpu_fns in (("xl_fwd", ("_xl_nhd_forward", "_xl_nhd_forward_lse")),):
+    for name, tpu_fns in (("xl_fwd", ("_xl_nhd_forward", "_xl_nhd_forward_lse", "_xl_forward",
+                                      "_xl_forward_lse")),):
         src = (_build.CSRC_DIR / f"{name}.cuh").read_text()
         assert all(f in src for f in tpu_fns) and "What bounds it" in src
-    # xl.cuh's mma.sync body serves only the head-major forwards (rows 9 and 10),
-    # and it is the last body with mma.sync products
-    users = {p.stem for p in _build.CSRC_DIR.glob("*.cu") if '"xl.cuh"' in p.read_text()}
-    assert users == {"xl_attention_hm"}
-    mma_sync = {p.name for p in _build.CSRC_DIR.glob("*.cu*") if "mma_16816(" in p.read_text()}
-    assert mma_sync == {"mma.cuh", "xl.cuh"}
+    # the four XL forwards share xl_fwd.cuh: xl.cuh's mma.sync body is gone, and
+    # no body of the port holds an mma.sync product or its helpers
+    assert not (_build.CSRC_DIR / "xl.cuh").exists()
+    users = {p.stem for p in _build.CSRC_DIR.glob("*.cu*") if '"xl.cuh"' in p.read_text()}
+    assert users == set()
+    gone = ("mma_16816(", "mma.sync", "ld_b32", "load_rows")
+    mma_sync = {p.name for p in _build.CSRC_DIR.glob("*.cu*")
+                if any(w in p.read_text() for w in gone)}
+    assert mma_sync == set()
 
 
 @pytest.mark.parametrize("header,enum,table,name", [

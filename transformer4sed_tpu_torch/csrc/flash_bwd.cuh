@@ -9,7 +9,7 @@
 //   dS = P * (dO V^T - delta)        (rounded to bf16), delta = rowsum(dO * O)
 //   dK = scale * dS^T Q,  dQ = scale * dS K
 // Every operand is a [B, H, T, d] view with its own batch, head and row
-// strides (Rows, mma.cuh): [B, N, H*d] lane slices and head-major views
+// strides (Rows, hopper.cuh): [B, N, H*d] lane slices and head-major views
 // alike. HD is the head dim; 64 (rows 8 and 6) and 32 (row 6) are built.
 //
 // What bounds it: five products of 2*T^2*d per (batch, head), 261 GFLOP at

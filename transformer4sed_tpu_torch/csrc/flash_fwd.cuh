@@ -6,7 +6,7 @@
 //
 //   softmax(scale * Q K^T [+ bias]) V  per (batch, head)
 // Every operand is a [B, H, T, d] view with its own batch, head and row
-// strides (Rows, mma.cuh): [B, N, H*d] lane slices of a projection and
+// strides (Rows, hopper.cuh): [B, N, H*d] lane slices of a projection and
 // head-major views alike. WITH_LSE also writes the natural-log row
 // log-sum-exp lse [B, H, T] f32 that the backward (flash_bwd.cuh) recomputes
 // the probabilities from: -inf for a row with no valid key, never NaN. HD is

@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks of the flash attention forward
-// (flash_fwd.cuh), the heads-in-lanes XL forward (xl_fwd.cuh), the flash
+// (flash_fwd.cuh), the XL forward of both layouts (xl_fwd.cuh), the flash
 // and XL backwards (flash_bwd.cuh, xl_bwd.cuh) and the Swin window
 // attention (window.cuh):
+// the operand views (Rows) and the quad reductions every body shares,
 // warpgroup products (wgmma), their shared-memory descriptors, mbarriers,
 // named barriers, TMA tile copies and reductions, bulk copies, cp.async copies
 // that land on an mbarrier, and on the host the tensor maps those copies
-// read. The mma.sync kernels (xl.cuh) do not include it.
+// read.
 //
 // wgmma m64nNk16 (bf16 in, f32 accumulate), issued by one warpgroup of four
 // warps. Accumulator layout, with w the warp in the group, g = lane / 4 and
 // t = lane % 4: d[4j + e] holds D[16w + g + 8(e / 2)][8j + 2t + e % 2]. The
-// A operand from registers (wgmma_rs) has the mma.sync m16n8k16 layout on
-// the warp's 16 rows, so the accumulator of one product, rounded to bf16 in
-// pairs, is the A operand of the next (acc_to_a).
+// A operand from registers (wgmma_rs), a[kk][f] for the k16 step kk, holds
+// row 16w + g + 8(f % 2), columns 16kk + 2t + 8(f / 2) and the next, so the
+// accumulator of one product, rounded to bf16 in pairs, is the A operand of
+// the next (acc_to_a).
 //
 // Shared-memory operands are tiles that TMA wrote with a 128-byte (rows of
 // 64 bf16) or 64-byte (rows of 32 bf16) swizzle, each tile 1024-byte
@@ -26,10 +28,43 @@
 #pragma once
 
 #include <cuda.h>
-
-#include "mma.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace t4s {
+
+typedef __nv_bfloat16 bf16;
+
+// One [B, H, T, d] operand: base pointer and batch / head / row strides in
+// elements (unit stride along d).
+template <typename T>
+struct Rows {
+  T* ptr;
+  long long bs, hs, rs;
+  __host__ __device__ __forceinline__ T* at(int b, int h) const {
+    return ptr + (long long)b * bs + (long long)h * hs;
+  }
+};
+
+// Two floats -> one b32 of bf16 (lo in the low half: the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The max and the sum over the four lanes of a quad (one accumulator row).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -13,7 +13,8 @@
 // stride of d), u/v = pos_bias_u/pos_bias_v [H, d] added in f32 in-kernel and
 // rounded to bf16, P the projected position
 // table [H, 2T-1, d] (offsets T-1 ... -(T-1)), and an optional per-head
-// band. The kernel and its design are in xl_fwd.cuh.
+// band. The kernel (xl_fwd.cuh's XF_BIAS mode) and its design are in
+// xl_fwd.cuh.
 // What bounds it: at the MAT-SED decoder shape (B=8, T=1000, H=12, d=64) the
 // content and position products and P.V are 36.9 GFLOP against ~52 MB of
 // q/k/v/o/P, far above the H100's ~295 FLOP/byte ridge: the tensor cores.
@@ -43,9 +44,11 @@ static int xl_fwd(const void* q, const void* k, const void* v, const void* bias_
   const Rows<const bf16> vr{static_cast<const bf16*>(v), v_bs, 64, v_rs};
   const Rows<const bf16> pr{static_cast<const bf16*>(p), p_hs * heads, p_hs, p_rs};
   const Rows<bf16> orr{static_cast<bf16*>(o), o_bs, 64, o_rs};
-  return launch_xl_fwd_nhd(batch, n, heads, stream, qr, kr, vr, static_cast<const float*>(bias_u),
-                           static_cast<const float*>(bias_v), pr, static_cast<const int*>(band),
-                           orr, static_cast<float*>(lse), fault, sm_scale);
+  return launch_xl_fwd<64, XF_BIAS>(batch, n, heads, stream, qr, qr, kr, vr,
+                                   static_cast<const float*>(bias_u),
+                                   static_cast<const float*>(bias_v), pr,
+                                   static_cast<const int*>(band), orr, static_cast<float*>(lse),
+                                   fault, sm_scale);
 }
 
 extern "C" int t4s_xl_nhd_fwd(const void* q, const void* k, const void* v, const void* bias_u,

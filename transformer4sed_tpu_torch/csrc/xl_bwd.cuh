@@ -12,7 +12,7 @@
 //   dQv_i   = scale * sum_j dS[i,j] P[T-1-i+j]
 //   dP[m]   = scale * sum_{(i,j): T-1-i+j = m} dS[i,j] qv_i   (summed over batch)
 // Every operand is a [B, H, T, d] view with its own batch, head and row
-// strides (Rows, mma.cuh), P a [H, 2T-1, d] view. HD is the head dim: 64
+// strides (Rows, hopper.cuh), P a [H, 2T-1, d] view. HD is the head dim: 64
 // (rows 13 and 11) and 32 (row 11) are built.
 //
 // What bounds it: eight products of 2*T^2*d per (batch, head) (content and

@@ -1,33 +1,47 @@
-// Transformer-XL attention forward for Hopper (sm_90a), heads in lanes: the
-// device code of xl_attention.cu's two entry points, which replace the Pallas
+// Transformer-XL attention forward for Hopper (sm_90a): the device code of
+// the heads-in-lanes entry points (xl_attention.cu), which replace the Pallas
 // TPU kernels transformer4sed_tpu/kernels/xl_attention.py:_xl_nhd_forward
-// (line 648, row 2) and :_xl_nhd_forward_lse (line 734, row 12).
+// (line 648, row 2) and :_xl_nhd_forward_lse (line 734, row 12), and of the
+// head-major ones (xl_attention_hm.cu), which replace :_xl_forward (line 340,
+// row 9) and :_xl_forward_lse (line 410, row 10). One body, two modes that
+// the launcher sets (XfMode):
 //
-//   softmax(scale * ((q+u) K^T + relshift((q+v) P^T))) V  per (batch, head)
-// q, k, v and o are [B, T, H*64] lane slices (Rows, mma.cuh: batch and row
-// strides, head stride 64), u and v the f32 pos_bias_u / pos_bias_v [H, 64],
-// added in f32 and rounded to bf16 as the plain version rounds them, P the
-// projected position table [H, 2T-1, 64] (offsets T-1 ... -(T-1)) with head
-// and row strides, and an optional per-head band: row i attends
+//   softmax(scale * (qu K^T + relshift(qv P^T))) V  per (batch, head)
+// * XF_BIAS (rows 2 and 12, head dim 64): qu = q + u and qv = q + v, with q
+//   a [B, T, H*64] lane slice and u, v the f32 pos_bias_u / pos_bias_v
+//   [H, 64], added in f32 and rounded to bf16 as the plain version rounds
+//   them;
+// * XF_GIVEN (rows 9 and 10, head dims 32 and 64): qu and qv arrive already
+//   summed, two operands of their own; no bias is added here.
+// Every operand is a [B, H, T, d] view with its own batch, head and row
+// strides (Rows, hopper.cuh: a lane slice has a head stride of d), P the
+// projected position table [H, 2T-1, d] (offsets T-1 ... -(T-1)) with head
+// and row strides, and the band optional, per head: row i attends
 // [i - w/2, i + w/2) plus i. WITH_LSE also writes the natural-log row
 // log-sum-exp lse [B, H, T] f32 that the backward (xl_bwd.cuh) reads: -inf
-// for a row with no valid key, never NaN.
+// for a row with no valid key, never NaN. HD, the head dim, is a template
+// parameter: 64 (both modes) and 32 (XF_GIVEN) are built.
 //
 // What bounds it: the content and position products and P.V are 6*T^2*d
 // operations per (batch, head), 36.9 GFLOP at B=8, T=1000, H=12, d=64
 // (0.0373 ms at the H100's 989 TFLOP/s), against ~52 MB of q, k, v, o and P:
-// far above the ~295 FLOP/byte ridge, so the tensor cores bound it. The
-// naive form would be bound instead by the [B, H, T, 2T-1] position scores
-// and their skewed copy in device memory.
+// far above the ~295 FLOP/byte ridge, so the tensor cores bound it. At
+// d = 32 (PMAM's decoder) the products halve, 18.4 GFLOP at B=8 (0.0186 ms),
+// but every score still takes one ex2 and the MUFU issues 16 a clock an SM:
+// 96 M scores at B=8 are 0.023 ms at 1.98 GHz, so there the floor is the
+// MUFU, not the tensor cores. The naive form would be bound instead by the
+// [B, H, T, 2T-1] position scores and their skewed copy in device memory.
 //
 // Design (flash_fwd.cuh's, changed where the position term needs it).
 // * Work items of 128 query rows of one (batch, head), walked by persistent
 //   blocks, one an SM. A producer warpgroup, one thread of which issues
-//   every TMA copy: the item's q tile (once both consumers have read the
-//   last one), then per 128-key step the K and V tiles (4-D maps over
-//   (d, heads, rows, batch) whose out-of-bounds fill zeroes the ragged tail)
-//   through a ring of three stages, each guarded by a full and an empty
-//   mbarrier, and the position strip as 128-row tiles of P.
+//   every TMA copy: the item's q tile (XF_GIVEN: its qu and qv tiles) once
+//   both consumers have read the last one, then per 128-key step the K and
+//   V tiles (4-D maps over (d, heads, rows, batch) whose out-of-bounds fill
+//   zeroes the ragged tail) through a ring of three stages, each guarded by
+//   a full and an empty mbarrier, and the position strip as 128-row tiles
+//   of P. Tiles are swizzled by 128 bytes at d = 64 and by 64 at d = 32
+//   (their rows' width), as the wgmma descriptors read them.
 // * The rel-shift is index arithmetic. Consumer w (query rows
 //   i0 + 64w .. +63) at the key tile j0 needs P rows T-1-i+j, the 191 strip
 //   rows from T - (i0 + 64w) - 64 + j0: pieces 1-w, 2-w and 3-w (64 rows
@@ -39,12 +53,13 @@
 //   are done (the last two after the last step). A start below row 0 or an
 //   end past row 2T-2 reads as TMA's zero fill; such rows meet only query
 //   rows past T. No clamp and no guard in the consumers.
-// * Each consumer warpgroup builds qu = bf16(q + u) and qv = bf16(q + v)
-//   once an item, in registers, from the TMA q tile and the f32 biases, as
-//   the A operands of its products (the wgmma_rs layout). Per key step:
-//   G = qv strip^T (three m64n64 wgmma, f32 accumulators) is issued with the
-//   last step's O += P V (A the softmax weights rounded to bf16, V read
-//   MN-major), under one wait. The skew stays in registers (xf_skew): score
+// * Each consumer warpgroup holds qu and qv in registers once an item, as
+//   the A operands of its products (the wgmma_rs layout): XF_BIAS forms
+//   bf16(q + u) and bf16(q + v) from the TMA q tile and the f32 biases,
+//   XF_GIVEN reads its two tiles. Per key step: G = qv strip^T (three
+//   m64n64 wgmma, f32 accumulators, K = d) is issued with the last step's
+//   O += P V (A the softmax weights rounded to bf16, V read MN-major;
+//   m64n(d)), under one wait. The skew stays in registers (xf_skew): score
 //   (row r, key jl) takes G at strip column jl + 63 - r, which lies in the
 //   same row, so in the same quad of lanes: a select of the block by the
 //   shift's multiple of 8 (the warp's, made static by a switch), one quad
@@ -61,13 +76,16 @@
 //   sum over the quad, scale * log2 e folded into one FFMA a score,
 //   ex2.approx; keys past T are masked in the last tile only, the band per
 //   element; a row with no valid key in the tiles so far keeps a finite
-//   base. A negative scale comes as negated qu and qv (rounding commutes
-//   with the sign) and a zero one as the least normal float, so every score
-//   meets a positive factor. The LSE is (m + log2 l) * ln 2.
-// * Shared memory, 177 KB of the 227: the q tile 16 KB, three stages of K
-//   and V 96, four strip tiles 64. One block an SM of three warpgroups: 168
-//   registers a thread at launch; setmaxnreg moves the producer to 40 and the
-//   consumers to 232 (G 96, P 32, O 32, qu and qv 32 while G is in flight).
+//   base. A negative scale is carried by qu and qv in registers, their
+//   sign bits flipped as they are formed or read (exact: rounding commutes
+//   with the sign), and a zero one comes as the least normal float, so every
+//   score meets a positive factor. The LSE is (m + log2 l) * ln 2.
+// * Shared memory at d = 64: the q tile 16 KB (XF_GIVEN: qu and qv 32),
+//   three stages of K and V 96, four strip tiles 64: 177 KB (193) of the
+//   227; at d = 32 half of that. One block an SM of three warpgroups: 168
+//   registers a thread at launch; setmaxnreg moves the producer to 40 and
+//   the consumers to 232 (G 96, P 32, O d/2, qu and qv d/2 while G is in
+//   flight).
 #pragma once
 
 #include <type_traits>
@@ -86,10 +104,13 @@ constexpr int XF_PRODUCER_REGS = 40;            // 128 * 40 + 256 * 232 = 384 * 
 constexpr int XF_CONSUMER_REGS = 232;
 constexpr float XF_LOG2E = 1.4426950408889634f;
 
+// Where qu and qv come from: q + the biases (rows 2, 12), or given (rows 9, 10).
+enum XfMode { XF_BIAS, XF_GIVEN };
+
 // Planted faults, for the kernel check only (0 on every real path): the
 // strip tiles' start clamped at P row 0 instead of zero-filled, the newest
 // strip tile of a step read from the step before it, the skew one strip
-// row off, pos_bias_u rounded to bf16 before the add.
+// row off, pos_bias_u rounded to bf16 before the add (XF_BIAS only).
 enum XfFault {
   XF_FAULT_NONE = 0,
   XF_FAULT_CLAMP_STRIP,
@@ -98,11 +119,14 @@ enum XfFault {
   XF_FAULT_ROUND_U
 };
 
+template <int HD, int MODE>
 struct XfSmem {
-  static constexpr int ROW = 128;  // bytes of one tile row (64 bf16)
-  static constexpr int TILE = 128 * ROW;  // the q tile, a K or V tile, a strip tile
+  static constexpr int ROW = HD * 2;      // bytes of one tile row
+  static constexpr int TILE = 128 * ROW;  // a q, qu or qv tile, a K or V tile, a strip tile
+  static constexpr int Q_TILES = MODE == XF_GIVEN ? 2 : 1;  // q; or qu, then qv
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + TILE;
+  static constexpr int QV_OFF = Q_OFF + TILE;  // XF_GIVEN only
+  static constexpr int K_OFF = Q_OFF + Q_TILES * TILE;
   static constexpr int V_OFF = K_OFF + XF_STAGES * TILE;
   static constexpr int P_OFF = V_OFF + XF_STAGES * TILE;
   static constexpr int BAR_OFF = P_OFF + XF_TILES * TILE;
@@ -196,20 +220,35 @@ __device__ __forceinline__ void xf_skew(const float (&ga)[3][32], float (&s)[64]
       }
 }
 
+// Byte offset of columns col and col + 1 (col even) of row `row` in a tile
+// that TMA wrote with the swizzle of head dim HD: the 16-byte chunk col / 8
+// XOR the row's bits 0-2 (128-byte rows) or 1-2 (64-byte rows).
+template <int HD>
+__device__ __forceinline__ int xf_tile_offset(int row, int col) {
+  const int swz = HD == 64 ? (row & 7) : ((row >> 1) & 3);
+  return row * (HD * 2) + (((col >> 3) ^ swz) << 4) + (col & 7) * 2;
+}
+
 // The block walks the work items w = blockIdx.x, blockIdx.x + gridDim.x, ...
-// (query tile w % nq of head (w / nq) % H of batch w / (nq * H)). sign is
-// the scale's sign (-1 negates qu and qv), c = max(|scale| * log2 e, least
-// normal float).
-template <bool WITH_LSE>
+// (query tile w % nq of head (w / nq) % H of batch w / (nq * H)). tq is the
+// q map (XF_GIVEN: qu's), tqv qv's (XF_GIVEN only); bias_u, bias_v XF_BIAS
+// only. flip is 0x80008000 for a negative scale (the sign bits of a pair of
+// bf16: qu and qv negated), else 0; c = max(|scale| * log2 e, least normal
+// float).
+template <int HD, int MODE, bool WITH_LSE>
 __global__ void __launch_bounds__(XF_THREADS, 1)
-xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tp,
-              const float* __restrict__ bias_u, const float* __restrict__ bias_v,
-              const int* __restrict__ band, Rows<bf16> o, float* __restrict__ lse, int n,
-              int heads, int items, int fault, float sign, float c) {
+xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tqv,
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tp, const float* __restrict__ bias_u,
+              const float* __restrict__ bias_v, const int* __restrict__ band, Rows<bf16> o,
+              float* __restrict__ lse, int n, int heads, int items, int fault, uint32_t flip,
+              float c) {
   using namespace hopper;
-  using L = XfSmem;
+  using L = XfSmem<HD, MODE>;
   constexpr int ROW = L::ROW;
+  constexpr uint64_t SW = HD == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  static_assert(HD == 64 || (HD == 32 && MODE == XF_GIVEN),
+                "head dims 64 (both modes) and 32 (XF_GIVEN) are built");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -244,8 +283,9 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         const int s = c_kv % XF_STAGES;
         if (it == 0) {
           if (k > 0) mbar_wait(q_empty, (k - 1) & 1);  // both consumers hold the last q
-          mbar_expect_tx(q_full, L::TILE);
+          mbar_expect_tx(q_full, L::Q_TILES * L::TILE);
           tma_load_4d(smem + L::Q_OFF, &tq, q_full, 0, h, i0, b);
+          if (MODE == XF_GIVEN) tma_load_4d(smem + L::QV_OFF, &tqv, q_full, 0, h, i0, b);
         }
         if (c_kv >= XF_STAGES) mbar_wait(&empty[s], (c_kv / XF_STAGES - 1) & 1);
         const int first = it == 0 ? 0 : it + 1;  // strip tiles 0, 1 with step 0, then it + 1
@@ -281,8 +321,8 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   auto your_turn = [&]() { bar_arrive(2 - wg, XF_CONSUMERS); };
   if (wg == 1) your_turn();
 
-  float o_acc[32], s_acc[64], g_acc[3][32];
-  uint32_t qu[4][4], qv[4][4], pa[8][4];
+  float o_acc[HD / 2], s_acc[64], g_acc[3][32];
+  uint32_t qu[HD / 16][4], qv[HD / 16][4], pa[8][4];
   float m_run[2], l_run[2], alpha[2];
   int c_kv = 0;  // key steps consumed so far, as the producer counts them
 
@@ -309,45 +349,46 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     const unsigned char* sV = smem + L::V_OFF + stage * L::TILE;
 #pragma unroll
     for (int kk = 0; kk < XF_KEYS / 16; ++kk)
-      wgmma_rs<1>(o_acc, pa[kk], desc(sV + kk * 16 * ROW, 8 * ROW, SWIZZLE_128B), 1);
+      wgmma_rs<1>(o_acc, pa[kk], desc(sV + kk * 16 * ROW, 8 * ROW, SW), 1);
   };
   auto rescale_o = [&]() {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < HD / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
   };
 
   for (int w = blockIdx.x, k = 0, t0 = 0; w < items; w += gridDim.x, ++k, t0 += tiles) {
     const int i0 = w % nq * XF_QROWS, h = w / nq % heads, b = w / nq / heads;
     const int half = band != nullptr ? band[h] / 2 : -1;  // -1: no band
 
-    // qu = bf16(q + u), qv = bf16(q + v) in the A layout: a[kk][f] holds row
-    // qrow + 8 (f & 1), columns 16 kk + 2t + 8 (f / 2) and the next
+    // qu and qv (negated for a negative scale) in the A layout: a[kk][f]
+    // holds row qrow + 8 (f & 1), columns 16 kk + 2t + 8 (f / 2) and the next
     mbar_wait(q_full, k & 1);
-    {
-      const float* bu = bias_u + h * 64;
-      const float* bv = bias_v + h * 64;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const int row = qrow + 8 * (f & 1), col = 16 * kk + 2 * t + 8 * (f >> 1);
-          const uint32_t x2 = *reinterpret_cast<const uint32_t*>(
-              smem + L::Q_OFF + row * ROW + (((col >> 3) ^ (row & 7)) << 4) + 4 * t);
+      for (int f = 0; f < 4; ++f) {
+        const int row = qrow + 8 * (f & 1), col = 16 * kk + 2 * t + 8 * (f >> 1);
+        const int at = xf_tile_offset<HD>(row, col);
+        const uint32_t x2 = *reinterpret_cast<const uint32_t*>(smem + L::Q_OFF + at);
+        if constexpr (MODE == XF_GIVEN) {
+          qu[kk][f] = x2 ^ flip;
+          qv[kk][f] = *reinterpret_cast<const uint32_t*>(smem + L::QV_OFF + at) ^ flip;
+        } else {  // bf16(q + u), bf16(q + v)
           const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x2));
-          float2 u = *reinterpret_cast<const float2*>(bu + col);
-          const float2 v2 = *reinterpret_cast<const float2*>(bv + col);
+          float2 u = *reinterpret_cast<const float2*>(bias_u + h * HD + col);
+          const float2 v2 = *reinterpret_cast<const float2*>(bias_v + h * HD + col);
           if (fault == XF_FAULT_ROUND_U)
             u = make_float2(__bfloat162float(__float2bfloat16_rn(u.x)),
                             __bfloat162float(__float2bfloat16_rn(u.y)));
-          qu[kk][f] = pack_bf16(sign * (xf.x + u.x), sign * (xf.y + u.y));
-          qv[kk][f] = pack_bf16(sign * (xf.x + v2.x), sign * (xf.y + v2.y));
+          qu[kk][f] = pack_bf16(xf.x + u.x, xf.y + u.y) ^ flip;
+          qv[kk][f] = pack_bf16(xf.x + v2.x, xf.y + v2.y) ^ flip;
         }
-    }
+      }
     __syncwarp();
     if (lane == 0) mbar_arrive(q_empty);  // this warp's q rows read
 
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
     m_run[0] = m_run[1] = -INFINITY;
     l_run[0] = l_run[1] = 0.f;
 
@@ -373,8 +414,8 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         const unsigned char* piece =
             smem + L::P_OFF + (t0 + tile) % XF_TILES * L::TILE + (q & 1) * 64 * ROW;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<0>(g_acc[pm], qv[kk], desc(piece + kk * 32, 8 * ROW, SWIZZLE_128B), kk);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_rs<0>(g_acc[pm], qv[kk], desc(piece + kk * 32, 8 * ROW, SW), kk);
       }
       wgmma_commit();
       your_turn();
@@ -401,8 +442,8 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       my_turn();
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<0>(s_acc, qu[kk], desc(sK + kk * 32, 8 * ROW, SWIZZLE_128B), 1);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_rs<0>(s_acc, qu[kk], desc(sK + kk * 32, 8 * ROW, SW), 1);
       wgmma_commit();
       your_turn();
       fence_s();
@@ -441,7 +482,7 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       const float inv = l_row[r] > 0.f ? 1.f / l_row[r] : 0.f;
       bf16* orow = o.at(b, h) + (long long)row * o.rs + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             pack_bf16(o_acc[4 * j + 2 * r] * inv, o_acc[4 * j + 2 * r + 1] * inv);
       // a row with no valid key keeps -inf (never NaN), and the backward
@@ -453,25 +494,36 @@ xl_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
 }
 
-// Launch on `stream`: lse null for row 2, an f32 [B, H, T] for row 12; p a
-// [H, 2T-1, 64] view; any sm_scale, zero and negative too; fault 0 but for
-// a planted fault (XfFault). Returns cudaGetLastError() after the launch (0 =
-// launched); cudaErrorInvalidValue for a tensor map that could not be encoded.
-static int launch_xl_fwd_nhd(int batch, int n, int heads, void* stream, Rows<const bf16> q,
-                             Rows<const bf16> k, Rows<const bf16> v, const float* bias_u,
-                             const float* bias_v, Rows<const bf16> p, const int* band,
-                             Rows<bf16> o, float* lse, int fault, float sm_scale) {
+// Launch on `stream`: lse null for rows 2 and 9, an f32 [B, H, T] for rows
+// 12 and 10; p a [H, 2T-1, HD] view; XF_BIAS: q the lane slice (qv unused),
+// bias_u and bias_v the f32 [H, HD] biases; XF_GIVEN: q and qv are qu and qv,
+// no biases; any sm_scale, zero and negative too; fault 0 but for a planted
+// fault (XfFault). Returns cudaGetLastError() after the launch (0 =
+// launched); cudaErrorInvalidValue for a tensor map that could not be
+// encoded or what the mode does not take (biases where they are given, none
+// where they are added, round_u without them).
+template <int HD, int MODE>
+static int launch_xl_fwd(int batch, int n, int heads, void* stream, Rows<const bf16> q,
+                         Rows<const bf16> qv, Rows<const bf16> k, Rows<const bf16> v,
+                         const float* bias_u, const float* bias_v, Rows<const bf16> p,
+                         const int* band, Rows<bf16> o, float* lse, int fault, float sm_scale) {
   using hopper::tensor_map;
+  constexpr bool given = MODE == XF_GIVEN;
+  const bool biased = bias_u != nullptr || bias_v != nullptr;
+  if (given ? biased || fault == XF_FAULT_ROUND_U : bias_u == nullptr || bias_v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv, tp;
-  if (!tensor_map(encode, &tq, q, batch, heads, n, 64, XF_QROWS) ||
-      !tensor_map(encode, &tk, k, batch, heads, n, 64, XF_KEYS) ||
-      !tensor_map(encode, &tv, v, batch, heads, n, 64, XF_KEYS) ||
-      !tensor_map(encode, &tp, p, 1, heads, 2 * n - 1, 64, XF_KEYS))
+  CUtensorMap tq, tqv, tk, tv, tp;
+  if (!tensor_map(encode, &tq, q, batch, heads, n, HD, XF_QROWS) ||
+      (given && !tensor_map(encode, &tqv, qv, batch, heads, n, HD, XF_QROWS)) ||
+      !tensor_map(encode, &tk, k, batch, heads, n, HD, XF_KEYS) ||
+      !tensor_map(encode, &tv, v, batch, heads, n, HD, XF_KEYS) ||
+      !tensor_map(encode, &tp, p, 1, heads, 2 * n - 1, HD, XF_KEYS))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = lse != nullptr ? &xl_fwd_kernel<true> : &xl_fwd_kernel<false>;
-  constexpr int bytes = XfSmem::BYTES;
+  if (!given) tqv = tq;  // never read
+  auto kernel = lse != nullptr ? &xl_fwd_kernel<HD, MODE, true> : &xl_fwd_kernel<HD, MODE, false>;
+  constexpr int bytes = XfSmem<HD, MODE>::BYTES;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -480,8 +532,8 @@ static int launch_xl_fwd_nhd(int batch, int n, int heads, void* stream, Rows<con
   const int grid = sms > 0 && sms < items ? sms : items;
   const float c = fmaxf(fabsf(sm_scale) * XF_LOG2E, 1.17549435e-38f);
   kernel<<<grid, XF_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, tp, bias_u, bias_v, band, o, lse, n, heads, items, fault,
-      sm_scale < 0.f ? -1.f : 1.f, c);
+      tq, tqv, tk, tv, tp, bias_u, bias_v, band, o, lse, n, heads, items, fault,
+      sm_scale < 0.f ? 0x80008000u : 0u, c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,11 +23,11 @@ T-1 ... -(T-1), and an optional per-head band (row i attends
     ``csrc/xl_attention_bwd.cu`` ``t4s_xl_bwd`` for ``_xl_backward``
     (:func:`flash_xl_attention`, :class:`XLAttention`).
 
-The forwards do the rel-shift as index arithmetic on a position strip in
-shared memory: the heads-in-lanes ones on ``csrc/xl_fwd.cuh`` (wgmma on TMA
-tiles, the strip in 128-row TMA tiles, the skew in registers by quad
-shuffles), the head-major ones on ``csrc/xl.cuh`` (``mma.sync``). Both
-backwards run one body
+All four forwards run one body, ``csrc/xl_fwd.cuh`` (wgmma on TMA tiles,
+the rel-shift as index arithmetic on a position strip loaded in 128-row TMA
+tiles, the skew in registers by quad shuffles), in two modes: q + the
+biases formed in the kernel (heads in lanes), or qu and qv given (head
+major). Both backwards run one body
 (``csrc/xl_bwd.cuh``: wgmma on TMA tiles, the strip loaded by TMA, dQ and
 dP added by TMA reductions) between two passes of their own, in
 ``csrc/xl_attention_bwd.cu``, where the JAX wrappers run XLA code:
@@ -214,8 +214,8 @@ def _check(what, q, k, v, bias_u, bias_v, p, num_heads):
                  for x in (bias_u, bias_v))
 
 
-# planted faults of the heads-in-lanes XL forward (csrc/xl_fwd.cuh: XfFault), for
-# the kernel check only
+# planted faults of the XL forwards (csrc/xl_fwd.cuh: XfFault), for the kernel
+# check only; round_u only where the kernel adds the biases (heads in lanes)
 XF_FAULTS = {"clamp_strip": 1, "stale_tile": 2, "skew": 3, "round_u": 4}
 
 
@@ -336,7 +336,10 @@ def _check_hm(what, qu, qv, k, v, p):
     check_cuda_operands(what, qu, qv, k, v, p)
 
 
-def _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse: bool):
+def _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse: bool,
+                       fault: int = 0):
+    """The launch of row 10 (``with_lse``) or row 9; ``fault`` plants one of
+    ``XF_FAULTS`` but ``round_u``: 0 on every real path."""
     what = "flash_xl_attention_lse" if with_lse else "flash_xl_attention"
     _check_hm(what, qu, qv, k, v, p)
     b, h, t, d = qu.shape
@@ -349,8 +352,8 @@ def _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse: bool):
         ptrs.append(lse.data_ptr())
     symbol = "t4s_xl_hm_fwd_lse" if with_lse else "t4s_xl_hm_fwd"
     with torch.cuda.device(qu.device):
-        status = _build.function("xl_attention_hm", symbol, len(ptrs), 17)(
-            *ptrs, b, t, h, d, *hm_strides(qu, qv, k, v), p.stride(0), p.stride(1),
+        status = _build.function("xl_attention_hm", symbol, len(ptrs), 17, n_ints=5)(
+            *ptrs, b, t, h, d, fault, *hm_strides(qu, qv, k, v), p.stride(0), p.stride(1),
             *hm_strides(out), float(sm_scale), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)
