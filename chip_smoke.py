@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,bias_kernels,variant_kernels,masked_decoder  # rows 4, 16
     python3 chip_smoke.py --phases build,finetune2_serve,finetune2_train  # the sliding windows
     python3 chip_smoke.py --phases kernel_timing  # every kernel's time alone, no build check
+    python3 chip_smoke.py --phases build,score  # the test stage's scoring path alone
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
@@ -86,6 +87,20 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
   4. the same weights on 2 clips on the CPU in f32 (plain versions) and on
      the card (kernels): strong, weak and at_out must agree to the JAX
      package's own bf16-vs-f32 bound;
+  4a. score: the test stage's scoring path (``recipes/matsed.py:306-434``)
+     on a mini DESED split written from ``synthetic_bursts`` (48 clips, 16-bit
+     WAV, 8 at 44.1 kHz, 8 stereo, one 6.5 s long; their bursts, three
+     classes a clip, as the ground truth; strong-label and duration TSVs):
+     the port's dataset and loader (batches of 8, every file through the
+     native WAV library), frontend and flagship on the card, decode on the
+     card with the recipe's median windows and weak mask, then PSDS1, PSDS2,
+     event and segment F1, and cSEBB then PSDS1 on the host; checks: (a) the
+     card's decode equals the CPU's on the same f32 scores, (b) the native
+     PSDS sweep is within 1e-9 of the NumPy one, (c) both native libraries
+     were built and used, (d) the ground truth scores itself (PSDS1 >= 0.99,
+     event F1 1), (e) a planted fault (every event 1 s late) fails (d), (f)
+     rows 1 and 2 ran 12 and 3 times a batch; prints the path's clips/s and
+     its host split beside the card's name and power limit;
   5. train: mean-teacher steps of the same flagship at B=24 (strong 8 |
      weak 8 | unlabeled 8) on seeded synthetic clips and labels, default
      augmentation (fmin/fmax draw, frame shift, mixup p=0.5, two filt_aug
@@ -211,10 +226,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity", "parallel_train",
-          "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train", "htsat_train_parity",
-          "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity", "mlm_train",
-          "mlm_train_parity", "masked_decoder", "finetune2_serve", "finetune2_parity",
+PHASES = ("build", "kernels", "serve", "parity", "score", "train", "train_parity",
+          "parallel_train", "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train",
+          "htsat_train_parity", "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity",
+          "mlm_train", "mlm_train_parity", "masked_decoder", "finetune2_serve", "finetune2_parity",
           "finetune2_train", "finetune2_train_parity", "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
 SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
@@ -1433,24 +1448,32 @@ def desed_labels():
     return [name for name, _ in sorted(table.items(), key=lambda kv: kv[1])]
 
 
-def synthetic_clips(n, seed):
-    """n 10-s clips of noise plus tone bursts; clip 5 is 6.5 s long."""
+def synthetic_bursts(n, seed):
+    """n 10-s clips of noise plus three tone bursts each, and each clip's
+    bursts as (onset, offset) seconds; clip 5 is 6.5 s long."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     t = np.arange(CLIP_SAMPLES) / SR
-    clips = []
+    clips, bursts = [], []
     for i in range(n):
         wav = 0.05 * rng.randn(CLIP_SAMPLES)
+        bursts.append([])
         for _ in range(3):
             on = rng.uniform(0, 8)
             dur = rng.uniform(0.3, 2.0)
             f0 = rng.uniform(200, 4000)
             wav += np.sin(2 * np.pi * f0 * t) * ((t >= on) & (t < on + dur))
+            bursts[-1].append((on, on + dur))
         if i == 5:
             wav = wav[:208000]
         clips.append(wav.astype(np.float32))
-    return clips
+    return clips, bursts
+
+
+def synthetic_clips(n, seed):
+    """n 10-s clips of noise plus tone bursts; clip 5 is 6.5 s long."""
+    return synthetic_bursts(n, seed)[0]
 
 
 def make_batches(clips, codec, batch_size):
@@ -1556,6 +1579,300 @@ def parity(card_engine, batches, build=None, what="flagship", clips=slice(4, 6))
         worst = max(worst, diff)
         log(f"{what} card bf16 vs CPU f32 {key}: max_abs_diff {diff:.4e} (tol {DTYPE_MAX_ABS})")
     check(worst <= DTYPE_MAX_ABS, f"{what}: the card's path disagrees with the CPU f32 path")
+
+
+# -- phase score: the matsed_test scoring path ------------------------------------
+
+SCORE_CLIPS = 48
+SCORE_BATCH = 8
+SCORE_SEED = 3
+# recipes/matsed.py:402-409 (the JAX test stage)
+SCORE_PSDS1 = dict(dtc_threshold=0.7, gtc_threshold=0.7, alpha_ct=0.0, alpha_st=1.0)
+SCORE_PSDS2 = dict(dtc_threshold=0.1, gtc_threshold=0.1, cttc_threshold=0.3, alpha_ct=0.5,
+                   alpha_st=1.0)
+# native sweep against the NumPy one on the same scores
+# (tests/test_native_psds.py:61)
+NATIVE_PSDS_TOL = 1e-9
+# The NumPy sweep is exact (every observed score a threshold) only up to its
+# 200 thresholds a class, and slow past that: check (b) rounds the scores to
+# 1/50 for both sweeps.
+PSDS_CHECK_STEPS = 50
+# the ground truth as frame scores loses only the 10-ms frame rounding
+GT_PSDS1_MIN = 0.99
+GT_SHIFT_S = 1.0  # the planted fault: every ground-truth event 1 s late
+GT_SHIFTED_PSDS1_MAX = 0.5
+
+
+def write_score_split(root, codec):
+    """A mini DESED split under ``root``: SCORE_CLIPS clips of
+    ``synthetic_bursts`` with their bursts as the ground truth (a clip's
+    three bursts take three classes in turn, so every class has events and
+    no two events of a class overlap in a clip), as mono 16-bit WAV at 32
+    kHz, every sixth from clip 1 at 44.1 kHz and every sixth from clip 2 in
+    stereo; clip 5 is 6.5 s long (padded by the loader). Writes
+    ``audio/``, ``strong.tsv`` and ``durations.tsv``; returns the
+    ground truth {clip: [(onset, offset, label)]} and the durations."""
+    import numpy as np
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    from transformer4sed_tpu_torch.data.tsv import write_tsv
+
+    clips, bursts = synthetic_bursts(SCORE_CLIPS, SCORE_SEED)
+    (root / "audio").mkdir()
+    rows, gt, durations = [], {}, {}
+    for i, (wav, events) in enumerate(zip(clips, bursts)):
+        name = f"clip{i:03d}"
+        dur = len(wav) / SR
+        pcm = (np.clip(wav / 4.0, -1.0, 1.0) * 32767).astype(np.int16)
+        if i % 6 == 1:
+            up = resample_poly(wav / 4.0, 441, 320)
+            wavfile.write(root / "audio" / f"{name}.wav", 44100,
+                          (np.clip(up, -1.0, 1.0) * 32767).astype(np.int16))
+        elif i % 6 == 2:
+            wavfile.write(root / "audio" / f"{name}.wav", SR, np.stack([pcm, pcm // 2], axis=1))
+        else:
+            wavfile.write(root / "audio" / f"{name}.wav", SR, pcm)
+        gt[name], durations[name] = [], dur
+        for j, (on, off) in enumerate(events):
+            if on < dur:
+                label = codec.labels[(3 * i + j) % len(codec.labels)]
+                gt[name].append((float(on), float(min(off, dur)), label))
+                rows.append((f"{name}.wav", float(on), float(min(off, dur)), label))
+    write_tsv(str(root / "strong.tsv"), ["filename", "onset", "offset", "event_label"], rows)
+    write_tsv(str(root / "durations.tsv"), ["filename", "duration"],
+              [(f"{k}.wav", v) for k, v in durations.items()])
+    return gt, durations
+
+
+def score_metrics(scores, events, gt, durations, classes):
+    """PSDS1, PSDS2 and the event and segment F1s of one score set, as the
+    JAX test stage computes them; with the host ms of the PSDS sweeps."""
+    from transformer4sed_tpu_torch.eval.psds import compute_psds_from_scores
+    from transformer4sed_tpu_torch.eval.sed_f1 import event_based_f1, segment_based_f1
+
+    t0 = time.perf_counter()
+    psds1, single1 = compute_psds_from_scores(scores, gt, durations, **SCORE_PSDS1)
+    psds2, _ = compute_psds_from_scores(scores, gt, durations, **SCORE_PSDS2)
+    psds_ms = (time.perf_counter() - t0) * 1e3
+    preds = {clip: [] for clip in gt}
+    for fname, label, onset, offset in events:
+        preds[fname.rsplit(".", 1)[0]].append((onset, offset, label))
+    return dict(psds1=psds1, psds2=psds2, single1=single1,
+                event_f1=event_based_f1(preds, gt, classes),
+                segment_f1=segment_based_f1(preds, gt, classes, durations)), psds_ms
+
+
+def truth_scores(gt, durations, codec, shift=0.0):
+    """(clip names, strong [N, C, T], weak [N, C]): the ground truth, its
+    events ``shift`` s late and cut at the clip's end, as 0/1 frame scores
+    (``codec.encode_strong``) and clip scores."""
+    import numpy as np
+
+    names = sorted(gt)
+    events = {c: [(on + shift, min(off + shift, durations[c]), lab) for on, off, lab in gt[c]
+                  if on + shift < durations[c]] for c in names}
+    strong = np.stack([codec.encode_strong([(lab, on, off) for on, off, lab in events[c]]).T
+                       for c in names])
+    weak = np.stack([codec.encode_weak({lab for _, _, lab in gt[c]}) for c in names])
+    return names, strong, weak
+
+
+def score_ground_truth(gt, durations, codec, dev, shift=0.0):
+    """The ground truth (``truth_scores``) through the card's decode, PSDS
+    and event F1. The decode runs unfiltered: the recipe's median windows
+    (up to 1.28 s) erase true bursts shorter than half a window."""
+    import torch
+
+    from transformer4sed_tpu_torch.eval.decode import batched_decode_preds, decode_pred_batch
+
+    names, strong, weak = truth_scores(gt, durations, codec, shift)
+    strong_t, weak_t = torch.from_numpy(strong).to(dev), torch.from_numpy(weak).to(dev)
+    files = [f"{c}.wav" for c in names]
+    _, post = batched_decode_preds(strong_t, files, codec, filter=None, weak_preds=weak_t,
+                                   need_weak_mask=True)
+    rows = decode_pred_batch(strong_t, weak_t, files, codec, [0.5], 1)[0.5]
+    metrics, _ = score_metrics(post, rows, gt, durations, codec.labels)
+    return metrics
+
+
+def score(engine):
+    """The port's test-stage path (``recipes/matsed.py:306-434``) at the
+    flagship's full width: files on disk -> native WAV loader -> the port's
+    dataset and DataLoader -> frontend and PaSST_SED on the card (rows 1
+    and 2) -> ``batched_decode_preds`` on the card with the recipe's
+    median windows and weak mask -> PSDS1, PSDS2, event and segment F1 and
+    cSEBB then PSDS1 on the host; with checks (a) to (f)."""
+    import tempfile
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.data import audio_io
+    from transformer4sed_tpu_torch.data.datasets import StronglyLabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+    from transformer4sed_tpu_torch.data.tsv import read_tsv
+    from transformer4sed_tpu_torch.eval import psds
+    from transformer4sed_tpu_torch.eval.decode import batched_decode_preds, decode_pred_batch
+    from transformer4sed_tpu_torch.eval.scores import ClipScores
+    from transformer4sed_tpu_torch.eval.sebbs import apply_csebbs
+    from transformer4sed_tpu_torch.native.build import load_psds_core, load_wav_core
+    from transformer4sed_tpu_torch.recipes.common import load_durations, load_ground_truth
+
+    codec, widths, dev = engine.codec, engine.median_filter, engine.device
+    card = card_line()
+    t0 = time.perf_counter()  # the host libraries build at first use: before the path's times
+    libs = {"wav_core": load_wav_core(), "psds_core": load_psds_core()}
+    log(f"score: native libraries {sorted(k for k, v in libs.items() if v is not None)} "
+        f"loaded in {time.perf_counter() - t0:.1f} s (g++ at first use)")
+    check(all(v is not None for v in libs.values()), "(c) a native library did not build")
+    with tempfile.TemporaryDirectory(prefix="t4s_score_") as tmp:
+        root = Path(tmp)
+        written_gt, _ = write_score_split(root, codec)
+        gt = load_ground_truth(str(root / "strong.tsv"))
+        durations = load_durations(str(root / "durations.tsv"))
+        check({c: e for c, e in gt.items() if e} == {c: e for c, e in written_gt.items() if e},
+              "the strong TSV reads back the events it was written with")
+        check(sorted(durations) == sorted(gt) and len(gt) == SCORE_CLIPS,
+              f"{len(gt)} clips in the ground truth, {len(durations)} durations")
+        dataset = StronglyLabeledDataset(read_tsv(str(root / "strong.tsv")), str(root / "audio"),
+                                         True, codec)
+        loader = DataLoader(dataset, batch_size=SCORE_BATCH, drop_last=False, num_workers=4)
+        with torch.no_grad():  # a warm-up forward, outside the counts and the times
+            wav0 = torch.zeros(SCORE_BATCH, CLIP_SAMPLES, device=dev)
+            pm0 = torch.zeros(SCORE_BATCH, codec.n_frames, dtype=torch.bool, device=dev)
+            engine.model(engine.frontend.normalize(engine.frontend(wav0)), pad_mask=pm0,
+                         **engine.model_kwargs)
+        torch.cuda.synchronize()
+
+        decodes0, sweeps0 = dict(audio_io.DECODES), dict(psds.SWEEPS)
+        reset_launches()
+        raw, post, rows, held = {}, {}, [], []
+        load_ms = forward_ms = decode_ms = 0.0
+        t_path = time.perf_counter()
+        t0 = time.perf_counter()
+        for batch in loader:
+            load_ms += (time.perf_counter() - t0) * 1e3
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad():
+                wav = torch.from_numpy(batch["wav"]).to(dev)
+                pm = torch.from_numpy(batch["pad_mask"]).to(dev)
+                out = engine.model(engine.frontend.normalize(engine.frontend(wav)), pad_mask=pm,
+                                   **engine.model_kwargs)
+                strong, weak = out.strong.float(), out.weak.float()
+            end.record()
+            end.synchronize()
+            forward_ms += start.elapsed_time(end)
+            t1 = time.perf_counter()
+            r, p = batched_decode_preds(strong, batch["filename"], codec, filter=widths,
+                                        weak_preds=weak, need_weak_mask=True)
+            ev = decode_pred_batch(strong, weak, batch["filename"], codec, [0.5], widths)[0.5]
+            decode_ms += (time.perf_counter() - t1) * 1e3
+            raw.update(r)
+            post.update(p)
+            rows.extend(ev)
+            held.append((batch["filename"], strong.cpu().numpy(), weak.cpu().numpy(), r, p, ev))
+            t0 = time.perf_counter()
+        metrics, psds_ms = score_metrics(post, rows, gt, durations, codec.labels)
+        path_s = time.perf_counter() - t_path
+        launches = read_launches()
+        t1 = time.perf_counter()
+        sebb = apply_csebbs(raw)
+        sebb_psds1, _ = psds.compute_psds_from_scores(sebb, gt, durations, **SCORE_PSDS1)
+        sebb_ms = (time.perf_counter() - t1) * 1e3
+        decodes = {k: audio_io.DECODES[k] - decodes0.get(k, 0) for k in ("native", "python")}
+        sweeps = {k: psds.SWEEPS[k] - sweeps0.get(k, 0) for k in ("native", "numpy")}
+
+    n_batches = -(-SCORE_CLIPS // SCORE_BATCH)
+    log(f"score: {SCORE_CLIPS} clips from disk in {n_batches} batches of {SCORE_BATCH}; "
+        f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention_nhd=12 * n_batches, flash_xl_attention_nhd=3 * n_batches)
+    check(launches == want, f"(f) kernel launches {launches} on the score path, expected {want}")
+    log(f"score (f): rows 1 and 2 launched 12 and 3 times a batch, no other kernel")
+
+    # (a) the card's decode against the CPU's on the same f32 score arrays
+    for names, strong, weak, r, p, ev in held:
+        r_cpu, p_cpu = batched_decode_preds(strong, names, codec, filter=widths, weak_preds=weak,
+                                            need_weak_mask=True, device="cpu")
+        ev_cpu = decode_pred_batch(strong, weak, names, codec, [0.5], widths, device="cpu")[0.5]
+        for card_set, cpu_set in ((r, r_cpu), (p, p_cpu)):
+            check(list(card_set) == list(cpu_set), "(a) the same clips decoded")
+            for clip in cpu_set:
+                check(np.array_equal(card_set[clip].scores, cpu_set[clip].scores)
+                      and np.array_equal(card_set[clip].timestamps, cpu_set[clip].timestamps),
+                      f"(a) {clip}: the card's decode differs from the CPU's")
+        check(ev == ev_cpu, "(a) the card's event rows differ from the CPU's")
+    log(f"score (a): the card's decode equals the CPU's on the same f32 scores "
+        f"({SCORE_CLIPS} clips, raw and filtered arrays, {len(rows)} event rows)")
+
+    for what, value in (("psds1", metrics["psds1"]), ("psds2", metrics["psds2"]),
+                        ("cSEBB psds1", sebb_psds1),
+                        ("event macro F1", metrics["event_f1"]["macro_f1"]),
+                        ("segment macro F1", metrics["segment_f1"]["macro_f1"])):
+        check(np.isfinite(value) and 0.0 <= value <= 1.0, f"score: {what} {value}")
+    log(f"score metrics (seeded random weights): psds1 {metrics['psds1']:.6f}, psds2 "
+        f"{metrics['psds2']:.6f}, cSEBB psds1 {sebb_psds1:.6f}, event F1 macro "
+        f"{metrics['event_f1']['macro_f1']:.6f} micro {metrics['event_f1']['micro_f1']:.6f}, "
+        f"segment F1 macro {metrics['segment_f1']['macro_f1']:.6f} micro "
+        f"{metrics['segment_f1']['micro_f1']:.6f}, {len(rows)} events at 0.5")
+
+    # (b) the native sweep against the NumPy one on the same scores: the
+    # model's, and the model's with a seeded share of the ground truth's
+    # added (the seeded weights alone detect nothing)
+    names, truth, _ = truth_scores(gt, durations, codec)
+    rng = np.random.RandomState(SCORE_SEED)
+    worst, values = 0.0, []
+    for mix in (0.0, 1.0):
+        coarse = {}
+        for i, c in enumerate(names):
+            share = mix * rng.uniform(-0.3, 0.6, (1, len(codec.labels)))
+            s = np.clip(post[c].scores + share * truth[i].T, 0.0, 1.0)
+            coarse[c] = ClipScores(np.round(s * PSDS_CHECK_STEPS) / PSDS_CHECK_STEPS,
+                                   post[c].timestamps, codec.labels)
+        for setting in (SCORE_PSDS1, SCORE_PSDS2):
+            native = psds.compute_psds_from_scores(coarse, gt, durations, **setting)
+            with unittest.mock.patch.object(psds, "_native_sweeper", lambda *a, **k: None):
+                numpy_path = psds.compute_psds_from_scores(coarse, gt, durations, **setting)
+            check(native[1].keys() == numpy_path[1].keys(), "(b) the same classes swept")
+            worst = max([worst, abs(native[0] - numpy_path[0])]
+                        + [abs(native[1][c] - numpy_path[1][c]) for c in numpy_path[1]])
+            values.append(f"{native[0]:.6f}")
+    log(f"score (b): native vs NumPy sweep on the scores rounded to 1/{PSDS_CHECK_STEPS}, "
+        f"the model's and the model's plus a seeded share of the ground truth (PSDS1, PSDS2: "
+        f"{', '.join(values)}), PSDS and per class: max diff {worst:.3e} "
+        f"(limit {NATIVE_PSDS_TOL})")
+    check(worst <= NATIVE_PSDS_TOL, "(b) the native PSDS sweep disagrees with the NumPy one")
+
+    # (c) both native libraries built and ran
+    log(f"score (c): files decoded {decodes}, PSDS class sweeps {sweeps}")
+    check(decodes == {"native": SCORE_CLIPS, "python": 0},
+          "(c) every file must go through the native WAV library")
+    check(sweeps["numpy"] == 0 and sweeps["native"] > 0,
+          "(c) every PSDS sweep of the path must run on the native library")
+
+    # (d) the ground truth scores itself; (e) a planted fault fails (d)
+    truth = score_ground_truth(gt, durations, codec, dev)
+    ok = (truth["psds1"] >= GT_PSDS1_MIN and truth["event_f1"]["macro_f1"] == 1.0
+          and truth["event_f1"]["micro_f1"] == 1.0)
+    log(f"score (d): the ground truth as scores: psds1 {truth['psds1']:.6f} (limit >= "
+        f"{GT_PSDS1_MIN}), event F1 macro {truth['event_f1']['macro_f1']:.6f} micro "
+        f"{truth['event_f1']['micro_f1']:.6f} (limit 1): {'within' if ok else 'OUTSIDE'}")
+    check(ok, "(d) the ground truth does not score itself")
+    shifted = score_ground_truth(gt, durations, codec, dev, shift=GT_SHIFT_S)
+    ok = shifted["psds1"] >= GT_PSDS1_MIN and shifted["event_f1"]["macro_f1"] == 1.0
+    log(f"score planted fault, every event {GT_SHIFT_S} s late: psds1 {shifted['psds1']:.6f} "
+        f"(limit >= {GT_PSDS1_MIN}, must be < {GT_SHIFTED_PSDS1_MAX}), event F1 macro "
+        f"{shifted['event_f1']['macro_f1']:.6f}: {'within' if ok else 'OUTSIDE'}")
+    check(not ok and shifted["psds1"] < GT_SHIFTED_PSDS1_MAX,
+          "(e) check (d) let the shifted ground truth through")
+
+    log(f"score path ({card}): {SCORE_CLIPS / path_s:.2f} clips/s from files on disk to "
+        f"PSDS2 ({path_s * 1e3:.1f} ms); host ms: loading {load_ms:.1f} (waits on the "
+        f"loader), decode on the card {decode_ms:.1f}, PSDS1 + PSDS2 sweeps {psds_ms:.1f}; "
+        f"device ms of frontend + model {forward_ms:.1f}; cSEBB + its PSDS1 {sebb_ms:.1f}")
 
 
 # -- phases 5 and 6: the train step ---------------------------------------------
@@ -3693,6 +4010,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         parity(engine, batches)
         log(f"parity phase {time.perf_counter() - t0:.1f} s")
+    if "score" in phases:
+        t0 = time.perf_counter()
+        score(engine if engine is not None else build_engine("cuda", torch.bfloat16))
+        torch.cuda.empty_cache()
+        log(f"score phase {time.perf_counter() - t0:.1f} s")
     trainer = train_batch = None
     if phases & {"train", "timing", "profile"}:
         t0 = time.perf_counter()

@@ -193,7 +193,7 @@ def test_tiny_cnn_matches_jax(activation, normalization):
     params, stats = convert_cnn({f"cnn.{k}": v for k, v in _np_state(port).items()}, "cnn.cnn")
     variables = {"params": params, "batch_stats": stats} if stats else {"params": params}
     mel = _mel(2, seed=4)
-    want = JaxCNN(**cfg).apply(variables, jnp.asarray(mel))
+    want = jit0(JaxCNN(**cfg).apply)(variables, jnp.asarray(mel))
     with torch.no_grad():
         got = port(torch.from_numpy(mel))
     assert got.shape == (2, 8, 50, 1)

@@ -82,9 +82,12 @@ def _xl_data(b, t, h, d, seed=0):
     return q, k, v, bu, bv, p
 
 
-@pytest.mark.parametrize("band", [None, (6, 10, 6, 10)])
+@pytest.mark.parametrize("band", [None, (6, 10)])
 def test_xl_plain_matches_pallas(band):
-    b, t, h, d = 2, 200, 4, 32
+    # four heads unbanded, so that heads beyond the second are held too; the
+    # banded case at two (a band a head), since the Pallas body unrolls its
+    # heads as it traces
+    b, t, h, d = 2, 200, 4 if band is None else len(band), 32
     arrays = _xl_data(b, t, h, d)
     scale = d ** -0.5
     ref = interpret0(_xl_nhd_forward, *map(jnp.asarray, arrays), num_heads=h, sm_scale=scale,
@@ -247,12 +250,14 @@ def test_flash_lse_and_backward_plain_match_pallas(t):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("t,band", [(100, None), (130, (6, 10, 6, 10))])
+@pytest.mark.parametrize("t,band", [(100, None), (130, (6, 10))])
 def test_xl_lse_and_backward_plain_match_pallas(t, band):
     """The plain XL LSE forward and backward against ``_xl_nhd_forward_lse``
     / ``_xl_nhd_backward`` in interpret mode (tests/test_kernels.py:689-732):
-    a ragged T, and a banded case; all six cotangents."""
-    b, h, d = 2, 4, 16
+    a ragged T, and a banded case (a band a head); all six cotangents. Two
+    heads: the Pallas body unrolls its heads, and tracing them is the
+    case's cost."""
+    b, h, d = 2, 2, 16
     arrays = _xl_data(b, t, h, d, seed=3)
     g = np.random.RandomState(4).randn(b, t, h * d).astype(np.float32)
     scale = d ** -0.5
@@ -755,9 +760,9 @@ def test_bias_autograd_matches_jax_vjp():
     arrays = _bias_data(2, 4, 37, 16, seed=3)
     g = np.random.RandomState(4).randn(2, 4, 37, 16).astype(np.float32)
     scale = 16 ** -0.5
-    _, pull = jax.vjp(lambda q, k, v, b: jax_flash.flash_attention_bias(q, k, v, b, scale),
-                      *map(jnp.asarray, arrays))
-    want = pull(jnp.asarray(g))
+    want = jit0(lambda g_, *x: jax.vjp(
+        lambda q, k, v, b: jax_flash.flash_attention_bias(q, k, v, b, scale), *x)[1](g_))(
+            jnp.asarray(g), *map(jnp.asarray, arrays))
     leaves = [torch.from_numpy(x).requires_grad_() for x in arrays]
     port_flash.flash_attention_bias(*leaves, scale).backward(torch.from_numpy(g))
     for name, leaf, w in zip(("dq", "dk", "dv", "dbias"), leaves, want):

@@ -69,14 +69,24 @@ def _np_state(model):
     return {k: v.numpy() for k, v in model.state_dict().items()}
 
 
-def _jax_mask_draws(key, masker, b, t) -> MLMDraws:
-    """The draws ``MLMMasker.__call__`` of the JAX package makes from ``key``."""
+def _mask_draw_arrays(key, masker, b, t):
+    """The draws ``MLMMasker.__call__`` of the JAX package makes from ``key``,
+    as JAX arrays (noise, probs, rand_src)."""
     kmask, kprob, krand = jax.random.split(key, 3)
     n = t if masker.strategy == "random" else t // masker.block_width
-    return MLMDraws(
-        noise=torch.from_numpy(np.array(jax.random.uniform(kmask, (b, n)))),
-        probs=torch.from_numpy(np.array(jax.random.uniform(kprob, (b, t)))),
-        rand_src=torch.from_numpy(np.array(jax.random.randint(krand, (b, t), 0, b * t))).long())
+    return (jax.random.uniform(kmask, (b, n)), jax.random.uniform(kprob, (b, t)),
+            jax.random.randint(krand, (b, t), 0, b * t))
+
+
+def _as_draws(noise, probs, rand_src) -> MLMDraws:
+    return MLMDraws(noise=torch.from_numpy(np.array(noise)),
+                    probs=torch.from_numpy(np.array(probs)),
+                    rand_src=torch.from_numpy(np.array(rand_src)).long())
+
+
+def _jax_mask_draws(key, masker, b, t) -> MLMDraws:
+    """The draws ``MLMMasker.__call__`` of the JAX package makes from ``key``."""
+    return _as_draws(*_mask_draw_arrays(key, masker, b, t))
 
 
 # -- the masker ---------------------------------------------------------------------------
@@ -97,9 +107,12 @@ def test_masker_apply_matches_jax_on_its_draws(strategy, t, style):
     tokens = rng.randn(b, t, c).astype(np.float32)
     token = rng.randn(1, 1, c).astype(np.float32)
     key = jax.random.PRNGKey(t)
-    want, want_ids = jmasker(key, jnp.asarray(tokens), jnp.asarray(token))
+    # the masker and its draws from the same key, in one compiled program
+    (want, want_ids), draws = jit0(lambda k, x, tok: (
+        jmasker(k, x, tok), _mask_draw_arrays(k, masker, b, t)))(
+            key, jnp.asarray(tokens), jnp.asarray(token))
     got, got_ids = masker.apply(torch.from_numpy(tokens), torch.from_numpy(token),
-                                _jax_mask_draws(key, masker, b, t))
+                                _as_draws(*draws))
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     ids = got_ids.numpy()
@@ -153,19 +166,25 @@ def test_patchout_matches_jax_on_its_permutations(monkeypatch):
     port.load_state_dict(shell.backbone.state_dict())
     params, _ = convert_torch_checkpoint(_np_state(shell), "PaSST_SED",
                                          init_kwargs=dict(TINY, mlm=False))
-    seen = []
+    traced = []
     real = jax.random.permutation
 
     def recording(key, n, *a, **kw):
         out = real(key, n, *a, **kw)
-        seen.append(np.asarray(out))
+        traced.append(out)
         return out
 
     monkeypatch.setattr(jax.random, "permutation", recording)
     mel = (np.random.RandomState(2).randn(2, 1, 128, 120) * 0.5).astype(np.float32)
     jmodel = JaxPaSST(tap_layers=(2,), **cfg, **patchout)
-    want = jmodel.apply({"params": params["backbone"]}, jnp.asarray(mel), train=True,
-                        rngs={"patchout": jax.random.PRNGKey(3)})
+
+    def apply(m):  # one compiled program; the draws come out beside the outputs
+        out = jmodel.apply({"params": params["backbone"]}, m, train=True,
+                           rngs={"patchout": jax.random.PRNGKey(3)})
+        return out, list(traced)
+
+    want, draws = jit0(apply)(jnp.asarray(mel))
+    seen = [np.asarray(p) for p in draws]
     assert [len(p) for p in seen] == [11, 12, 10 * 8]  # t, f, then the f-major tokens
     keep = [torch.from_numpy(np.sort(p[:len(p) - drop]).astype(np.int64))
             for p, drop in zip(seen, (3, 2, 17))]
@@ -191,8 +210,9 @@ def test_dropout_and_drop_path_apply_match_flax_on_its_masks(kind):
     rate = 0.3
     x = (np.random.RandomState(4).rand(6, 5, 8) + 0.5).astype(np.float32)  # no zeros
     module = fnn.Dropout(rate) if kind == "dropout" else jax_vit.DropPath(rate)
-    want = np.asarray(module.apply({}, jnp.asarray(x), deterministic=False,
-                                   rngs={"dropout": jax.random.PRNGKey(5)}))
+    want = np.asarray(jit0(lambda v: module.apply({}, v, deterministic=False,
+                                                  rngs={"dropout": jax.random.PRNGKey(5)}))(
+        jnp.asarray(x)))
     kept = want != 0
     if kind == "drop_path":
         kept = kept.all((1, 2), keepdims=True)
