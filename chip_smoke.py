@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,finetune2_serve,finetune2_train  # the sliding windows
     python3 chip_smoke.py --phases kernel_timing  # every kernel's time alone, no build check
     python3 chip_smoke.py --phases build,score  # the test stage's scoring path alone
+    python3 chip_smoke.py --phases build,stages  # the matsed_* stages through the CLI
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
@@ -101,6 +102,29 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      event F1 1), (e) a planted fault (every event 1 s late) fails (d), (f)
      rows 1 and 2 ran 12 and 3 times a batch; prints the path's clips/s and
      its host split beside the card's name and power limit;
+  4b. stages: the recipe CLI (``recipes/cli.py``) in-process on the card at
+     the flagship's full width, from a mini DESED on disk (strong 12, synth
+     4, weak 16, unlabeled 32 clips of ``synthetic_bursts``; validation and
+     test: phase 4a's 48 clips and tables) with configs written from the
+     shipped ``config/mat-sed/pretrain.yaml`` and ``finetune1.yaml`` (only
+     the dataset paths and the epochs changed, each override logged):
+     ``matsed_pretrain`` (1 epoch), ``matsed_finetune`` (1 epoch,
+     warm-started from the pretrain's best student), ``matsed_finetune``
+     again to 2 epochs with ``--resume_ckpt auto``, ``matsed_test``; checks:
+     (a) every stage returns 0 and writes the JAX stage's files, (b) the
+     warm start dropped exactly what ``classifier|at_head|at_pool`` names
+     and loaded every other key bitwise, (c) the second finetune resumed at
+     epoch 1 and ``last_state`` restores into a fresh trainer bitwise, (d)
+     finite losses and PSDS, (e) rows 1, 2, 7, 8, 12 and 13 launched per
+     stage, every train step at least once each of 7, 8, 12 and 13, (f)
+     every batch of the recipes' loaders decoded in one native
+     ``load_wav_batch`` call, (g) the ground truth as scores, through the
+     test stage's tables and PSDS, scores itself, and a planted fault (a
+     test split whose events are 1 s late) fails that; prints each train
+     stage's one-pass wall time and steps/s (its first steps included: a
+     smoke timing) and the validation and test split (device, decode,
+     PSDS sweeps, loader and the rest) beside the card's name and power
+     limit;
   5. train: mean-teacher steps of the same flagship at B=24 (strong 8 |
      weak 8 | unlabeled 8) on seeded synthetic clips and labels, default
      augmentation (fmin/fmax draw, frame shift, mixup p=0.5, two filt_aug
@@ -217,6 +241,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -226,7 +251,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "score", "train", "train_parity",
+PHASES = ("build", "kernels", "serve", "parity", "score", "stages", "train", "train_parity",
           "parallel_train", "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train",
           "htsat_train_parity", "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity",
           "mlm_train", "mlm_train_parity", "masked_decoder", "finetune2_serve", "finetune2_parity",
@@ -1874,6 +1899,405 @@ def score(engine):
         f"loader), decode on the card {decode_ms:.1f}, PSDS1 + PSDS2 sweeps {psds_ms:.1f}; "
         f"device ms of frontend + model {forward_ms:.1f}; cSEBB + its PSDS1 {sebb_ms:.1f}")
 
+
+# -- phase stages: the matsed_* stages through the recipe CLI ---------------------
+
+# the mini DESED's train sources: (folder, clips, seed); validation and test
+# are phase score's 48 clips
+STAGE_SOURCES = (("strong", 12, 11), ("synth", 4, 12), ("weak", 16, 13), ("unlabeled", 32, 14))
+STAGE_SEED = 42  # --random_seed
+DROP_PATTERN = "classifier|at_head|at_pool"  # config/mat-sed/finetune1.yaml:11
+
+
+def write_stage_split(root, codec):
+    """The train sources of a mini DESED under ``root`` (clips of
+    ``synthetic_bursts``, each burst a class in turn, as 16-bit WAV at 32
+    kHz; strong and synth events, weak clip tags, unlabeled clips) and phase
+    score's split under ``root/val``, with a copy of its events table whose
+    events are all 1 s late (``strong_late.tsv``, the planted fault of check
+    (g)). Returns the validation ground truth and durations."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from transformer4sed_tpu_torch.data.tsv import write_tsv
+
+    events = ["filename", "onset", "offset", "event_label"]
+    for name, n, seed in STAGE_SOURCES:
+        (root / name).mkdir(parents=True)
+        clips, bursts = synthetic_bursts(n, seed)
+        rows = []
+        for i, (wav, clip_bursts) in enumerate(zip(clips, bursts)):
+            fname = f"{name}{i:03d}.wav"
+            wavfile.write(root / name / fname, SR,
+                          (np.clip(wav / 4.0, -1.0, 1.0) * 32767).astype(np.int16))
+            dur = len(wav) / SR
+            labels = [codec.labels[(3 * i + j) % len(codec.labels)] for j in range(3)]
+            if name in ("strong", "synth"):
+                rows += [(fname, float(on), float(min(off, dur)), lab)
+                         for (on, off), lab in zip(clip_bursts, labels) if on < dur]
+            elif name == "weak":
+                rows.append((fname, ",".join(sorted(set(labels)))))
+        if name == "weak":
+            write_tsv(str(root / "weak.tsv"), ["filename", "event_labels"], rows)
+        elif rows:
+            write_tsv(str(root / f"{name}.tsv"), events, rows)
+    (root / "val").mkdir()
+    gt, durations = write_score_split(root / "val", codec)
+    late = [(f"{c}.wav", on + GT_SHIFT_S, min(off + GT_SHIFT_S, durations[c]), lab)
+            for c, evs in sorted(gt.items()) for on, off, lab in evs
+            if on + GT_SHIFT_S < durations[c]]
+    write_tsv(str(root / "val" / "strong_late.tsv"), events, late)
+    return gt, durations
+
+
+def stage_config(root, name, tag, overrides):
+    """The shipped ``config/mat-sed/<name>.yaml`` read by the port's YAML
+    reader, the mini DESED's paths and ``overrides`` ({"section.key": value})
+    set and each logged, written as ``root/<tag>.yaml``: its path."""
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+    from transformer4sed_tpu_torch.utils.yamlio import safe_dump
+
+    cfg = load_yaml_with_include(str(ROOT / "config" / "mat-sed" / f"{name}.yaml"))
+    paths = {
+        "dataset.strong_folder": f"{root}/strong", "dataset.strong_tsv": f"{root}/strong.tsv",
+        "dataset.weak_folder": f"{root}/weak", "dataset.weak_tsv": f"{root}/weak.tsv",
+        "dataset.unlabeled_folder": f"{root}/unlabeled",
+        "dataset.val_folder": f"{root}/val/audio", "dataset.val_tsv": f"{root}/val/strong.tsv",
+        "dataset.val_dur": f"{root}/val/durations.tsv",
+        "dataset.test_folder": f"{root}/val/audio", "dataset.test_tsv": f"{root}/val/strong.tsv",
+        "dataset.test_dur": f"{root}/val/durations.tsv",
+        "synth_dataset.synth_train_folder": f"{root}/synth",
+        "synth_dataset.synth_train_tsv": f"{root}/synth.tsv",
+    }
+    for key, value in {**paths, **overrides}.items():
+        *parents, leaf = key.split(".")
+        node = cfg
+        for part in parents:
+            node = node.setdefault(part, {})
+        log(f"stages: {name}.yaml -> {tag}.yaml: {key} = {value!r} (shipped {node.get(leaf)!r})")
+        node[leaf] = value
+    out = root / f"{tag}.yaml"
+    out.write_text(safe_dump(cfg))
+    return str(out)
+
+
+class StageTimes:
+    """Host-clock timers wrapped around the recipe's train epochs, its eval
+    forwards (synchronised), decodes, PSDS sweeps, validations and tests,
+    read per stage."""
+
+    def __init__(self):
+        import collections
+
+        self.t = collections.Counter()
+        self.n = collections.Counter()
+
+    def wrap(self, owner, name, key, sync=False, count=None):
+        import functools
+
+        import torch
+
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync and torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.t[key] += time.perf_counter() - t0
+            self.n[key] += 1 if count is None else count(out, *a)
+            return out
+
+        return timed
+
+
+@contextlib.contextmanager
+def without_tensorflow():
+    """``import tensorflow`` fails inside, so TensorBoard's writer, where it
+    imports, skips TensorFlow, whose import alone takes seconds. Only that
+    entry of ``sys.modules`` is set and restored: ``patch.dict`` would also
+    drop every module imported meanwhile, and torch._dynamo fails to import
+    a second time."""
+    had = "tensorflow" in sys.modules
+    if not had:
+        sys.modules["tensorflow"] = None
+    try:
+        yield
+    finally:
+        if not had:
+            sys.modules.pop("tensorflow", None)
+
+
+def read_log(folder):
+    return (Path(folder) / "log.txt").read_text()
+
+
+def finite_log_numbers(text, pattern):
+    """Every ``name=value`` (or ``train x val y``) number on the log lines
+    matching ``pattern``, as floats."""
+    import re
+
+    nums = []
+    for line in text.splitlines():
+        if re.search(pattern, line):
+            nums += [float(v) for v in re.findall(r"(?:=|: |train |val |': )(-?[0-9.]+(?:e-?\d+)?|nan|inf)", line)]
+    return nums
+
+
+def stages(device="cuda"):
+    """The ``matsed_*`` stages as a user runs them, through
+    ``recipes.cli.main`` on the card, with checks (a) to (g)."""
+    import re
+    import tempfile
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.data import audio_io
+    from transformer4sed_tpu_torch.eval import decode as decode_mod
+    from transformer4sed_tpu_torch.recipes import cli, common, matsed
+    from transformer4sed_tpu_torch.train import mean_teacher, mlm
+    from transformer4sed_tpu_torch.utils import checkpoint
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+    from transformer4sed_tpu_torch.utils.logging import Logger
+    from transformer4sed_tpu_torch.utils.weights import init_weights_, jax_style_path
+
+    card = card_line()
+    dev = torch.device(device)
+    with without_tensorflow(), tempfile.TemporaryDirectory(prefix="t4s_stages_") as tmp:
+        root = Path(tmp)
+        codec = common.codec_from_config(
+            load_yaml_with_include(str(ROOT / "config" / "mat-sed" / "finetune1.yaml")))
+        t0 = time.perf_counter()
+        gt, durations = write_stage_split(root, codec)
+        log(f"stages: mini DESED written in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{n} {k}" for n, k, _ in STAGE_SOURCES) + f", val/test {SCORE_CLIPS}")
+        pre_cfg = stage_config(root, "pretrain", "pretrain", {
+            "training.scheduler.n_epochs": 1, "training.scheduler.n_epochs_cut": 1})
+        ft1_cfg = stage_config(root, "finetune1", "finetune1_e1", {
+            "training.scheduler.n_epochs": 1, "training.scheduler.n_epochs_cut": 1})
+        ft2_cfg = stage_config(root, "finetune1", "finetune1_e2", {
+            "training.scheduler.n_epochs": 2, "training.scheduler.n_epochs_cut": 1})
+        late_cfg = stage_config(root, "finetune1", "finetune1_late", {
+            "training.scheduler.n_epochs": 2, "training.scheduler.n_epochs_cut": 1,
+            "dataset.test_tsv": f"{root}/val/strong_late.tsv"})
+        pre_dir, ft_dir = root / "pretrain", root / "finetune"
+        best_student = str(pre_dir / "best" / "best_student")
+        runs = [
+            ("matsed_pretrain", pre_cfg, pre_dir, []),
+            ("matsed_finetune", ft1_cfg, ft_dir, ["--pretrained_ckpt", best_student]),
+            ("matsed_finetune (resumed)", ft2_cfg, ft_dir,
+             ["--pretrained_ckpt", best_student, "--resume_ckpt", "auto"]),
+            ("matsed_test", ft2_cfg, ft_dir, ["--resume_ckpt", "auto"]),
+            ("matsed_test (1-s-late test split)", late_cfg, root / "test_late",
+             ["--resume_ckpt", str(ft_dir / "best" / "last_state")]),
+        ]
+        times = StageTimes()
+        patches = [
+            unittest.mock.patch.object(matsed.MATSEDTrainer, "train_epoch", times.wrap(
+                matsed.MATSEDTrainer, "train_epoch", "train", count=lambda out, s, *a: len(
+                    s.train_loader))),
+            unittest.mock.patch.object(matsed.MLMTrainer, "train_epoch", times.wrap(
+                matsed.MLMTrainer, "train_epoch", "train", count=lambda out, s, *a: len(
+                    s.train_loader))),
+            unittest.mock.patch.object(matsed.MATSEDTrainer, "_eval_forward", times.wrap(
+                matsed.MATSEDTrainer, "_eval_forward", "forward", sync=True,
+                count=lambda out, s, m, b, k: len(b["filename"]))),
+            unittest.mock.patch.object(matsed, "batched_decode_preds", times.wrap(
+                matsed, "batched_decode_preds", "decode")),
+            unittest.mock.patch.object(matsed, "decode_pred_batch", times.wrap(
+                matsed, "decode_pred_batch", "decode")),
+            unittest.mock.patch.object(matsed, "compute_psds_from_scores", times.wrap(
+                matsed, "compute_psds_from_scores", "psds")),
+            unittest.mock.patch.object(matsed.MATSEDTrainer, "validation", times.wrap(
+                matsed.MATSEDTrainer, "validation", "eval")),
+            unittest.mock.patch.object(matsed.MATSEDTrainer, "test", times.wrap(
+                matsed.MATSEDTrainer, "test", "eval")),
+            unittest.mock.patch.object(matsed.MLMTrainer, "validation", times.wrap(
+                matsed.MLMTrainer, "validation", "eval")),
+        ]
+        results = {}
+        for p in patches:
+            p.start()
+        try:
+            for what, cfg, folder, extra in runs:
+                times.t.clear()
+                times.n.clear()
+                decodes0, batches0 = dict(audio_io.DECODES), dict(audio_io.BATCHES)
+                reset_launches()
+                t0 = time.perf_counter()
+                rc = cli.main([what.split()[0], "--config_dir", cfg, "--save_folder",
+                               str(folder), "--random_seed", str(STAGE_SEED), *extra])
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                results[what] = dict(
+                    rc=rc, seconds=time.perf_counter() - t0, launches=read_launches(),
+                    times=dict(times.t), counts=dict(times.n),
+                    decodes={k: audio_io.DECODES[k] - decodes0.get(k, 0)
+                             for k in ("native", "python")},
+                    batches={k: audio_io.BATCHES[k] - batches0.get(k, 0)
+                             for k in ("native", "python")})
+                log(f"stages: {what} returned {rc} in {results[what]['seconds']:.1f} s")
+        finally:
+            for p in patches:
+                p.stop()
+
+        # (a) every stage returned 0 and wrote the JAX stage's files
+        check(all(r["rc"] == 0 for r in results.values()), "(a) a stage returned non-zero")
+        want_files = {
+            pre_dir: ["log.txt", "config.yaml", "best/best_student"],
+            ft_dir: ["log.txt", "config.yaml", "best/best_student", "best/best_teacher",
+                     "best/best_metric.json", "best/last_state", "best/last_state.prev"],
+            root / "test_late": ["log.txt", "config.yaml"],
+        }
+        for folder, names in want_files.items():
+            missing = [n for n in names if not (folder / n).exists()]
+            check(not missing, f"(a) {folder.name} lacks {missing}")
+        log("stages (a): every stage returned 0; files: "
+            + "; ".join(f"{f.name}: {', '.join(n)}" for f, n in want_files.items()))
+
+        # (b) the warm start: rebuilt as the first finetune built it
+        args = common.build_argparser().parse_args(
+            ["--config_dir", ft1_cfg, "--save_folder", str(root / "unused"),
+             "--random_seed", str(STAGE_SEED), "--pretrained_ckpt", best_student])
+        config = load_yaml_with_include(ft1_cfg)
+        model, _ = cli.build_model(config, dev)
+        fresh = {k: v.clone() for k, v in init_weights_(model, seed=STAGE_SEED).state_dict().items()}
+        quiet = Logger("t4s_stages_check")
+        warm = cli.load_pretrained(model, config, args, quiet, dev).state_dict()
+        quiet.close()
+        ckpt = checkpoint.restore_params(best_student)
+        matched = sorted(k for k in fresh if k in ckpt and ckpt[k].shape == fresh[k].shape)
+        dropped = [k for k in matched if re.search(DROP_PATTERN, jax_style_path(k, ckpt[k].dim()))]
+        loaded = [k for k in matched if k not in dropped]
+        kept = [k for k in fresh if k not in loaded]
+        check(dropped == ["classifier.bias", "classifier.weight"],
+              f"(b) the warm start dropped {dropped}")
+        check(all(torch.equal(warm[k].cpu(), ckpt[k]) for k in loaded),
+              "(b) a loaded key differs from the checkpoint")
+        check(all(torch.equal(warm[k].cpu(), fresh[k]) for k in kept),
+              "(b) a dropped or missing key is not the seeded init")
+        line = re.search(r"warm start: (\d+) of (\d+) keys loaded, dropped (\[.*\])",
+                         read_log(ft_dir)).groups()
+        check(int(line[0]) == len(loaded) and int(line[1]) == len(fresh)
+              and line[2] == str(dropped), f"(b) the stage logged {line}")
+        log(f"stages (b): the warm start dropped {dropped} (JAX paths matched by "
+            f"{DROP_PATTERN!r}), loaded {len(loaded)} of {len(fresh)} keys bitwise, kept "
+            f"{len(kept) - len(dropped)} of the finetune model's own (the AT adapter) at the "
+            "seeded init; the stage's log agrees")
+        del model, warm, fresh
+
+        # (c) the resume, and last_state restored into a fresh trainer bitwise
+        ft_log = read_log(ft_dir)
+        check(re.search(r"resumed from \S+last_state at step 4 \(epoch 1\)", ft_log),
+              "(c) the second finetune did not log a resume at epoch 1")
+        stage = cli.setup(["matsed_finetune", "--config_dir", ft2_cfg, "--save_folder",
+                           str(root / "restore_check"), "--random_seed", str(STAGE_SEED)])
+        trainer = cli.finetune_trainer(stage)
+        stage.logger.close()
+        trainer.restore_state(str(ft_dir / "best" / "last_state"))
+        saved = torch.load(ft_dir / "best" / "last_state", weights_only=True)
+        got = trainer.trainer.state_dict()
+        n_equal = 0
+        for part in ("student", "teacher"):
+            for k, v in saved[part].items():
+                check(torch.equal(got[part][k].cpu(), v), f"(c) {part} {k} differs")
+                n_equal += 1
+        for pid, st in saved["optimizer"]["state"].items():
+            for k, v in st.items():
+                check(torch.equal(got["optimizer"]["state"][pid][k].cpu(), v),
+                      f"(c) AdamW {k} of param {pid} differs")
+                n_equal += 1
+        check(got["scheduler"] == saved["scheduler"] and got["step"] == saved["step"] == 8,
+              f"(c) scheduler or step differ ({got['step']}, {saved['step']})")
+        log(f"stages (c): resumed at step 4 (epoch 1); last_state (step {saved['step']}) "
+            f"restored into a fresh trainer: {n_equal} tensors (student, teacher, AdamW "
+            "moments and steps) bitwise, scheduler and step equal")
+        del trainer, got, saved, stage
+
+        # (d) finite losses and PSDS
+        pre_nums = finite_log_numbers(read_log(pre_dir), r"INFO epoch \d+: train")
+        ft_nums = finite_log_numbers(ft_log, r"INFO (epoch \d+: \w+=|val epoch|test \()")
+        late_nums = finite_log_numbers(read_log(root / "test_late"), r"INFO test \(")
+        check(len(pre_nums) == 2 and len(ft_nums) > 30 and len(late_nums) == 2
+              and all(np.isfinite(v) for v in pre_nums + ft_nums + late_nums),
+              "(d) a loss or a PSDS is not finite")
+        val_lines = re.findall(r"val epoch (\d): (.*)", ft_log)
+        test_lines = re.findall(r"test \(median\): (.*)", ft_log)
+        log(f"stages (d): {len(pre_nums) + len(ft_nums) + len(late_nums)} logged losses and "
+            f"metrics, all finite; pretrain {re.findall(r'epoch 1: (train .*)', read_log(pre_dir))}; "
+            f"validation {val_lines}; test {test_lines} (seeded random weights)")
+
+        # (e) launches per stage
+        names = {"row 1": "flash_attention_nhd", "row 2": "flash_xl_attention_nhd",
+                 "row 7": "flash_attention_nhd_lse", "row 8": "flash_attention_nhd_backward",
+                 "row 12": "flash_xl_attention_nhd_lse",
+                 "row 13": "flash_xl_attention_nhd_backward"}
+        train_rows = ("row 7", "row 8", "row 12", "row 13")
+        for what, r in results.items():
+            steps = r["counts"].get("train", 0)
+            per = {row: r["launches"][fn] for row, fn in names.items()}
+            others = {k: v for k, v in r["launches"].items() if v and k not in names.values()
+                      and not k.startswith(("flash_bwd_", "flash_xl_bwd_"))}
+            log(f"stages (e): {what}: launches {per}"
+                + (f", a train step: " + ", ".join(
+                    f"{row} {per[row] / steps:g}" for row in train_rows) if steps else "")
+                + f"; {steps} train steps")
+            check(not others, f"(e) {what} launched {others}")
+            if steps:
+                check(all(per[row] >= steps for row in train_rows),
+                      f"(e) {what}: a train step without rows 7, 8, 12 and 13")
+            else:
+                check(all(per[row] == 0 for row in train_rows) and per["row 1"] > 0
+                      and per["row 2"] > 0, f"(e) {what}: the test stage ran {per}")
+
+        # (f) the loaders' decodes
+        for what, r in results.items():
+            check(r["decodes"]["python"] == 0 and r["batches"]["python"] == 0
+                  and r["batches"]["native"] > 0,
+                  f"(f) {what}: decodes {r['decodes']}, batch calls {r['batches']}")
+        log("stages (f): every file through load_wav_batch's one native call a batch: "
+            + "; ".join(f"{w}: {r['batches']['native']} calls, {r['decodes']['native']} files"
+                        for w, r in results.items()))
+
+        # (g) the ground truth as scores through the test stage's tables and PSDS
+        val_gt = common.load_ground_truth(str(root / "val" / "strong.tsv"))
+        val_dur = common.load_durations(str(root / "val" / "durations.tsv"))
+        names_, truth, weak = truth_scores(gt, durations, codec)
+        _, post = decode_mod.batched_decode_preds(
+            torch.from_numpy(truth).to(dev), [f"{c}.wav" for c in names_], codec, filter=None,
+            weak_preds=torch.from_numpy(weak).to(dev), need_weak_mask=True)
+        outcome = {}
+        for tag, cfg in (("the test split", ft2_cfg), ("the 1-s-late test split", late_cfg)):
+            config = load_yaml_with_include(cfg)
+            test_gt, test_dur, _ = matsed.load_test_tables(config, val_gt, val_dur)
+            psds1, psds2, _ = matsed.psds_of(post, test_gt, test_dur)
+            ok = psds1 >= GT_PSDS1_MIN
+            outcome[tag] = ok
+            log(f"stages (g): the ground truth as scores against {tag}'s tables (matsed_test's "
+                f"load_test_tables and PSDS): psds1 {psds1:.6f}, psds2 {psds2:.6f} (limit psds1 "
+                f">= {GT_PSDS1_MIN}): {'within' if ok else 'OUTSIDE'}")
+        check(outcome["the test split"], "(g) the ground truth does not score itself")
+        check(not outcome["the 1-s-late test split"],
+              "(g) the check let the 1-s-late test split through")
+
+    # steps/s and the evaluation split
+    for what, r in results.items():
+        t, n = r["times"], r["counts"]
+        rest = t.get("eval", 0.0) - t.get("forward", 0.0) - t.get("decode", 0.0) - t.get(
+            "psds", 0.0)
+        train = (f"{n['train']} train steps in {t['train']:.2f} s, one pass: "
+                 f"{n['train'] / t['train']:.3f} steps/s (the stage's first steps, loader "
+                 "waits and the loss read each step included; a smoke timing, not a steady "
+                 "rate); " if n.get("train") else "")
+        split = (f" over {n['forward']} clip forwards: device (frontend + model, "
+                 f"synchronised) {t['forward']:.2f} s, decode {t.get('decode', 0.0):.2f} s, PSDS "
+                 f"sweeps {t.get('psds', 0.0):.2f} s, loader and the rest {rest:.2f} s"
+                 if n.get("forward") else " (the masked-reconstruction loss, loader included)")
+        log(f"stages ({card}): {what}: {r['seconds']:.1f} s in all; {train}evaluation "
+            f"{t.get('eval', 0.0):.2f} s{split}")
 
 # -- phases 5 and 6: the train step ---------------------------------------------
 
@@ -4015,6 +4439,11 @@ def main(argv=None) -> int:
         score(engine if engine is not None else build_engine("cuda", torch.bfloat16))
         torch.cuda.empty_cache()
         log(f"score phase {time.perf_counter() - t0:.1f} s")
+    if "stages" in phases:
+        t0 = time.perf_counter()
+        stages()
+        torch.cuda.empty_cache()
+        log(f"stages phase {time.perf_counter() - t0:.1f} s")
     trainer = train_batch = None
     if phases & {"train", "timing", "profile"}:
         t0 = time.perf_counter()

@@ -235,10 +235,14 @@ def test_flash_lse_and_backward_plain_match_pallas(t):
     g = np.random.RandomState(t).randn(b, t, h * d).astype(np.float32)
     scale = d ** -0.5
     jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
-    o, lse = interpret0(jax_flash._flash_nhd_forward_lse, jq, jk, jv, heads=h, sm_scale=scale,
-                        block_q=128)
-    grads = interpret0(jax_flash._flash_nhd_backward, jq, jk, jv, o, lse, jg, heads=h,
-                       sm_scale=scale, block_q=128)
+    kw = dict(heads=h, sm_scale=scale, block_q=128)
+
+    def fwd_bwd(q_, k_, v_, g_, interpret):  # both kernels in one program: one compile
+        o_, lse_ = jax_flash._flash_nhd_forward_lse(q_, k_, v_, interpret=interpret, **kw)
+        return o_, lse_, jax_flash._flash_nhd_backward(q_, k_, v_, o_, lse_, g_,
+                                                       interpret=interpret, **kw)
+
+    o, lse, grads = interpret0(fwd_bwd, jq, jk, jv, jg)
     tq, tk, tv, tg = _t(q, k, v, g)
     ours_o, ours_lse = port_flash.flash_attention_nhd_lse(tq, tk, tv, h, scale)
     np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
@@ -641,8 +645,13 @@ def test_window_plain_versions_match_pallas(bnw, n, h, d, n_windows, shifted):
     jshift = jnp.asarray(shift) if shifted else None
     jq, jk, jv, jbias, jg = map(jnp.asarray, (q, k, v, bias, g))
     kw = dict(n_windows=n_windows, sm_scale=scale)
-    out = interpret0(jax_window._window_forward, jq, jk, jv, jbias, jshift, **kw)
-    want = interpret0(jax_window._window_backward, jq, jk, jv, out, jg, jbias, jshift, **kw)
+
+    def fwd_bwd(q_, k_, v_, g_, b_, s_, interpret):  # both kernels in one program: one compile
+        o_ = jax_window._window_forward(q_, k_, v_, b_, s_, interpret=interpret, **kw)
+        return o_, jax_window._window_backward(q_, k_, v_, o_, g_, b_, s_, interpret=interpret,
+                                               **kw)
+
+    out, want = interpret0(fwd_bwd, jq, jk, jv, jg, jbias, jshift)
     tq, tk, tv, tbias, tg, tout = _t(q, k, v, bias, g, out)
     tshift = torch.from_numpy(shift) if shifted else None
     ours = port_window.window_attention(tq, tk, tv, tbias, tshift, n_windows, scale)
@@ -739,7 +748,7 @@ def test_bias_plain_matches_pallas_and_xla(t):
     scale = 16 ** -0.5
     pallas = np.asarray(interpret0(jax_flash._flash_bias_forward, *map(jnp.asarray, arrays),
                                    sm_scale=scale, block_q=64, block_k=64))
-    xla = jax_flash._xla_attention_bias(*map(jnp.asarray, arrays), scale)
+    xla = jit0(lambda *x: jax_flash._xla_attention_bias(*x, scale))(*map(jnp.asarray, arrays))
     ours = port_flash.flash_attention_bias_reference(*map(torch.from_numpy, arrays), scale)
     np.testing.assert_allclose(ours.numpy(), np.asarray(xla), atol=ATOL)
     full = (arrays[3] <= -1e30).all(-1)  # row 1, and narrow bands in batch 0's masked tail

@@ -84,9 +84,16 @@ def _as_draws(noise, probs, rand_src) -> MLMDraws:
                     rand_src=torch.from_numpy(np.array(rand_src)).long())
 
 
+_MASK_DRAW_PROGRAMS = {}
+
+
 def _jax_mask_draws(key, masker, b, t) -> MLMDraws:
-    """The draws ``MLMMasker.__call__`` of the JAX package makes from ``key``."""
-    return _as_draws(*_mask_draw_arrays(key, masker, b, t))
+    """The draws ``MLMMasker.__call__`` of the JAX package makes from ``key``
+    (one program per masker shape)."""
+    sig = (masker.strategy, masker.block_width, b, t)
+    if sig not in _MASK_DRAW_PROGRAMS:
+        _MASK_DRAW_PROGRAMS[sig] = jit0(lambda k: _mask_draw_arrays(k, masker, b, t))
+    return _as_draws(*_MASK_DRAW_PROGRAMS[sig](key))
 
 
 # -- the masker ---------------------------------------------------------------------------

@@ -401,7 +401,7 @@ def _step_setup():
     rng = np.random.RandomState(11)
     batch = {"wav": jnp.asarray(_mel(4, seed=11)),
              "labels": jnp.asarray((rng.rand(4, 2, 120) > 0.7).astype(np.float32))}
-    state = jax_mt.create_mean_teacher_state(params, tx)
+    state = jit0(lambda p: jax_mt.create_mean_teacher_state(p, tx))(params)
     offsets = []
     step = _compile_recording_offsets(
         jax_mt.make_mean_teacher_step(apply, _IdentityFrontend(), tx, jcfg),

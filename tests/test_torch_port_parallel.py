@@ -12,8 +12,9 @@ against the JAX package on the CPU.
     phases over 2 ranks (1 / dp2 / dp1 x tp2) and over 4 (1 / dp4 /
     dp2 x tp2) at the JAX harness's tolerances, head-parallel attention
     gathered over the heads, the state dict gathered after ``shard_params``,
-    global-batch BatchNorm statistics against the JAX ``RefBatchNorm``, and
-    the one-rank trajectory against the port's plain ``MeanTeacherTrainer``.
+    global-batch BatchNorm statistics against the JAX ``RefBatchNorm``, the
+    one-rank trajectory against the port's plain ``MeanTeacherTrainer``, and
+    the MLM step over dp2 against one rank.
 
 Inputs come from numpy or torch with a seed; everything is float32.
 """
@@ -35,9 +36,10 @@ from transformer4sed_tpu.utils.torch_import import convert_torch_checkpoint
 from transformer4sed_tpu_torch.kernels import _build
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
 from transformer4sed_tpu_torch.models.cnn import BatchRows, draw_dropout
+from transformer4sed_tpu_torch.models.mlm import MLMMasker
 from transformer4sed_tpu_torch.models.vit import Block
 from transformer4sed_tpu_torch.parallel import Mesh, device_prefetch, dryrun, multihost, put_batch
-from transformer4sed_tpu_torch.parallel.mesh import per_row_draws, shard_train_step
+from transformer4sed_tpu_torch.parallel.mesh import shard_train_step
 from transformer4sed_tpu_torch.parallel.partition import partition_specs
 from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherTrainer
 from transformer4sed_tpu_torch.utils.weights import jax_params_to_state_dict
@@ -53,6 +55,9 @@ RTOL, ATOL = 1e-5, 1e-6
 ATOL_GRAD = 1e-5
 # the one-rank layout runs the plain trainer's code with one-rank collectives
 RTOL_SAME_CODE = 1e-6
+# the MLM step over dp2 against one rank: the same draws and math, the loss's
+# and the gradients' sums split over two ranks (a few f32 ulps a step)
+MLM_DP_RTOL = 1e-5
 # BatchNorm statistics, two-pass f32 on both sides, the sums split over ranks
 # here: a few ulps. On inputs with |mean| / std near 10 the one-pass
 # E[x^2] - E[x]^2 misses the variance by 1.7e-5 to 1.9e-5 relative (dp2, dp4)
@@ -90,10 +95,15 @@ def test_head_major_plain_versions_match_pallas(t, h, d):
     q, k, v, g = _hm(2, h, t, d, seed=t + d)
     scale = d ** -0.5
     jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
-    ref = interpret0(jax_flash._flash_forward, jq, jk, jv, sm_scale=scale)
-    o, lse = interpret0(jax_flash._flash_forward_lse, jq, jk, jv, sm_scale=scale, block_q=128)
-    grads = interpret0(jax_flash._flash_backward, jq, jk, jv, o, lse, jg, sm_scale=scale,
-                       block_q=128)
+
+    def kernels(q_, k_, v_, g_, interpret):  # the three kernels in one program: one compile
+        ref_ = jax_flash._flash_forward(q_, k_, v_, sm_scale=scale, interpret=interpret)
+        o_, lse_ = jax_flash._flash_forward_lse(q_, k_, v_, sm_scale=scale, block_q=128,
+                                                interpret=interpret)
+        return ref_, o_, lse_, jax_flash._flash_backward(q_, k_, v_, o_, lse_, g_, sm_scale=scale,
+                                                         block_q=128, interpret=interpret)
+
+    ref, o, lse, grads = interpret0(kernels, jq, jk, jv, jg)
     tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
     np.testing.assert_allclose(port_flash.flash_attention_reference(tq, tk, tv).numpy(),
                                np.asarray(ref), rtol=RTOL, atol=ATOL)
@@ -238,14 +248,28 @@ def test_batch_rows_give_every_rank_an_equal_share_of_each_subset():
 def test_dropout_masks_follow_the_global_batch_only_where_drawn_for_it():
     """A CNN dropout mask drawn with this rank's ``BatchRows`` is those rows
     of the global batch's mask; a mask that does not lead with those rows
-    raises; ``shard_train_step`` refuses a model with other per-row draws
-    over more than one data rank, and takes it over one."""
+    raises; a ViT block's dropout and DropPath and the MLM masker's draws
+    given the rows are those rows of the global batch's draws (the masker's
+    random tokens index the global batch); ``shard_train_step`` takes a
+    model with such draws over one data rank and over two."""
     rows = BatchRows(torch.tensor([2, 3, 5, 7]), 8)
     whole = draw_dropout(torch.Generator().manual_seed(0), (8, 5, 3), 0.5, "cpu")
     part = draw_dropout(torch.Generator().manual_seed(0), (4, 5, 3), 0.5, "cpu", rows)
     assert torch.equal(part, whole[rows.index])
     with pytest.raises(ValueError, match="rows of the global batch"):
         draw_dropout(torch.Generator().manual_seed(0), (5, 4, 3), 0.5, "cpu", rows)
+    block = Block(8, 2, drop=0.3, drop_path=0.5).train()
+    x = torch.randn(8, 6, 8, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        full = block(x, True, torch.Generator().manual_seed(2))
+        mine = block(x[rows.index], True, torch.Generator().manual_seed(2), rows)
+    assert torch.equal(mine, full[rows.index])
+    masker = MLMMasker(block_width=2)
+    full_draws = masker.draw(torch.Generator().manual_seed(3), 8, 6)
+    my_draws = masker.draw(torch.Generator().manual_seed(3), 4, 6, rows)
+    for a, b in zip((full_draws.noise, full_draws.probs, full_draws.rand_src),
+                    (my_draws.noise, my_draws.probs, my_draws.rand_src)):
+        assert torch.equal(b, a[rows.index])
 
     class Trainer:
         def __init__(self, model):
@@ -262,12 +286,9 @@ def test_dropout_masks_follow_the_global_batch_only_where_drawn_for_it():
                     world_group=None, data_group=None, model_group=None,
                     device=torch.device("cpu"))
 
-    block = Block(8, 2, drop=0.1)
-    assert per_row_draws(block) == ["attn.proj_drop", "mlp.drop"] and per_row_draws(Block(8, 2)) == []
-    with pytest.raises(NotImplementedError, match="attn.proj_drop"):
-        shard_train_step(Trainer(block), mesh(2))
-    trainer = Trainer(block)
-    assert shard_train_step(trainer, mesh(1)) == trainer.step and trainer.mesh.data == 1
+    for data in (1, 2):
+        trainer = Trainer(block)
+        assert shard_train_step(trainer, mesh(data)) == trainer.step and trainer.mesh.data == data
 
 
 # -- the gloo ranks ----------------------------------------------------------------------
@@ -322,6 +343,19 @@ def test_one_rank_trajectory_equals_the_plain_trainer(ranks):
     got = ranks.result()[2]["mean_teacher"]["1dev"]
     np.testing.assert_allclose(got["losses"], losses, rtol=RTOL_SAME_CODE)
     np.testing.assert_allclose(got["p_norm"], float(params.norm()), rtol=RTOL_SAME_CODE)
+
+
+def test_mlm_step_over_two_data_ranks_equals_one_rank(ranks):
+    """The MLM step with the masker, dropout, DropPath and token dropout
+    drawing (``dryrun.mlm_model``): over dp2 (each rank its rows, the draws
+    for the global batch, the masker's random tokens gathered from both
+    ranks) against one rank on the same global batch and generators, two
+    steps: losses and the param norm after them."""
+    r = ranks.result()[2]["mlm"]
+    one, dp2 = r["1dev"], r["dp2"]
+    np.testing.assert_allclose(dp2["losses"], one["losses"], rtol=MLM_DP_RTOL)
+    np.testing.assert_allclose(dp2["p_norm"], one["p_norm"], rtol=MLM_DP_RTOL)
+    assert one["losses"][0] != one["losses"][1]
 
 
 @pytest.mark.parametrize("n", [2, 4])

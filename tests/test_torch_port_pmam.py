@@ -287,7 +287,7 @@ def _trajectory_setup(tiny):
     tx, _ = jax_optim.build_optimizer(params, jopt)
     step_fn = jax.jit(jax_mt.make_mean_teacher_step(
         make_model_apply(jmodel, True), _IdentityFrontend(), tx, jcfg, model_state_aware=True))
-    state = jax_mt.create_mean_teacher_state(params, tx, model_state)
+    state = jit0(lambda p, ms: jax_mt.create_mean_teacher_state(p, tx, ms))(params, model_state)
     rng = np.random.RandomState(5)
     mel = _mel(4, seed=5)
     labels = (rng.rand(4, 3, FRAMES) > 0.7).astype(np.float32)

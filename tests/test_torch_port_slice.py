@@ -190,7 +190,8 @@ def test_entry_points_default_to_the_card():
         InferenceEngine(model, PasstFrontend(device="cpu"), codec, [5, 5])
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
+# the JAX stack, and the JAX package's host libraries the card's machine lacks
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml"}
 
 
 def _top_level_imports(path: Path):
@@ -208,6 +209,8 @@ def test_port_and_chip_smoke_import_no_jax():
              if "_build" not in p.relative_to(pkg).parts]  # build outputs, not sources
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    assert {pkg / "recipes" / f"{m}.py" for m in ("cli", "common", "matsed")} | {
+        pkg / "utils" / f"{m}.py" for m in ("checkpoint", "logging")} <= set(files)
     for path in files:
         for name in _top_level_imports(path):
             assert name not in FORBIDDEN and name != "transformer4sed_tpu", (path, name)

@@ -66,7 +66,7 @@ def tiny():
 def test_loss_factory_matches_jax_with_finite_gradients(name, kwargs):
     pred = np.array([[1e-7, 1.0, 0.03, 0.3], [0.999, 0.05, 0.5, 1.0 - 1e-7]], np.float32)
     target = np.array([[0.0, 1.0, 0.5, 1.0], [1.0, 0.0, 0.2, 0.7]], np.float32)
-    want, jgrad = jax.value_and_grad(jax_losses.loss_function_factory(name, kwargs))(
+    want, jgrad = jit0(jax.value_and_grad(jax_losses.loss_function_factory(name, kwargs)))(
         jnp.asarray(pred), jnp.asarray(target))
     p = torch.from_numpy(pred).requires_grad_()
     got = losses.loss_function_factory(name, kwargs)(p, torch.from_numpy(target))
@@ -204,7 +204,7 @@ def _trajectory_setup(tiny):
     tx, _ = jax_optim.build_optimizer(variables["params"], jopt)
     step_fn = jax.jit(jax_recipe.make_supervised_step(
         make_model_apply(jmodel, True), _IdentityFrontend(), tx, jcfg))
-    state = MLMState(params=variables["params"], opt_state=tx.init(variables["params"]),
+    state = MLMState(params=variables["params"], opt_state=jit0(tx.init)(variables["params"]),
                      step=jnp.zeros((), jnp.int32),
                      model_state={"batch_stats": variables["batch_stats"]})
     rng = np.random.RandomState(12)

@@ -77,7 +77,7 @@ def test_bce_and_mse_match_jax_with_finite_gradients_at_saturation():
     target = np.array([[0.0, 1.0, 0.5, 1.0], [1.0, 0.0, 0.2, 0.7]], np.float32)
     for name in ("bce", "mse"):
         jf = getattr(jax_losses, name)
-        want, jgrad = jax.value_and_grad(jf)(jnp.asarray(pred), jnp.asarray(target))
+        want, jgrad = jit0(jax.value_and_grad(jf))(jnp.asarray(pred), jnp.asarray(target))
         p = torch.from_numpy(pred).requires_grad_()
         got = getattr(losses, name)(p, torch.from_numpy(target))
         got.backward()
@@ -101,7 +101,9 @@ def test_ramps_and_schedules_match_jax():
     ]
     for ours, ref, args in pairs:
         got = [ours(s, *args) for s in steps]
-        want = [float(ref(s, *args)) for s in steps]
+        # every step in one compiled call of the JAX function
+        want = jit0(jax.vmap(lambda s, ref=ref, args=args: ref(s, *args)))(
+            jnp.asarray(steps, jnp.float32))
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7, err_msg=repr(ours))
 
 
@@ -109,8 +111,9 @@ def test_ema_consistency_weight_and_pooled_labels_match_jax():
     rng = np.random.RandomState(0)
     stu = [rng.randn(3, 4).astype(np.float32), rng.randn(5).astype(np.float32)]
     tch = [rng.randn(3, 4).astype(np.float32), rng.randn(5).astype(np.float32)]
+    jax_ema_update = jit0(lambda s, t, step: jax_ema.ema_update(s, t, step, 0.999))
     for step in (1, 2, 7, 5000):
-        want = jax_ema.ema_update(stu, tch, step, 0.999)
+        want = jax_ema_update(stu, tch, np.float32(step))
         got = [torch.from_numpy(t.copy()) for t in tch]
         ema.ema_update([torch.from_numpy(s) for s in stu], got, step, 0.999)
         for g, w in zip(got, want):
@@ -120,12 +123,14 @@ def test_ema_consistency_weight_and_pooled_labels_match_jax():
                                        w_cons_min=0.5)
         pcfg = mt.MeanTeacherConfig(self_loss_warmup_steps=10, cons_scheduler=sched,
                                     w_cons_min=0.5)
-        for step in (0, 1, 5, 9, 10, 30):
-            np.testing.assert_allclose(mt.consistency_weight(step, pcfg),
-                                       float(jax_mt.consistency_weight(step, cfg)), rtol=1e-6)
+        steps = (0, 1, 5, 9, 10, 30)
+        want = jit0(jax.vmap(lambda s, cfg=cfg: jax_mt.consistency_weight(s, cfg)))(
+            jnp.asarray(steps, jnp.float32))
+        for step, w in zip(steps, np.asarray(want)):
+            np.testing.assert_allclose(mt.consistency_weight(step, pcfg), float(w), rtol=1e-6)
     labels = (rng.rand(3, 2, 12) > 0.6).astype(np.float32)
     np.testing.assert_allclose(mt.pool_strong_labels(torch.from_numpy(labels)).numpy(),
-                               np.asarray(jax_mt.pool_strong_labels(jnp.asarray(labels))),
+                               np.asarray(jit0(jax_mt.pool_strong_labels)(jnp.asarray(labels))),
                                atol=ATOL_ELEM)
 
 
@@ -217,15 +222,24 @@ def _jax_filt_draw(key, b, n_freq, lo=3, hi=6, min_bw=6, filter_type="step",
                                torch.from_numpy(fdb.astype(np.float32)))
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
 def _filt_draws(key, b, n_freq, lo, hi, min_bw, linear):
-    kn, kb, kf = jax.random.split(key, 3)
-    raws = []
-    for nb in range(lo, hi):
-        mbw = augment._eff_min_bw(n_freq, nb, min_bw)
-        raws.append(jax.random.randint(kb, (nb - 1,), 0, n_freq - nb * mbw + 1))
-    return (jax.random.randint(kn, (), lo, hi), raws,
-            jax.random.uniform(kf, (b, hi - 1 + linear)))
+    return _filt_draws_program(b, n_freq, lo, hi, min_bw, linear)(key)
+
+
+@functools.lru_cache(maxsize=None)
+def _filt_draws_program(b, n_freq, lo, hi, min_bw, linear):
+    """The filt_aug draws of a key for these static sizes, one program."""
+
+    def draws(key):
+        kn, kb, kf = jax.random.split(key, 3)
+        raws = []
+        for nb in range(lo, hi):
+            mbw = augment._eff_min_bw(n_freq, nb, min_bw)
+            raws.append(jax.random.randint(kb, (nb - 1,), 0, n_freq - nb * mbw + 1))
+        return (jax.random.randint(kn, (), lo, hi), raws,
+                jax.random.uniform(kf, (b, hi - 1 + linear)))
+
+    return jit0(draws)
 
 
 @pytest.mark.parametrize("filter_type", ["step", "linear"])
@@ -336,7 +350,7 @@ def test_build_optimizer_matches_jax_two_steps(tiny):
     model = PaSST_SED(**TINY, device="cpu")
     model.load_state_dict(port.state_dict())
     opt, sched, _ = optim.build_optimizer(model, pcfg, schedule=psched)
-    state = tx.init(params)
+    state = jit0(tx.init)(params)
     update = jax.jit(lambda g, st, p: (lambda u, st2: (optax.apply_updates(p, u), st2))(
         *tx.update(g, st, p)))
     jparams = params
@@ -400,7 +414,7 @@ def _trajectory_setup(tiny):
         return jmodel.apply({"params": p}, m, train=train, rngs=rngs, **kw)
 
     step_fn = jax.jit(jax_mt.make_mean_teacher_step(apply, _IdentityFrontend(), tx, jcfg))
-    state = jax_mt.create_mean_teacher_state(params, tx)
+    state = jit0(lambda p: jax_mt.create_mean_teacher_state(p, tx))(params)
     batch = {"wav": jnp.asarray(mel), "labels": jnp.asarray(labels)}
     compiled = step_fn.lower(state, batch, jax.random.PRNGKey(0)).compile(OPT0)
     fwd = jax.jit(lambda p, m: jmodel.apply({"params": p}, m, temp_w=0.5))

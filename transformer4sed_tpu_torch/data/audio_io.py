@@ -10,7 +10,8 @@ Python path is scipy.io.wavfile / the pure-Python FLAC decoder
 (``data/flac.py``) and scipy's ``resample_poly``, chosen on the magic bytes.
 ``native=False`` takes the Python path (the JAX package's
 ``T4S_DISABLE_NATIVE_WAV``); files the native library rejects are redone
-through it. ``DECODES`` counts the files each path decoded.
+through it. ``DECODES`` counts the files each path decoded, ``BATCHES`` the
+calls of :func:`load_wav_batch` by path.
 """
 
 from __future__ import annotations
@@ -28,12 +29,14 @@ from transformer4sed_tpu_torch.native.build import load_wav_core
 
 # files decoded by each path, "native" and "python" (loader threads count too)
 DECODES: collections.Counter = collections.Counter()
+# calls of load_wav_batch, "native" (one C call) and "python" (file by file)
+BATCHES: collections.Counter = collections.Counter()
 _DECODES_LOCK = threading.Lock()
 
 
-def _count(path: str, n: int = 1) -> None:
+def _count(path: str, n: int = 1, counter: collections.Counter = DECODES) -> None:
     with _DECODES_LOCK:
-        DECODES[path] += n
+        counter[path] += n
 
 
 def to_mono(wav: np.ndarray) -> np.ndarray:
@@ -127,12 +130,12 @@ def load_wav_batch(paths, pad_to: int, codec, n_threads: int = 8, native: bool =
     With the native library, one C call decodes and resamples the whole
     batch on a thread pool with the GIL released (ctypes), and only the
     files it rejects are redone through the Python path. Without it, each
-    file goes through :func:`waveform_modification`. The datasets decode
-    file by file through :func:`waveform_modification`; this batch entry
-    waits for the recipes' loader to call it."""
+    file goes through :func:`waveform_modification`. ``data/loader.py``'s
+    batches decode through it."""
     paths = [str(p) for p in paths]
     n = len(paths)
     lib = load_wav_core() if native and n else None
+    _count("native" if lib is not None else "python", counter=BATCHES)
     if lib is not None:
         out = np.empty((n, pad_to), dtype=np.float32)
         true_len = np.zeros(n, dtype=np.int64)

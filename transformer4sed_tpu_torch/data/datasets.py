@@ -13,6 +13,11 @@ DataFrames. Same data contract as the reference datasets
   * unlabeled: a directory glob of wavs, all-zero labels;
   * frame-wise: one TSV per clip with per-frame soft labels (PMAM
     pseudo-labels, columns [onset offset class...]).
+
+A dataset item decodes its file alone (``__getitem__``); :func:`load_samples`
+decodes the files of a whole batch in one call of
+``data/audio_io.py:load_wav_batch`` (``data/loader.py:DataLoader``), from
+each item's :meth:`entry`.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from transformer4sed_tpu_torch.core.codec import LabelCodec
-from transformer4sed_tpu_torch.data.audio_io import waveform_modification
+from transformer4sed_tpu_torch.data.audio_io import load_wav_batch, waveform_modification
 from transformer4sed_tpu_torch.data.tsv import Table, read_tsv
 
 
@@ -39,13 +44,31 @@ class _ClipDataset:
     def pad_to(self) -> int:
         return int(self.codec.audio_len * self.codec.sr)
 
-    def _sample(self, idx: int, path: str, filename: str, label: np.ndarray) -> Dict:
+    def __getitem__(self, idx: int) -> Dict:
+        path, filename, label = self.entry(idx)
         wav, pad_mask = waveform_modification(path, self.pad_to, self.codec)
+        return self._sample(idx, path, filename, label, wav, pad_mask)
+
+    def _sample(self, idx: int, path: str, filename: str, label: np.ndarray, wav: np.ndarray,
+                pad_mask: np.ndarray) -> Dict:
         out = {"wav": wav, "label": label.astype(np.float32), "pad_mask": pad_mask, "idx": idx}
         if self.return_name:
             out["filename"] = filename
             out["path"] = path
         return out
+
+
+def load_samples(items: Sequence, n_threads: int = 8) -> List[Dict]:
+    """The samples of ``items``, (dataset, index) pairs of datasets sharing
+    one codec, with every file decoded in one ``load_wav_batch`` call."""
+    if not items:
+        return []
+    entries = [ds.entry(i) for ds, i in items]
+    first = items[0][0]
+    wavs, masks = load_wav_batch([path for path, _, _ in entries], first.pad_to, first.codec,
+                                 n_threads=n_threads)
+    return [ds._sample(i, path, name, label, wav, mask)
+            for (ds, i), (path, name, label), wav, mask in zip(items, entries, wavs, masks)]
 
 
 class StronglyLabeledDataset(_ClipDataset):
@@ -61,11 +84,11 @@ class StronglyLabeledDataset(_ClipDataset):
             }
         self.clip_list = list(self.clips)
 
-    def __getitem__(self, idx: int) -> Dict:
+    def entry(self, idx: int):
         filename = self.clip_list[idx]
         clip = self.clips[filename]
         label = self.codec.encode_strong(clip["events"]).T  # [C, T]
-        return self._sample(idx, clip["path"], filename, label)
+        return clip["path"], filename, label
 
 
 class WeaklyLabeledDataset(_ClipDataset):
@@ -81,13 +104,13 @@ class WeaklyLabeledDataset(_ClipDataset):
                 }
         self.clip_list = list(self.clips)
 
-    def __getitem__(self, idx: int) -> Dict:
+    def entry(self, idx: int):
         filename = self.clip_list[idx]
         clip = self.clips[filename]
         label = np.zeros((self.codec.n_classes, self.codec.n_frames), dtype=np.float32)
         if clip["events"]:
             label[:, 0] = self.codec.encode_weak(clip["events"])
-        return self._sample(idx, clip["path"], filename, label)
+        return clip["path"], filename, label
 
 
 class UnlabeledDataset(_ClipDataset):
@@ -96,10 +119,10 @@ class UnlabeledDataset(_ClipDataset):
         self.return_name = return_name
         self.clip_list = sorted(glob(os.path.join(dataset_dir, "*.wav")))
 
-    def __getitem__(self, idx: int) -> Dict:
+    def entry(self, idx: int):
         path = self.clip_list[idx]
         label = np.zeros((self.codec.n_classes, self.codec.n_frames), dtype=np.float32)
-        return self._sample(idx, path, os.path.basename(path), label)
+        return path, os.path.basename(path), label
 
 
 class FrameWiseLabeledDataset(_ClipDataset):
@@ -118,6 +141,6 @@ class FrameWiseLabeledDataset(_ClipDataset):
             self.clip_list.append(wav_path)
             self._labels.append(table[:, 2:].T.astype(np.float32))  # [C, T]
 
-    def __getitem__(self, idx: int) -> Dict:
+    def entry(self, idx: int):
         path = self.clip_list[idx]
-        return self._sample(idx, path, os.path.basename(path), self._labels[idx])
+        return path, os.path.basename(path), self._labels[idx]

@@ -5,7 +5,9 @@ The reference uses torch DataLoader with 6 worker processes
 (``recipes/desed/setting.py``); here a thread pool decodes WAVs (the
 native decoder and scipy release the GIL) and a prefetch queue overlaps
 host decoding with the card's steps. Batches are dicts of stacked numpy
-arrays matching the train-step contract. The process split reads the
+arrays matching the train-step contract. A batch's files are decoded in
+one call of ``data/audio_io.py:load_wav_batch`` (a GIL-free native call over
+a thread pool; ``datasets.load_samples``). The process split reads the
 port's ``parallel/multihost.py``: rank and world size from
 ``torch.distributed`` when a group exists, else one process.
 """
@@ -19,6 +21,7 @@ from typing import Callable, Dict, Iterator, List, Sequence
 
 import numpy as np
 
+from transformer4sed_tpu_torch.data.datasets import load_samples
 from transformer4sed_tpu_torch.data.sampler import SequentialSampler
 from transformer4sed_tpu_torch.parallel import multihost
 
@@ -46,9 +49,18 @@ class _ConcatDataset:
         return int(self.cum[-1])
 
     def __getitem__(self, idx: int):
+        ds, i = self.locate(idx)
+        return ds[i]
+
+    def locate(self, idx: int):
+        """(leaf dataset, index in it) of item ``idx``."""
         ds = int(np.searchsorted(self.cum, idx, side="right"))
         base = 0 if ds == 0 else int(self.cum[ds - 1])
-        return self.datasets[ds][idx - base]
+        return _locate(self.datasets[ds], idx - base)
+
+
+def _locate(ds, idx: int):
+    return ds.locate(idx) if hasattr(ds, "locate") else (ds, idx)
 
 
 class _ProcessSubset:
@@ -70,6 +82,9 @@ class _ProcessSubset:
     def __getitem__(self, idx: int):
         return self.dataset[self.indices[idx]]
 
+    def locate(self, idx: int):
+        return _locate(self.dataset, self.indices[idx])
+
 
 class DataLoader:
     """Batch iterator over (dataset | [datasets]) driven by a (batch) sampler.
@@ -86,6 +101,9 @@ class DataLoader:
       process_shard_items: multi-host EVAL loaders — each process sees a
         strided subset of the items and evaluates them locally; scores
         are merged by ``multihost.gather_clip_scores``.
+
+    A batch's files are decoded in one ``load_wav_batch`` call on
+    ``max(num_workers, 1)`` native threads.
     """
 
     def __init__(
@@ -134,7 +152,8 @@ class DataLoader:
             self.batch_sampler.set_epoch(epoch)
 
     def _load_batch(self, indices: List[int]) -> Dict:
-        return self.collate_fn([self.dataset[i] for i in indices])
+        return self.collate_fn(load_samples([_locate(self.dataset, i) for i in indices],
+                                            n_threads=max(self.num_workers, 1)))
 
     def __iter__(self) -> Iterator[Dict]:
         if self.num_workers == 0:
@@ -186,3 +205,4 @@ class _FixedBatcher:
                 batch = []
         if batch and not self.drop_last:
             yield batch
+

@@ -22,7 +22,7 @@ are not ported yet (ROADMAP.md, queue 1, item 9).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -95,10 +95,20 @@ def device_generator(gen: torch.Generator, device) -> torch.Generator:
 
 class BatchRows(NamedTuple):
     """This rank's rows of the global batch in a data-parallel step: their
-    global indices and the global batch size."""
+    global indices and the global batch size; ``gather`` (where a draw reads
+    other ranks' rows, as the MLM masker's random tokens do) maps a
+    [rows, ...] tensor to the global [total, ...] one, differentiably."""
 
     index: torch.Tensor
     total: int
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def repeat(self, n_rows: int) -> "BatchRows":
+        """The rows of a batch that stacks ``n_rows // len(index)`` copies of
+        the global batch, copy-major (a width group of sliding windows)."""
+        n = n_rows // len(self.index)
+        index = torch.cat([i * self.total + self.index for i in range(n)])
+        return BatchRows(index, n * self.total)
 
 
 def draw_dropout(gen: torch.Generator, shape, rate: float, device,

@@ -21,9 +21,11 @@ in-place write is lost on its non-contiguous input; ``PARITY.md``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+from transformer4sed_tpu_torch.models.cnn import BatchRows
 
 
 @dataclass
@@ -48,12 +50,24 @@ class MLMMasker:
         if self.strategy not in ("random", "block"):
             raise ValueError(f"unknown mask strategy {self.strategy!r}")
 
-    def draw(self, gen: torch.Generator, batch: int, seq_len: int) -> MLMDraws:
+    def draw(self, gen: torch.Generator, batch: int, seq_len: int,
+             rows: Optional[BatchRows] = None) -> MLMDraws:
+        """The draws of ``batch`` rows; with ``rows`` (a data-parallel step),
+        those rows of the global batch's draws, whose ``rand_src`` index the
+        flattened global batch."""
         n = seq_len if self.strategy == "random" else seq_len // self.block_width
+        total = batch if rows is None else rows.total
         kw = dict(generator=gen, device=gen.device)
-        return MLMDraws(noise=torch.rand((batch, n), **kw),
-                        probs=torch.rand((batch, seq_len), **kw),
-                        rand_src=torch.randint(0, batch * seq_len, (batch, seq_len), **kw))
+        draws = MLMDraws(noise=torch.rand((total, n), **kw),
+                         probs=torch.rand((total, seq_len), **kw),
+                         rand_src=torch.randint(0, total * seq_len, (total, seq_len), **kw))
+        if rows is None:
+            return draws
+        if batch != len(rows.index):
+            raise ValueError(f"MLM draws for {batch} rows, {len(rows.index)} given")
+        idx = rows.index.to(gen.device)
+        return MLMDraws(*(t.index_select(0, idx) for t in (draws.noise, draws.probs,
+                                                           draws.rand_src)))
 
     def mask_ids(self, noise: torch.Tensor, seq_len: int) -> torch.Tensor:
         """[B, T] bool mask of the frames to corrupt, from the noise draws."""
@@ -68,9 +82,12 @@ class MLMMasker:
             frame_mask = torch.cat([frame_mask, frame_mask.new_zeros((noise.shape[0], pad))], 1)
         return frame_mask
 
-    def apply(self, token_seq: torch.Tensor, mask_token: torch.Tensor,
-              draws: MLMDraws) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Corrupt ``token_seq`` [B, T, C]; returns (masked_seq, mask_id_seq)."""
+    def apply(self, token_seq: torch.Tensor, mask_token: torch.Tensor, draws: MLMDraws,
+              gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Corrupt ``token_seq`` [B, T, C]; returns (masked_seq, mask_id_seq).
+        ``gather`` maps this rank's rows to the global batch, which the
+        random tokens are taken from (a data-parallel step)."""
         b, t, c = token_seq.shape
         dev = token_seq.device
         mask_id = self.mask_ids(draws.noise.to(dev), t)
@@ -78,7 +95,8 @@ class MLMMasker:
         p_tok, p_rand = self.mask_style[0], self.mask_style[1]
         use_token = mask_id & (probs < p_tok)
         use_random = mask_id & (probs >= p_tok) & (probs < p_tok + p_rand)
-        random_tokens = token_seq.reshape(b * t, c)[draws.rand_src.to(dev)]
+        source = token_seq if gather is None else gather(token_seq)
+        random_tokens = source.reshape(-1, c)[draws.rand_src.to(dev)]
         out = torch.where(use_token[..., None], mask_token.reshape(1, 1, c).to(token_seq.dtype),
                           token_seq)
         return torch.where(use_random[..., None], random_tokens, out), mask_id

@@ -14,7 +14,8 @@ the JAX package). Patchout, also training only
 patch grid, unstructured patchout ``u_patchout`` tokens of the sequence, each
 a random subset kept in order; token dropout ``drop_rate`` follows the cls and
 dist tokens. All are zero in the flagship. The draws (:class:`PatchoutDraws`)
-come from the caller's generator, or are handed in.
+come from the caller's generator, or are handed in; in a data-parallel step
+the dropout masks are drawn for the global batch (``rows``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from transformer4sed_tpu_torch.models.cnn import BatchRows
 from transformer4sed_tpu_torch.models.layers import LayerNorm
 from transformer4sed_tpu_torch.models.vit import Block, PatchEmbed, dropout
 
@@ -100,13 +102,16 @@ class PaSST(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 patchout_draws: Optional[PatchoutDraws] = None,
-                upto_tap: bool = False) -> Dict[str, torch.Tensor]:
+                upto_tap: bool = False,
+                rows: Optional[BatchRows] = None) -> Dict[str, torch.Tensor]:
         """x: [B, 1, F, T] normalised log-mel. Returns ``layer{k}_out``
         [B, P+2, D] (f32) for the tap layer k, ``frame`` (final-norm tokens,
         f32; not with ``upto_tap``, which stops after the tap layer) and the
         grid sizes ``f_dim``/``t_dim``. In training,
         ``generator`` draws the time-embedding offset, the patchout subsets
-        (unless ``patchout_draws`` gives them) and the dropout masks."""
+        (unless ``patchout_draws`` gives them) and the dropout masks, those
+        for the global batch where ``rows`` gives this rank's rows of it (the
+        patchout and offset draws are one for the whole batch)."""
         out: Dict[str, torch.Tensor] = {}
         patches = self.patch_embed(x)  # [B, D, F', T'] in the compute dtype
         b, d, f_dim, t_dim = patches.shape
@@ -134,13 +139,14 @@ class PaSST(nn.Module):
             seq = seq.index_select(1, draws.keep_tokens.to(seq.device))
         cls = (self.cls_token + self.new_pos_embed[:, :1]).expand(b, -1, -1)
         dist = (self.dist_token + self.new_pos_embed[:, 1:]).expand(b, -1, -1)
-        h = dropout(torch.cat([cls, dist, seq], dim=1), self.drop_rate, train, generator)
+        h = dropout(torch.cat([cls, dist, seq], dim=1), self.drop_rate, train, generator,
+                    rows=rows)
         h = h.to(self.dtype)
 
         out["f_dim"] = f_dim
         out["t_dim"] = t_dim
         for i, blk in enumerate(self.blocks):
-            h = blk(h, train, generator)
+            h = blk(h, train, generator, rows)
             if i + 1 == self.tap_layer:
                 out[f"layer{i + 1}_out"] = h.float()
                 if upto_tap:

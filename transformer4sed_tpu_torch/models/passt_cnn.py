@@ -84,7 +84,7 @@ class PaSST_CNN(PaSST_SED):
             raise ValueError(f"train={train} but the module is in "
                              f"{'training' if self.training else 'eval'} mode")
         x, backbone_out = self._encode_frames(mel, train, generator, None, encoder_win, mix_rate,
-                                              win_param, window_draws)
+                                              win_param, window_draws, rows)
         if self.cnn is not None:
             cnn_feat = self.cnn(mel.transpose(1, 2)[:, None], generator=generator,
                                 dropout_masks=dropout_masks, rows=rows)  # [B, C, T', F']

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from transformer4sed_tpu_torch.core.pooling_math import linear_softmax_pool
+from transformer4sed_tpu_torch.models.cnn import BatchRows
 from transformer4sed_tpu_torch.models.interpolate import interpolate_time
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
 from transformer4sed_tpu_torch.models.mlm import MLMDraws, MLMMasker
@@ -142,31 +143,33 @@ class PaSST_SED(nn.Module):
         return self.f_pool_module(cols).reshape(b, t_dim, c)
 
     def _encode_frames(self, mel, train, generator, patchout_draws=None, encoder_win=False,
-                       mix_rate=0.5, win_param=(512, 49), window_draws=None):
+                       mix_rate=0.5, win_param=(512, 49), window_draws=None, rows=None):
         """Backbone -> f-pool -> pad and interpolate, fused with the sliding
         windows' embedding under ``encoder_win``: ([B, T, D], backbone_out)."""
         backbone_out = self.backbone(mel[:, None], train=train, generator=generator,
-                                     patchout_draws=patchout_draws)
+                                     patchout_draws=patchout_draws, rows=rows)
         x = self._f_pool(backbone_out)
         x = torch.cat([x, x[:, -1:, :]], dim=1)
         x = interpolate_time(x, self.decode_ratio, self.interpolate_mode)
         if encoder_win:
             x_local = slide_window_encode(
                 lambda win, group: self._encode_window(
-                    win, train, generator, None if window_draws is None else window_draws[group]),
+                    win, train, generator, None if window_draws is None else window_draws[group],
+                    None if rows is None else rows.repeat(win.shape[0])),
                 mel, emb_len=x.shape[1], win_width=win_param[0], step=win_param[1])
             x = mix_rate * x_local + (1.0 - mix_rate) * x
         return x, backbone_out
 
-    def _encode_window(self, mel_win, train, generator, patchout_draws=None):
+    def _encode_window(self, mel_win, train, generator, patchout_draws=None, rows=None):
         """Window mel [N, F, W] -> frame embedding [N, t*ratio, C] (no 99 -> 100 pad);
         the backbone stops at the tap layer, since nothing reads a window's
         final-norm tokens."""
         out = self.backbone(mel_win[:, None], train=train, generator=generator,
-                            patchout_draws=patchout_draws, upto_tap=True)
+                            patchout_draws=patchout_draws, upto_tap=True, rows=rows)
         return interpolate_time(self._f_pool(out), self.decode_ratio, self.interpolate_mode)
 
-    def _finish(self, x, backbone_out, temp_w, pad_mask, generator, mlm_draws) -> SEDOutput:
+    def _finish(self, x, backbone_out, temp_w, pad_mask, generator, mlm_draws,
+                rows=None) -> SEDOutput:
         """MLM mask -> decoder -> AT branch -> classifier and pools (or the MLM head)."""
         frame_before_mask = x
         mask_id_seq = None
@@ -174,8 +177,9 @@ class PaSST_SED(nn.Module):
             if mlm_draws is None:
                 if generator is None:
                     raise ValueError("an MLM forward draws its mask: pass a torch.Generator")
-                mlm_draws = self.masker.draw(generator, x.shape[0], x.shape[1])
-            x, mask_id_seq = self.masker.apply(x, self.mask_token, mlm_draws)
+                mlm_draws = self.masker.draw(generator, x.shape[0], x.shape[1], rows)
+            x, mask_id_seq = self.masker.apply(x, self.mask_token, mlm_draws,
+                                               None if rows is None else rows.gather)
         x = self.decoder(x)
 
         at_out = None
@@ -211,12 +215,16 @@ class PaSST_SED(nn.Module):
         mlm_draws: Optional[MLMDraws] = None,
         patchout_draws: Optional[PatchoutDraws] = None,
         window_draws: Optional[Sequence[PatchoutDraws]] = None,
+        rows: Optional[BatchRows] = None,
     ) -> SEDOutput:
         """``generator`` makes the forward's draws (the training time offset
         and patchout of the clip, then of each window group, the MLM mask);
         ``mlm_draws``, ``patchout_draws`` and ``window_draws`` (one per width
         group, in :func:`models.slide.width_groups` order) hand them in
-        instead."""
+        instead. In a data-parallel step ``mel`` holds this rank's ``rows``
+        of the global batch: dropout, DropPath and the MLM mask are drawn for
+        the global batch and those rows kept, and the mask's random tokens
+        come from the whole batch (``rows.gather``)."""
         x, backbone_out = self._encode_frames(mel, train, generator, patchout_draws, encoder_win,
-                                              mix_rate, win_param, window_draws)
-        return self._finish(x, backbone_out, temp_w, pad_mask, generator, mlm_draws)
+                                              mix_rate, win_param, window_draws, rows)
+        return self._finish(x, backbone_out, temp_w, pad_mask, generator, mlm_draws, rows)

@@ -12,7 +12,8 @@ the attention projection) and DropPath (on both residual branches) are zero
 in every shipped model; in training a non-zero rate draws its scaled keep
 mask from the ``torch.Generator`` passed to ``forward`` (:func:`dropout`: a
 draw step, ``models/cnn.py:draw_dropout``, and an apply step,
-:func:`apply_dropout`). Matmuls run in ``dtype`` (bf16 on the flagship) with
+:func:`apply_dropout`); in a data-parallel step, for the global batch, of
+which ``rows`` are this rank's. Matmuls run in ``dtype`` (bf16 on the flagship) with
 f32 params and f32 layer norms.
 """
 
@@ -29,7 +30,7 @@ from transformer4sed_tpu_torch.kernels.flash_attention import (
     _split_heads,
     flash_attention_nhd,
 )
-from transformer4sed_tpu_torch.models.cnn import device_generator, draw_dropout
+from transformer4sed_tpu_torch.models.cnn import BatchRows, device_generator, draw_dropout
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
 
 
@@ -45,16 +46,18 @@ def apply_dropout(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator],
-            per_sample: bool = False) -> torch.Tensor:
+            per_sample: bool = False, rows: Optional[BatchRows] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` (or, ``per_sample``, the reference's DropPath) in
-    training; the identity in eval or at rate 0."""
+    training; the identity in eval or at rate 0. With ``rows`` (a
+    data-parallel step), ``x`` holds this rank's rows of the global batch and
+    the mask is drawn for the global batch (:func:`models.cnn.draw_dropout`)."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     shape = (x.shape[0],) + (1,) * (x.dim() - 1) if per_sample else x.shape
     gen = device_generator(generator, x.device)
-    return apply_dropout(x, draw_dropout(gen, shape, rate, x.device))
+    return apply_dropout(x, draw_dropout(gen, shape, rate, x.device, rows))
 
 
 class Mlp(nn.Module):
@@ -65,9 +68,10 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_features, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(fast_gelu(self.fc1(x)), self.drop, train, generator)
-        return dropout(self.fc2(x), self.drop, train, generator)
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[BatchRows] = None) -> torch.Tensor:
+        x = dropout(fast_gelu(self.fc1(x)), self.drop, train, generator, rows=rows)
+        return dropout(self.fc2(x), self.drop, train, generator, rows=rows)
 
 
 class Attention(nn.Module):
@@ -82,7 +86,8 @@ class Attention(nn.Module):
         self.tp = None  # parallel.partition.TPShard once the block is sharded
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[BatchRows] = None) -> torch.Tensor:
         raw = self.qkv(x)
         c = raw.shape[-1] // 3  # this rank's width under tensor parallelism
         q, k, v = raw[..., :c], raw[..., c:2 * c], raw[..., 2 * c:]
@@ -94,7 +99,7 @@ class Attention(nn.Module):
             h = self.tp.heads
             out = _merge_heads(tp_flash_attention(*(_split_heads(t, h) for t in (q, k, v)),
                                                   self.tp.mesh))
-        return dropout(self.proj(out), self.proj_drop, train, generator)
+        return dropout(self.proj(out), self.proj_drop, train, generator, rows=rows)
 
 
 class Block(nn.Module):
@@ -111,11 +116,12 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, 4 * dim, drop=drop, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.attn(self.norm1(x), train, generator)
-        x = x + dropout(h, self.drop_path, train, generator, per_sample=True)
-        h = self.mlp(self.norm2(x), train, generator)
-        return x + dropout(h, self.drop_path, train, generator, per_sample=True)
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[BatchRows] = None) -> torch.Tensor:
+        h = self.attn(self.norm1(x), train, generator, rows)
+        x = x + dropout(h, self.drop_path, train, generator, per_sample=True, rows=rows)
+        h = self.mlp(self.norm2(x), train, generator, rows)
+        return x + dropout(h, self.drop_path, train, generator, per_sample=True, rows=rows)
 
 
 class PatchEmbed(nn.Module):

@@ -170,6 +170,52 @@ def mean_teacher_model():
     return init_weights_(model, seed=0)
 
 
+MLM_DROP = 0.1  # the check's dropout, DropPath and token-dropout rate
+MLM_STEPS = 2
+
+
+def mlm_setup() -> Dict[str, Any]:
+    """The MLM check's frontend, param groups (all live, clip 20) and a
+    batch of 4 clips."""
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
+
+    wav = np.random.RandomState(4).randn(4, 119 * 320 + 1).astype(np.float32)
+    spec = GroupSpec(lr=1e-3, weight_decay=1e-4)
+    return dict(frontend=PasstFrontend(device="cpu"), batch={"wav": torch.from_numpy(wav)},
+                pg=ParamGroupConfig(encoder=spec, decoder=spec, head=spec, backbone_depth=2))
+
+
+def mlm_model():
+    """The tiny PaSST_SED in MLM mode (block masking) with dropout, DropPath
+    and token dropout at ``MLM_DROP`` in every backbone block."""
+    from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
+    from transformer4sed_tpu_torch.models.vit import Block
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    model = PaSST_SED(class_num=3, embed_dim=32, decoder_dim=32, backbone_depth=2,
+                      backbone_num_heads=4, decoder_num_heads=4, passt_feature_layer=2,
+                      decoder="transformerXL", decoder_layer_num=1, decoder_pos_emd_len=120,
+                      mlm=True, mlm_dict={"block_width": 4, "out_dim": 32}, device="cpu")
+    model.backbone.drop_rate = MLM_DROP
+    for blk in model.backbone.modules():
+        if isinstance(blk, Block):
+            blk.drop_path = blk.attn.proj_drop = blk.mlp.drop = MLM_DROP
+    return init_weights_(model, seed=3)
+
+
+def run_mlm_layout(mesh: Mesh, setup: Dict[str, Any]) -> Dict[str, Any]:
+    """``MLM_STEPS`` MLM steps on ``mesh`` (the masker, dropout and DropPath
+    drawing): the loss trajectory and the param norm after them."""
+    from transformer4sed_tpu_torch.train.mlm import MLMTrainer
+
+    trainer = MLMTrainer(mlm_model(), setup["frontend"], optim_cfg=setup["pg"])
+    step = shard_train_step(trainer, mesh)
+    losses = [float(step(setup["batch"], step_generator(3, s))["loss_mlm"])
+              for s in range(MLM_STEPS)]
+    return {"losses": losses, "p_norm": _norm(trainer.model.parameters(), mesh, frozenset())}
+
+
 def step_generator(phase_seed: int, step: int) -> torch.Generator:
     """The draws of one step: the same on every rank and in every layout."""
     return torch.Generator().manual_seed(phase_seed * 1000 + step)
@@ -392,7 +438,8 @@ def dryrun_rank(rank: int, world: int, sizes: Sequence[int] = (), checks: bool =
     """One rank of the dry runs over the first ``n`` ranks, for each ``n`` in
     ``sizes`` (default: the world): both phases in every layout (and, with
     ``checks``, the head-parallel attention and the state-dict round trip on
-    the widest layout, and the BatchNorm statistics over dp=n). Ranks past
+    the widest layout, the BatchNorm statistics over dp=n and, at n = 2, the
+    MLM step on one rank and over dp2). Ranks past
     ``n`` take part in building the groups only. Rank 0 returns the reports,
     by ``n``."""
     reports: Dict[int, Dict[str, Any]] = {}
@@ -418,6 +465,13 @@ def dryrun_rank(rank: int, world: int, sizes: Sequence[int] = (), checks: bool =
             mesh = _mesh(data, model)
             report["batch_norm"] = _gather_to_rank0(
                 check_batch_norm(mesh) if mesh.member else None)
+            if n == 2:  # the MLM step on one rank and over dp2
+                setup = mlm_setup()
+                report["mlm"] = {}
+                for name, data, model in layouts(n)[:2]:
+                    mesh = _mesh(data, model)
+                    report["mlm"][name] = _gather_to_rank0(
+                        run_mlm_layout(mesh, setup) if mesh.member else None)
         reports[n] = report
     return reports if rank == 0 else None
 

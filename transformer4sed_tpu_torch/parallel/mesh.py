@@ -17,12 +17,15 @@ ranks, as in the JAX layout.
     every subset, so that every mean-form loss is the mean of the ranks'
     local means, which is what averaging the gradients over the ``data``
     group computes.
-  * :func:`shard_train_step` attaches the mesh to a trainer. Its step then
-    keeps the rank's rows after the augmentation, averages the gradients over
-    the ``data`` group after the backward, clips by the global norm of the
-    sharded and replicated gradients (``train/optim.py``), and reports the
-    losses averaged over the ``data`` group. BatchNorm takes its statistics
-    over the ``data`` group (``models/norm.py``).
+  * :func:`shard_train_step` attaches the mesh to a trainer (the mean
+    teacher, the supervised step, the MLM step). Its step then keeps the
+    rank's rows after the augmentation, hands the model those rows
+    (``models/cnn.py:BatchRows``), so that dropout, DropPath, token dropout
+    and the MLM mask are drawn for the global batch, averages the gradients
+    over the ``data`` group after the backward, clips by the global norm of
+    the sharded and replicated gradients (``train/optim.py``), and reports
+    the losses averaged over the ``data`` group. BatchNorm takes its
+    statistics over the ``data`` group (``models/norm.py``).
 
 ``ensure_virtual_devices`` has no counterpart: the CPU runs launch gloo ranks
 (``parallel/dryrun.py``). ``batch_sharding`` and ``replicated_sharding`` are
@@ -113,6 +116,16 @@ class Mesh:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
 
+    def gather_rows(self, x: torch.Tensor, rows: torch.Tensor, total: int) -> torch.Tensor:
+        """The global [total, ...] tensor of which ``x`` holds this rank's
+        ``rows``, summed over the ``data`` group from zeros elsewhere; its
+        gradient is summed over the group, so each rank's rows receive every
+        rank's cotangent (``collectives.all_reduce_sum``)."""
+        from transformer4sed_tpu_torch.parallel.collectives import all_reduce_sum
+
+        whole = x.new_zeros((total,) + tuple(x.shape[1:])).index_copy(0, rows.to(x.device), x)
+        return all_reduce_sum(whole, self.data_group)
+
     def mean_metrics(self, metrics: dict) -> dict:
         """The tensor entries of ``metrics`` averaged over the ``data`` group
         (one all-reduce); other entries as they are."""
@@ -197,41 +210,19 @@ def attach_mesh(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
 
 
 def shard_train_step(trainer, mesh: Mesh):
-    """The data-parallel step of ``trainer`` (a ``MeanTeacherTrainer`` or a
-    ``SupervisedStep``) over ``mesh``: returns its ``step``, which from now on
-    keeps this rank's rows, averages the gradients over the ``data`` group
-    after the backward and reads BatchNorm statistics over that group. Shard
-    the model's params (:func:`parallel.shard_params`) before building the
-    trainer, so that its optimizer holds the shards."""
+    """The data-parallel step of ``trainer`` (a ``MeanTeacherTrainer``, a
+    ``SupervisedStep`` or an ``MLMTrainer``) over ``mesh``: returns its
+    ``step``, which from now on keeps this rank's rows, draws every per-row
+    draw for the global batch, averages the gradients over the ``data``
+    group after the backward and reads BatchNorm statistics over that group.
+    Shard the model's params (:func:`parallel.shard_params`) before building
+    the trainer, so that its optimizer holds the shards."""
     if not mesh.member:
         raise ValueError("this rank is outside the mesh")
-    for model in trainer.models():
-        drawn = per_row_draws(model)
-        if drawn and mesh.data > 1:
-            raise NotImplementedError(
-                f"{drawn} draw per row, and the data-parallel step draws only the CNN branch's "
-                "dropout for the global batch: each rank would draw its own")
     trainer.mesh = mesh
     for model in trainer.models():
         attach_mesh(model, mesh)
     return trainer.step
-
-
-def per_row_draws(model: torch.nn.Module) -> List[str]:
-    """What in ``model`` makes random draws row by row other than the CNN
-    branch's dropout (which the trainers draw for the global batch): ViT
-    dropout and DropPath, PaSST's token dropout at non-zero rates, and the
-    MLM masker."""
-    from transformer4sed_tpu_torch.models.passt import PaSST
-    from transformer4sed_tpu_torch.models.vit import Attention, Block, Mlp
-
-    rates = ((Mlp, "drop"), (Attention, "proj_drop"), (Block, "drop_path"), (PaSST, "drop_rate"))
-    found = []
-    for name, m in model.named_modules():
-        found += [f"{name}.{attr}" for cls, attr in rates if isinstance(m, cls) and getattr(m, attr)]
-        if getattr(m, "masker", None) is not None:
-            found.append(f"{name}.masker" if name else "masker")
-    return found
 
 
 def device_prefetch(iterator, mesh: Optional[Mesh] = None, size: int = 2):

@@ -15,9 +15,12 @@ The batch is the fixed composition [strong | weak | unlabeled]
 (``ConcatDatasetBatchSampler``), so the reference's boolean index masks are
 slices. Random numbers come from the generator passed to
 :meth:`MeanTeacherTrainer.step`, drawn on its device (a CPU generator makes
-the same draws whatever device the model is on). Gradient accumulation
-and ``make_multi_step`` (a ``lax.scan`` over steps) have no counterpart
-here yet.
+the same draws whatever device the model is on). With ``accum_steps`` k
+(``training.accum_steps``), k steps' gradients are averaged and applied on
+the k-th (``train/optim.py:GradientAccumulator``); the EMA update and the
+step count, which drives the consistency ramp, advance only then, as the
+JAX step gates them on ``update_applied``. ``make_multi_step`` (a
+``lax.scan`` over steps) has no counterpart.
 
 Under data parallelism (``parallel.shard_train_step``) every rank is given
 the global batch and the same generator, runs :func:`preprocess` on the whole
@@ -25,9 +28,10 @@ of it and keeps its rows: an equal share of each subset. Mixup pairs rows
 across a whole subset, so a row's partner may sit on another rank; running
 the augmentation globally keeps every draw (fmin/fmax, shift, mixup, the
 filt_aug views) and every partner as one process would have them, with no
-gather, for the price of the frontend on the global batch. The CNN branch's
-dropout masks are drawn for the global batch too: the step passes the
-models this rank's ``BatchRows`` (``models/cnn.py``). The losses are then
+gather, for the price of the frontend on the global batch. The models'
+per-row draws (dropout and DropPath, the CNN branch's dropout) are drawn for
+the global batch too: the step passes them this rank's ``BatchRows``
+(``models/cnn.py``). The losses are then
 means over the local rows, whose mean over the ``data`` group is the global
 loss, and the gradients are averaged over that group.
 """
@@ -48,11 +52,12 @@ from transformer4sed_tpu_torch.frontend import augment
 from transformer4sed_tpu_torch.models.cnn import BatchRows
 from transformer4sed_tpu_torch.parallel.partition import sharded_param_ids
 from transformer4sed_tpu_torch.train.optim import (
+    GradientAccumulator,
     ParamGroupConfig,
+    apply_gradients,
     build_optimizer,
-    clip_by_global_norm,
     global_norm,
-    live_params,
+    load_optimizer_state,
 )
 
 
@@ -193,15 +198,16 @@ class MeanTeacherTrainer:
 
     def __init__(self, model: torch.nn.Module, frontend, cfg: MeanTeacherConfig,
                  optim_cfg: ParamGroupConfig = ParamGroupConfig(),
-                 schedule: Optional[Callable[[int], float]] = None):
+                 schedule: Optional[Callable[[int], float]] = None, accum_steps: int = 1):
         self.student = model.train()
         self.teacher = copy.deepcopy(model).requires_grad_(False)
         self.frontend = frontend
         self.cfg = cfg
         self.optim_cfg = optim_cfg
         self.optimizer, self.scheduler, self.labels = build_optimizer(model, optim_cfg, schedule)
+        self.accumulator = GradientAccumulator(accum_steps) if accum_steps > 1 else None
         self.device = next(model.parameters()).device
-        self.step_count = 0  # completed optimizer steps
+        self.step_count = 0  # applied optimizer steps
         self.mesh = None  # a parallel.Mesh, set by parallel.shard_train_step
         self.sharded = sharded_param_ids(model)
 
@@ -222,10 +228,8 @@ class MeanTeacherTrainer:
         if self.mesh is not None:
             sizes = (cfg.strong_num, cfg.weak_num, cfg.unlabel_num)
             rows = self.mesh.batch_rows(sizes).to(self.device)
-            if getattr(self.student, "cnn", None) is not None:
-                # the CNN branch's dropout: the per-row draw these models make
-                # (shard_train_step refuses models with others)
-                draws["rows"] = BatchRows(rows, stu_mel.shape[0])
+            # the models' per-row draws, for the global batch
+            draws["rows"] = BatchRows(rows, stu_mel.shape[0])
             stu_mel, tch_mel, labels = (x.index_select(0, rows) for x in (stu_mel, tch_mel, labels))
             s, w, u = self.mesh.local_sizes(sizes)
             weak_tags = labels[s:s + w].sum(-1)  # this rank's weak rows of the global tags
@@ -246,16 +250,27 @@ class MeanTeacherTrainer:
     def step(self, batch: Dict[str, Any], generator: torch.Generator) -> Dict[str, Any]:
         """One train step on ``batch`` (``wav`` [B, S], ``labels`` [B, C, T_lab]
         in [strong | weak | unlabeled] order): :meth:`forward_backward`,
-        clip, AdamW, the schedule and the EMA update; returns its metrics."""
+        clip, AdamW, the schedule and the EMA update (under accumulation,
+        only on every k-th step); returns its metrics."""
         metrics = self.forward_backward(batch, generator)
-        if self.optim_cfg.clip_grad:
-            clip_by_global_norm(live_params(self.optimizer), self.optim_cfg.clip_grad, self.mesh,
-                                self.sharded)
-        self.optimizer.step()
-        self.scheduler.step()
+        if not apply_gradients(self.optimizer, self.scheduler, self.optim_cfg.clip_grad,
+                               self.accumulator, self.mesh, self.sharded):
+            return metrics
         # the reference's EMA counter is scheduler.step_num = completed
         # steps + 1, stepped before the update: the first update reads 2
         ema_update(self.student.parameters(), self.teacher.parameters(), self.step_count + 2,
                    self.cfg.ema_factor)
         self.step_count += 1
         return metrics
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resumed run needs (``utils/checkpoint.py:save_checkpoint``)."""
+        return {"student": self.student.state_dict(), "teacher": self.teacher.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "step": self.step_count,
+                "accum": None if self.accumulator is None else self.accumulator.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.student.load_state_dict(state["student"])
+        self.teacher.load_state_dict(state["teacher"])
+        load_optimizer_state(self, state)

@@ -22,10 +22,17 @@ gradients are summed over the ``model`` group, replicated ones count once.
 AdamW and the EMA then work on each rank's shards as they are. The hierarchical HTSAT backbone
 names its blocks ``layers.{i}.blocks.{j}`` (``layers_{i}_blocks_{j}`` in
 the JAX package): ``freeze_layer`` and ``step_lr`` count them in depth
-order over the whole network. ``child_tuning``, gradient accumulation,
-and the remaining groups of the AudioSet and LoRA policies (at_decoder,
-query, lora) are not ported yet: they come with those training paths and
-model families (ROADMAP.md, queue 1).
+order over the whole network.
+
+Gradient accumulation (``training.accum_steps``, :class:`GradientAccumulator`)
+works as ``optax.MultiSteps`` does in the JAX package: the k micro-batch
+gradients are averaged as a running mean, and every k-th call applies them;
+clipping runs on the averaged gradient inside that update, and the schedule
+(and, in the trainers, the EMA and the step counter) advance only then
+(:func:`apply_gradients`). ``child_tuning`` and the remaining groups of the
+AudioSet and LoRA policies (at_decoder, query, lora) are not ported yet:
+they come with those training paths and model families (ROADMAP.md,
+queue 1, items 8 and 9).
 """
 
 from __future__ import annotations
@@ -195,3 +202,75 @@ def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float, mesh=No
     for p in params:
         p.grad.mul_(scale.to(p.grad.dtype))
     return norm
+
+
+class GradientAccumulator:
+    """``optax.MultiSteps(every_k_schedule=k)`` on ``.grad``: :meth:`add`
+    folds the params' gradients into a running mean (``acc + (g - acc) /
+    (n + 1)``, optax's arithmetic) and, on the k-th call, puts the mean in
+    their ``.grad`` and returns True."""
+
+    def __init__(self, k: int):
+        if k < 1:
+            raise ValueError(f"accum_steps must be at least 1, got {k}")
+        self.k = k
+        self.mini_step = 0
+        self.acc: List[torch.Tensor] = []
+
+    @torch.no_grad()
+    def add(self, params: List[torch.Tensor]) -> bool:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if not self.acc:
+            self.acc = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g.float() - a) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if self.mini_step:
+            return False
+        for p, a in zip(params, self.acc):
+            p.grad = a.to(p.dtype)
+        self.acc = []
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"k": self.k, "mini_step": self.mini_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if int(state["k"]) != self.k:
+            raise ValueError(f"checkpoint accumulates {state['k']} micro-batches, this run {self.k}")
+        self.mini_step = int(state["mini_step"])
+        self.acc = [t.clone() for t in state["acc"]]
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, scheduler, clip_grad: float,
+                    accumulator: Optional[GradientAccumulator] = None, mesh=None,
+                    sharded: Collection[int] = frozenset()) -> bool:
+    """The optimizer update on the live params' ``.grad``: with an
+    ``accumulator``, the gradient is first added to it and nothing more
+    happens until its k-th call; then clip by the global norm
+    (``clip_grad`` > 0), AdamW, one schedule step. Returns whether the
+    update was applied."""
+    params = live_params(optimizer)
+    if accumulator is not None and not accumulator.add(params):
+        return False
+    if clip_grad:
+        clip_by_global_norm(params, clip_grad, mesh, sharded)
+    optimizer.step()
+    scheduler.step()
+    return True
+
+
+def load_optimizer_state(trainer, state: Dict) -> None:
+    """Restore a trainer's AdamW, scheduler, applied-step count and
+    accumulation buffers from its ``state_dict()`` (moments onto the params'
+    device)."""
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.scheduler.load_state_dict(state["scheduler"])
+    trainer.step_count = int(state["step"])
+    accum = state.get("accum")
+    if (accum is None) != (trainer.accumulator is None):
+        raise ValueError("the checkpoint and this run disagree on gradient accumulation")
+    if accum is not None:
+        trainer.accumulator.load_state_dict(
+            {**accum, "acc": [t.to(trainer.device) for t in accum["acc"]]})

@@ -96,6 +96,41 @@ def _torch_name(path: Tuple[str, ...], names: Optional[Collection[str]] = None) 
     return parts
 
 
+_TOP_INV = {v: k for k, v in _TOP.items()}
+_RENAMES_INV = (
+    (re.compile(r"layers\.(\d+)\.blocks\.(\d+)"), r"layers_\1_blocks_\2"),
+    (re.compile(r"layers\.(\d+)\.downsample"), r"layers_\1_downsample"),
+    (re.compile(r"(blocks|encoder_blocks)\.(\d+)"), r"\1_\2"),
+    (re.compile(r"patch_embed\.(proj|norm)"), r"patch_embed_\1"),
+)
+_CNN_INV = {"batchnorm": "norm", "layernorm": "norm", "cg": "act", "glu": "act"}
+
+
+def jax_style_path(name: str, ndim: int = 2) -> str:
+    """The JAX package's ``/``-joined path of the port key ``name`` (the
+    inverse of :func:`_torch_name`; ``ndim``, the tensor's rank, tells a
+    kernel from a norm scale): ``at_adpater.1.weight`` ->
+    ``at_head/kernel``, ``backbone.blocks.3.attn.qkv.bias`` ->
+    ``backbone/blocks_3/attn/qkv/bias``. The configs' ``warm_start_drop``
+    regexes are matched against it."""
+    for torch_top, jax_top in _TOP_INV.items():
+        if name.startswith(torch_top + "."):
+            name = jax_top + name[len(torch_top):]
+            break
+    for pattern, repl in _RENAMES_INV:
+        name = pattern.sub(repl, name)
+    parts = name.split(".")
+    if parts[0] == "cnn" and len(parts) > 2 and parts[1] == "cnn":
+        m = re.fullmatch(r"(batchnorm|layernorm|cg|glu)(\d+)", parts[2])
+        parts = ["cnn"] + ([f"{_CNN_INV[m.group(1)]}{m.group(2)}"] if m else [parts[2]]) + parts[3:]
+    leaf = parts[-1]
+    if leaf == "weight":
+        parts[-1] = "kernel" if ndim >= 2 else "scale"
+    elif leaf in ("running_mean", "running_var"):
+        parts[-1] = leaf.split("_")[1]
+    return "/".join(parts)
+
+
 def _split_variables(tree: Mapping) -> Tuple[Mapping, Mapping]:
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         return tree["params"], tree.get("batch_stats") or {}
