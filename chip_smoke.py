@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases kernel_timing  # every kernel's time alone, no build check
     python3 chip_smoke.py --phases build,score  # the test stage's scoring path alone
     python3 chip_smoke.py --phases build,stages  # the matsed_* stages through the CLI
+    python3 chip_smoke.py --phases build,score,serving  # serve, infer, stream and export
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
@@ -102,7 +103,29 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      event F1 1), (e) a planted fault (every event 1 s late) fails (d), (f)
      rows 1 and 2 ran 12 and 3 times a batch; prints the path's clips/s and
      its host split beside the card's name and power limit;
-  4b. stages: the recipe CLI (``recipes/cli.py``) in-process on the card at
+  4b. serving (run after 4a in the whole script, on its 48 clips, its
+     split written anew when 4a does not run, and the same seeded
+     flagship): (a) ``recipes/serve.py:main`` at B=8 from a port checkpoint
+     and from a ``.pt`` of the flagship's weights (``--config_dir
+     config/mat-sed/finetune1.yaml``, on the card by default): its per-clip
+     TSVs and ``events.jsonl`` equal, bitwise and by file name,
+     ``InferenceEngine.score_batches`` and ``decode`` on the same loader's
+     batches, rows 1 and 2 at 12 and 3 launches a batch; (b)
+     ``recipes/infer.py:infer_clip`` on one clip equals the engine at B=1,
+     and ``infer_long_audio`` on 60 s of six clips (11 windows in one
+     forward) equals the overlap-add of the engine's scores of the same
+     windows, bitwise; (c) ``recipes/stream.py:StreamingScorer`` on 30 s in
+     chunks of 0.5 and 1.7 s gives the rows of a manual overlap-add of the
+     same windows, bitwise; (d) ``recipes/export.py:main`` then
+     ``serve.main --exported`` for the flagship (B=8; the TSVs of (a)),
+     PMAM's PaSST_CNN (``config/pmam/finetune1.yaml``, B=8) and HTSAT_CNN
+     (``config/audioset_strong/htsat_cnn.yaml``, B=64), each on 16 clips
+     against its own engine, each program calling its network's
+     ``t4s::`` ops (rows 1 and 2, 1 and 9, 14 and 2); (e) a planted fault,
+     file names rolled within each batch before the TSVs are written, falls
+     outside (a); prints clips/s of ``main`` beside the engine's and ms a
+     stream window beside the card's name and power limit;
+  4c. stages: the recipe CLI (``recipes/cli.py``) in-process on the card at
      the flagship's full width, from a mini DESED on disk (strong 12, synth
      4, weak 16, unlabeled 32 clips of ``synthetic_bursts``; validation and
      test: phase 4a's 48 clips and tables) with configs written from the
@@ -251,11 +274,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "score", "stages", "train", "train_parity",
-          "parallel_train", "multichip_dryrun", "htsat_serve", "htsat_parity", "htsat_train",
-          "htsat_train_parity", "pmam_serve", "pmam_parity", "pmam_train", "pmam_train_parity",
-          "mlm_train", "mlm_train_parity", "masked_decoder", "finetune2_serve", "finetune2_parity",
-          "finetune2_train", "finetune2_train_parity", "timing", "profile")
+PHASES = ("build", "kernels", "serve", "parity", "score", "serving", "stages", "train",
+          "train_parity", "parallel_train", "multichip_dryrun", "htsat_serve", "htsat_parity",
+          "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity", "pmam_train",
+          "pmam_train_parity", "mlm_train", "mlm_train_parity", "masked_decoder",
+          "finetune2_serve", "finetune2_parity", "finetune2_train", "finetune2_train_parity",
+          "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
 SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
               "variant_kernels", "htsat_timing", "pmam_timing", "kernel_timing")
@@ -1721,14 +1745,14 @@ def score_ground_truth(gt, durations, codec, dev, shift=0.0):
     return metrics
 
 
-def score(engine):
+def score(engine, root):
     """The port's test-stage path (``recipes/matsed.py:306-434``) at the
-    flagship's full width: files on disk -> native WAV loader -> the port's
+    flagship's full width, on the split written under ``root``
+    (``write_score_split``): files on disk -> native WAV loader -> the port's
     dataset and DataLoader -> frontend and PaSST_SED on the card (rows 1
     and 2) -> ``batched_decode_preds`` on the card with the recipe's
     median windows and weak mask -> PSDS1, PSDS2, event and segment F1 and
     cSEBB then PSDS1 on the host; with checks (a) to (f)."""
-    import tempfile
     import unittest.mock
 
     import numpy as np
@@ -1752,63 +1776,61 @@ def score(engine):
     log(f"score: native libraries {sorted(k for k, v in libs.items() if v is not None)} "
         f"loaded in {time.perf_counter() - t0:.1f} s (g++ at first use)")
     check(all(v is not None for v in libs.values()), "(c) a native library did not build")
-    with tempfile.TemporaryDirectory(prefix="t4s_score_") as tmp:
-        root = Path(tmp)
-        written_gt, _ = write_score_split(root, codec)
-        gt = load_ground_truth(str(root / "strong.tsv"))
-        durations = load_durations(str(root / "durations.tsv"))
-        check({c: e for c, e in gt.items() if e} == {c: e for c, e in written_gt.items() if e},
-              "the strong TSV reads back the events it was written with")
-        check(sorted(durations) == sorted(gt) and len(gt) == SCORE_CLIPS,
-              f"{len(gt)} clips in the ground truth, {len(durations)} durations")
-        dataset = StronglyLabeledDataset(read_tsv(str(root / "strong.tsv")), str(root / "audio"),
-                                         True, codec)
-        loader = DataLoader(dataset, batch_size=SCORE_BATCH, drop_last=False, num_workers=4)
-        with torch.no_grad():  # a warm-up forward, outside the counts and the times
-            wav0 = torch.zeros(SCORE_BATCH, CLIP_SAMPLES, device=dev)
-            pm0 = torch.zeros(SCORE_BATCH, codec.n_frames, dtype=torch.bool, device=dev)
-            engine.model(engine.frontend.normalize(engine.frontend(wav0)), pad_mask=pm0,
-                         **engine.model_kwargs)
-        torch.cuda.synchronize()
+    written_gt, _ = write_score_split(root, codec)
+    gt = load_ground_truth(str(root / "strong.tsv"))
+    durations = load_durations(str(root / "durations.tsv"))
+    check({c: e for c, e in gt.items() if e} == {c: e for c, e in written_gt.items() if e},
+          "the strong TSV reads back the events it was written with")
+    check(sorted(durations) == sorted(gt) and len(gt) == SCORE_CLIPS,
+          f"{len(gt)} clips in the ground truth, {len(durations)} durations")
+    dataset = StronglyLabeledDataset(read_tsv(str(root / "strong.tsv")), str(root / "audio"),
+                                     True, codec)
+    loader = DataLoader(dataset, batch_size=SCORE_BATCH, drop_last=False, num_workers=4)
+    with torch.no_grad():  # a warm-up forward, outside the counts and the times
+        wav0 = torch.zeros(SCORE_BATCH, CLIP_SAMPLES, device=dev)
+        pm0 = torch.zeros(SCORE_BATCH, codec.n_frames, dtype=torch.bool, device=dev)
+        engine.model(engine.frontend.normalize(engine.frontend(wav0)), pad_mask=pm0,
+                     **engine.model_kwargs)
+    torch.cuda.synchronize()
 
-        decodes0, sweeps0 = dict(audio_io.DECODES), dict(psds.SWEEPS)
-        reset_launches()
-        raw, post, rows, held = {}, {}, [], []
-        load_ms = forward_ms = decode_ms = 0.0
-        t_path = time.perf_counter()
-        t0 = time.perf_counter()
-        for batch in loader:
-            load_ms += (time.perf_counter() - t0) * 1e3
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            with torch.no_grad():
-                wav = torch.from_numpy(batch["wav"]).to(dev)
-                pm = torch.from_numpy(batch["pad_mask"]).to(dev)
-                out = engine.model(engine.frontend.normalize(engine.frontend(wav)), pad_mask=pm,
-                                   **engine.model_kwargs)
-                strong, weak = out.strong.float(), out.weak.float()
-            end.record()
-            end.synchronize()
-            forward_ms += start.elapsed_time(end)
-            t1 = time.perf_counter()
-            r, p = batched_decode_preds(strong, batch["filename"], codec, filter=widths,
-                                        weak_preds=weak, need_weak_mask=True)
-            ev = decode_pred_batch(strong, weak, batch["filename"], codec, [0.5], widths)[0.5]
-            decode_ms += (time.perf_counter() - t1) * 1e3
-            raw.update(r)
-            post.update(p)
-            rows.extend(ev)
-            held.append((batch["filename"], strong.cpu().numpy(), weak.cpu().numpy(), r, p, ev))
-            t0 = time.perf_counter()
-        metrics, psds_ms = score_metrics(post, rows, gt, durations, codec.labels)
-        path_s = time.perf_counter() - t_path
-        launches = read_launches()
+    decodes0, sweeps0 = dict(audio_io.DECODES), dict(psds.SWEEPS)
+    reset_launches()
+    raw, post, rows, held = {}, {}, [], []
+    load_ms = forward_ms = decode_ms = 0.0
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    for batch in loader:
+        load_ms += (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            wav = torch.from_numpy(batch["wav"]).to(dev)
+            pm = torch.from_numpy(batch["pad_mask"]).to(dev)
+            out = engine.model(engine.frontend.normalize(engine.frontend(wav)), pad_mask=pm,
+                               **engine.model_kwargs)
+            strong, weak = out.strong.float(), out.weak.float()
+        end.record()
+        end.synchronize()
+        forward_ms += start.elapsed_time(end)
         t1 = time.perf_counter()
-        sebb = apply_csebbs(raw)
-        sebb_psds1, _ = psds.compute_psds_from_scores(sebb, gt, durations, **SCORE_PSDS1)
-        sebb_ms = (time.perf_counter() - t1) * 1e3
-        decodes = {k: audio_io.DECODES[k] - decodes0.get(k, 0) for k in ("native", "python")}
-        sweeps = {k: psds.SWEEPS[k] - sweeps0.get(k, 0) for k in ("native", "numpy")}
+        r, p = batched_decode_preds(strong, batch["filename"], codec, filter=widths,
+                                    weak_preds=weak, need_weak_mask=True)
+        ev = decode_pred_batch(strong, weak, batch["filename"], codec, [0.5], widths)[0.5]
+        decode_ms += (time.perf_counter() - t1) * 1e3
+        raw.update(r)
+        post.update(p)
+        rows.extend(ev)
+        held.append((batch["filename"], strong.cpu().numpy(), weak.cpu().numpy(), r, p, ev))
+        t0 = time.perf_counter()
+    metrics, psds_ms = score_metrics(post, rows, gt, durations, codec.labels)
+    path_s = time.perf_counter() - t_path
+    launches = read_launches()
+    t1 = time.perf_counter()
+    sebb = apply_csebbs(raw)
+    sebb_psds1, _ = psds.compute_psds_from_scores(sebb, gt, durations, **SCORE_PSDS1)
+    sebb_ms = (time.perf_counter() - t1) * 1e3
+    decodes = {k: audio_io.DECODES[k] - decodes0.get(k, 0) for k in ("native", "python")}
+    sweeps = {k: psds.SWEEPS[k] - sweeps0.get(k, 0) for k in ("native", "numpy")}
 
     n_batches = -(-SCORE_CLIPS // SCORE_BATCH)
     log(f"score: {SCORE_CLIPS} clips from disk in {n_batches} batches of {SCORE_BATCH}; "
@@ -1898,6 +1920,309 @@ def score(engine):
         f"PSDS2 ({path_s * 1e3:.1f} ms); host ms: loading {load_ms:.1f} (waits on the "
         f"loader), decode on the card {decode_ms:.1f}, PSDS1 + PSDS2 sweeps {psds_ms:.1f}; "
         f"device ms of frontend + model {forward_ms:.1f}; cSEBB + its PSDS1 {sebb_ms:.1f}")
+
+
+# -- phase serving: the serve, infer, stream and export entry points ---------------
+
+SERVING_BATCH = 8
+SERVING_CONFIGS = {  # network -> (shipped config, batch, the ops its exported program calls)
+    "flagship": ("config/mat-sed/finetune1.yaml", SERVING_BATCH,
+                 {"t4s.flash_nhd_fwd.default": 12, "t4s.xl_nhd_fwd.default": 3}),
+    "PMAM": ("config/pmam/finetune1.yaml", SERVING_BATCH,
+             {"t4s.flash_nhd_fwd.default": 12, "t4s.xl_hm_fwd.default": 3}),
+    "HTSAT_CNN": ("config/audioset_strong/htsat_cnn.yaml", HTSAT_BATCH,
+                  {"t4s.window_fwd.default": 12, "t4s.xl_nhd_fwd.default": 3}),
+}
+# the wrappers whose launches each network's served batch makes
+SERVING_LAUNCHES = {"flagship": dict(flash_attention_nhd=12, flash_xl_attention_nhd=3),
+                    "PMAM": dict(flash_attention_nhd=12, flash_xl_attention=3),
+                    "HTSAT_CNN": dict(window_attention=12, flash_xl_attention_nhd=3)}
+SERVING_EXPORT_CLIPS = 16  # PMAM's and HTSAT_CNN's served clips
+LONG_CLIPS = (0, 1, 2, 3, 4, 6)  # the long file: six full-length clips, 60 s
+STREAM_CLIPS = (0, 1, 2)  # the stream: 30 s
+STREAM_CHUNKS_S = (0.5, 1.7)  # two chunkings of the same stream
+
+
+def engine_pass(engine, wav_dir, batch_size):
+    """The engine over ``wav_dir`` through the serve CLI's loader (the same
+    batches): {filename: (filtered scores [T, C], events)}, and the host
+    seconds of the pass."""
+    import torch
+
+    from transformer4sed_tpu_torch.data.datasets import UnlabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(UnlabeledDataset(str(wav_dir), True, engine.codec), batch_size=batch_size,
+                        drop_last=False, num_workers=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = {}
+    for names, scores, _ in engine.score_batches(loader):
+        for name, clip in zip(names, scores):
+            ref[name] = (clip, engine.decode(clip))
+    return ref, time.perf_counter() - t0
+
+
+def served_as(out_dir, ref):
+    """Whether ``out_dir`` holds what the engine served: one TSV a clip whose
+    scores equal the engine's bitwise, and ``events.jsonl`` with the
+    engine's events, one line a clip, in the clips' order."""
+    import numpy as np
+
+    lines = [json.loads(ln) for ln in (out_dir / "events.jsonl").read_text().splitlines()]
+    if [e["filename"] for e in lines] != sorted(ref):
+        return False
+    if sorted(p.name for p in out_dir.glob("*.tsv")) != sorted(f"{n[:-4]}.tsv" for n in ref):
+        return False
+    for e in lines:
+        scores, events = ref[e["filename"]]
+        got = np.loadtxt(out_dir / f"{e['filename'][:-4]}.tsv", delimiter="\t", skiprows=1)
+        if not (got[:, 2:].shape == scores.shape
+                and np.array_equal(got[:, 2:].astype(np.float32), scores)
+                and e["events"] == [{"event": lab, "onset": on, "offset": off}
+                                    for lab, on, off in events]):
+            return False
+    return True
+
+
+def same_outputs(a, b):
+    """Two serve outputs with the same TSV and events files, byte for byte."""
+    names = sorted(p.name for p in a.iterdir())
+    return names == sorted(p.name for p in b.iterdir()) and all(
+        (a / n).read_bytes() == (b / n).read_bytes() for n in names)
+
+
+def run_serve_main(args, out_dir, want_launches):
+    """``serve.main`` with ``args`` into ``out_dir``: its printed line, its
+    scoring seconds (its own clock) and its launches, checked against
+    ``want_launches``."""
+    import io
+
+    from transformer4sed_tpu_torch.recipes import serve
+
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main([*args, "--out_dir", str(out_dir)])
+    launches = read_launches()
+    line = buf.getvalue().strip()
+    check(rc == 0 and line.startswith("scored"), f"serve.main {args}: rc {rc}, {line!r}")
+    want = {name: 0 for name in launches}
+    want.update(want_launches)
+    check(launches == want, f"serve.main {args}: launches {launches}, expected {want}")
+    return line, float(re.search(r"in ([0-9.]+)s", line).group(1))
+
+
+def serving(engine, root):
+    """The serving entry points on the split of phase score (``root``):
+    (a) ``serve.main`` at B=8 from a port checkpoint and from a ``.pt`` of
+    the flagship's weights, against the engine on the same batches; (b)
+    ``infer_clip`` and ``infer_long_audio``; (c) ``StreamingScorer`` in two
+    chunkings against a manual overlap-add; (d) ``export.main`` and
+    ``serve.main --exported`` for the flagship, PMAM and HTSAT_CNN; (e) a
+    planted fault, file names permuted within a batch, outside (a)."""
+    import tempfile
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.core.filters import apply_class_filter
+    from transformer4sed_tpu_torch.data.audio_io import pad_wav
+    from transformer4sed_tpu_torch.data.datasets import UnlabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+    from transformer4sed_tpu_torch.eval.scores import ClipScores, segment_scores_overlap_add
+    from transformer4sed_tpu_torch.recipes import cli, export, infer, stream
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+    from transformer4sed_tpu_torch.utils.checkpoint import save_params
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    card = card_line()
+    codec, dev = engine.codec, engine.device
+    audio = root / "audio"
+    work = Path(tempfile.mkdtemp(prefix="serving_", dir=root))
+    cfg_path, batch, want_calls = SERVING_CONFIGS["flagship"]
+    per_batch = SERVING_LAUNCHES["flagship"]
+    n_batches = -(-SCORE_CLIPS // batch)
+    state = {k: v.detach().cpu() for k, v in engine.model.state_dict().items()}
+    ckpt = save_params(str(work / "flagship.ckpt"), state)
+    torch.save(state, work / "flagship.pt")
+    with torch.no_grad():  # a warm-up forward, outside the counts and the times
+        engine.forward(torch.zeros(batch, CLIP_SAMPLES, device=dev),
+                       torch.zeros(batch, codec.n_frames, dtype=torch.bool, device=dev))
+    ref, engine_s = engine_pass(engine, audio, batch)
+    check(len(ref) == SCORE_CLIPS, f"the engine served {len(ref)} clips")
+
+    # (a) serve.main from the port checkpoint and from the .pt, held to the engine
+    cfg = str(ROOT / cfg_path)
+    launches = {k: n * n_batches for k, n in per_batch.items()}
+    rates = {}
+    for tag, weights in (("ckpt", ckpt), ("pt", str(work / "flagship.pt"))):
+        line, main_s = run_serve_main(["--config_dir", cfg, "--ckpt", weights, "--wav_dir",
+                                       str(audio), "--batch_size", str(batch)], work / tag,
+                                      launches)
+        ok = served_as(work / tag, ref)
+        log(f"serving (a) serve.main --ckpt {Path(weights).name}: {line}; TSVs and events "
+            f"against the engine's on the same batches, by filename: "
+            f"{'bitwise equal' if ok else 'OUTSIDE'}")
+        check(ok, f"(a) serve.main --ckpt {weights} differs from the engine")
+        rates[tag] = SCORE_CLIPS / main_s
+    log(f"serving (a) ({card}): serve.main {rates['ckpt']:.2f} and {rates['pt']:.2f} clips/s "
+        f"(its scoring loop, from files on disk), the engine {SCORE_CLIPS / engine_s:.2f} clips/s "
+        f"on the same loader; launches a batch {per_batch}; one pass, ungated")
+
+    # (e) the planted fault: file names permuted within each batch
+    class Permuted:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def score_batches(self, batches):
+            for names, scores, weak in self.inner.score_batches(batches):
+                yield names[1:] + names[:1], scores, weak
+
+    with unittest.mock.patch.object(cli, "serving_engine", lambda *a, **k: Permuted(engine)):
+        run_serve_main(["--config_dir", cfg, "--ckpt", ckpt, "--wav_dir", str(audio)],
+                       work / "fault", launches)
+    ok = served_as(work / "fault", ref)
+    log(f"serving planted fault, file names rolled by one within each batch before the TSVs "
+        f"are written: check (a) {'within' if ok else 'OUTSIDE'}")
+    check(not ok, "(e) check (a) let file names permuted within a batch through")
+
+    # (b) infer_clip and infer_long_audio, against the engine at their shapes
+    loaded = {}
+    for b in DataLoader(UnlabeledDataset(str(audio), True, codec), batch_size=batch,
+                        drop_last=False, num_workers=4):
+        for name, wav, pm in zip(b["filename"], b["wav"], b["pad_mask"]):
+            loaded[name] = (wav, pm)
+    name0 = "clip000.wav"
+    wav0 = loaded[name0][0]
+    events, _, weak = infer.infer_clip(engine.model, engine.frontend, wav0, codec,
+                                       engine.threshold, engine.median_filter,
+                                       engine.model_kwargs)
+    one = InferenceEngine(engine.model, engine.frontend, codec, engine.median_filter,
+                          batch_size=1, threshold=engine.threshold,
+                          model_kwargs=engine.model_kwargs, device=dev)
+    _, s1, w1 = next(one.score_batches([{"wav": wav0[None], "pad_mask": loaded[name0][1][None],
+                                         "filename": [name0]}]))
+    ok = events == [tuple(e) for e in one.decode(s1[0])] and np.array_equal(weak, w1[0])
+    diff8 = float(np.abs(s1[0] - ref[name0][0]).max())
+    log(f"serving (b) infer_clip on {name0}: {len(events)} events and the weak scores against "
+        f"the engine at B=1: {'equal' if ok else 'OUTSIDE'}; its filtered scores against the "
+        f"B=8 row: max abs diff {diff8:.3e} (ungated)")
+    check(ok, "(b) infer_clip differs from the engine")
+    long = np.concatenate([loaded[f"clip{i:03d}.wav"][0] for i in LONG_CLIPS])
+    win = CLIP_SAMPLES
+    starts = infer.window_starts(len(long), win, win // 2)
+    reset_launches()
+    t0 = time.perf_counter()
+    long_events, segs = infer.infer_long_audio(engine.model, engine.frontend, long, codec,
+                                               engine.threshold, engine.median_filter,
+                                               model_kwargs=engine.model_kwargs)
+    long_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    windows = InferenceEngine(engine.model, engine.frontend, codec, engine.median_filter,
+                              batch_size=len(starts), threshold=engine.threshold,
+                              model_kwargs=engine.model_kwargs, device=dev)
+    pieces = [pad_wav(long[s:s + win], win, codec) for s in starts]
+    ids = [f"clip-{round(s / SR * 100)}-{round(min(s + win, len(long)) / SR * 100)}"
+           for s in starts]
+    _, ws, _ = next(windows.score_batches([{"wav": np.stack([p[0] for p in pieces]),
+                                            "pad_mask": np.stack([p[1] for p in pieces]),
+                                            "filename": ids}]))
+    edges = np.linspace(0.0, codec.audio_len, ws.shape[1] + 1)
+    want = segment_scores_overlap_add({c: ClipScores(ws[i], edges, codec.labels)
+                                       for i, c in enumerate(ids)},
+                                      {"clip": len(long) / SR}, codec.labels)["clip"].scores
+    ok = (len(starts) == 11 and segs.shape == (60, len(codec.labels))
+          and np.array_equal(segs, want)
+          and all(launches[k] == n for k, n in per_batch.items()))
+    log(f"serving (b) infer_long_audio on 60 s ({len(starts)} windows in one forward, launches "
+        f"{ {k: launches[k] for k in per_batch} }, {long_ms:.1f} ms): segment scores {segs.shape}, {len(long_events)} events; against "
+        f"the overlap-add of the engine's scores of the same windows: "
+        f"{'bitwise equal' if ok else 'OUTSIDE'}")
+    check(ok, "(b) infer_long_audio differs from the engine's windows")
+
+    # (c) the stream, in two chunkings, against a manual overlap-add
+    wav30 = np.concatenate([loaded[f"clip{i:03d}.wav"][0] for i in STREAM_CLIPS])
+    rows, window_ms = [], []
+    for chunk_s in STREAM_CHUNKS_S:
+        scorer = stream.StreamingScorer(engine.model, engine.frontend, codec,
+                                        median_filter=engine.median_filter,
+                                        model_kwargs=engine.model_kwargs)
+        chunk = int(chunk_s * SR)
+        t0 = time.perf_counter()
+        rows.append(list(scorer.stream(wav30[i:i + chunk] for i in range(0, len(wav30), chunk))))
+        window_ms.append((time.perf_counter() - t0) * 1e3 / scorer.windows)
+    t_frames = codec.n_frames
+    acc = np.zeros((3 * t_frames, len(codec.labels)), np.float32)
+    cnt = np.zeros((3 * t_frames, 1), np.float32)
+    with torch.no_grad():
+        for s in range(0, len(wav30) - win + 1, scorer.hop):
+            x = torch.from_numpy(wav30[None, s:s + win].copy()).to(dev)
+            out = engine.model(engine.frontend.normalize(engine.frontend(x)),
+                               **engine.model_kwargs)
+            f = apply_class_filter(out.strong.transpose(1, 2), engine.median_filter)[0].float()
+            f0 = int(round(s / win * t_frames))
+            acc[f0:f0 + t_frames] += f.cpu().numpy()
+            cnt[f0:f0 + t_frames] += 1.0
+    manual = [(i * (codec.audio_len / t_frames), acc[i] / cnt[i, 0])
+              for i in range(3 * t_frames)]
+    same = all(len(r) == len(manual) and all(
+        ta == tb and np.array_equal(a, b) for (ta, a), (tb, b) in zip(r, manual)) for r in rows)
+    log(f"serving (c) StreamingScorer on 30 s, hop {scorer.hop / SR:.1f} s, {scorer.windows} "
+        f"windows, chunks of {STREAM_CHUNKS_S[0]} and {STREAM_CHUNKS_S[1]} s: {len(rows[0])} and "
+        f"{len(rows[1])} rows; both against a manual overlap-add of the same windows: "
+        f"{'bitwise equal' if same else 'OUTSIDE'}; {window_ms[0]:.2f} and {window_ms[1]:.2f} ms "
+        f"a window ({card}, host clock, one pass)")
+    check(same, "(c) the stream's rows differ from the manual overlap-add or between chunkings")
+
+    # (d) export.main, then serve.main --exported, for the three networks
+    clips16 = work / "clips16"
+    clips16.mkdir()
+    for p in sorted(audio.glob("*.wav"))[:SERVING_EXPORT_CLIPS]:
+        (clips16 / p.name).symlink_to(p)
+    for net, (cfg_path, batch, want_calls) in SERVING_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = str(ROOT / cfg_path)
+        if net == "flagship":
+            wav_dir, net_ref, net_ckpt, direct = audio, ref, ckpt, work / "ckpt"
+        else:
+            config = load_yaml_with_include(cfg)
+            model, _ = cli.build_model(config, dev)
+            net_ckpt = save_params(str(work / f"{net}.ckpt"), init_weights_(model, seed=0)
+                                   .state_dict())
+            del model
+            net_engine = cli.serving_engine(config, net_ckpt, dev, batch)
+            wav_dir, direct = clips16, None
+            net_ref, _ = engine_pass(net_engine, wav_dir, batch)
+            del net_engine
+        art = work / f"{net}.pt2"
+        with contextlib.redirect_stdout(sys.stderr):
+            check(export.main(["--config_dir", cfg, "--ckpt", net_ckpt, "--out", str(art),
+                               "--batch_size", str(batch)]) == 0, f"(d) export.main {net}")
+        export_s = time.perf_counter() - t0
+        program, meta = export.load_exported(str(art))
+        calls = collections.Counter(str(n.target) for n in program.graph.nodes
+                                    if str(n.target).startswith("t4s."))
+        del program
+        check(dict(calls) == want_calls and meta["batch_size"] == batch,
+              f"(d) {net}: the program calls {dict(calls)}, expected {want_calls}")
+        n_b = -(-len(net_ref) // batch)
+        line, _ = run_serve_main(["--exported", str(art), "--wav_dir", str(wav_dir)],
+                                 work / f"{net}_exported",
+                                 {k: n * n_b for k, n in SERVING_LAUNCHES[net].items()})
+        ok = served_as(work / f"{net}_exported", net_ref) and (
+            direct is None or same_outputs(work / f"{net}_exported", direct))
+        log(f"serving (d) {net}: export.main at B={batch} ({art.stat().st_size / 1e6:.1f} MB, "
+            f"export and the reference {export_s:.1f} s), the program calls {dict(calls)}; "
+            f"serve.main --exported on {len(net_ref)} clips: {line}; TSVs and events against "
+            f"{'(a) and ' if direct else ''}the engine: {'bitwise equal' if ok else 'OUTSIDE'}")
+        check(ok, f"(d) {net}: the exported program serves other TSVs than the engine")
+        torch.cuda.empty_cache()
 
 
 # -- phase stages: the matsed_* stages through the recipe CLI ---------------------
@@ -4434,11 +4759,23 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         parity(engine, batches)
         log(f"parity phase {time.perf_counter() - t0:.1f} s")
-    if "score" in phases:
-        t0 = time.perf_counter()
-        score(engine if engine is not None else build_engine("cuda", torch.bfloat16))
-        torch.cuda.empty_cache()
-        log(f"score phase {time.perf_counter() - t0:.1f} s")
+    if phases & {"score", "serving"}:
+        import tempfile
+
+        engine = engine if engine is not None else build_engine("cuda", torch.bfloat16)
+        with tempfile.TemporaryDirectory(prefix="t4s_score_") as split:
+            if "score" in phases:
+                t0 = time.perf_counter()
+                score(engine, Path(split))
+                torch.cuda.empty_cache()
+                log(f"score phase {time.perf_counter() - t0:.1f} s")
+            else:
+                write_score_split(Path(split), engine.codec)
+            if "serving" in phases:
+                t0 = time.perf_counter()
+                serving(engine, Path(split))
+                torch.cuda.empty_cache()
+                log(f"serving phase {time.perf_counter() - t0:.1f} s")
     if "stages" in phases:
         t0 = time.perf_counter()
         stages()

@@ -209,7 +209,8 @@ def test_port_and_chip_smoke_import_no_jax():
              if "_build" not in p.relative_to(pkg).parts]  # build outputs, not sources
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
-    assert {pkg / "recipes" / f"{m}.py" for m in ("cli", "common", "matsed")} | {
+    assert {pkg / "recipes" / f"{m}.py" for m in ("cli", "common", "matsed", "serve", "infer",
+                                                   "stream", "export")} | {
         pkg / "utils" / f"{m}.py" for m in ("checkpoint", "logging")} <= set(files)
     for path in files:
         for name in _top_level_imports(path):

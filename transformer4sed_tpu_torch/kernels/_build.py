@@ -6,6 +6,13 @@ the package (listed in ``.gitignore``). The library's file name carries
 a hash of its sources and flags, so an edited kernel is rebuilt and a
 built one is reused. :func:`build` starts one nvcc per source, all at
 once, and waits for every one of them.
+
+:func:`define_op` registers a kernel's no-grad forward as a
+``torch.library`` custom op ``t4s::<name>``: the ctypes launch for CUDA
+tensors, the plain version for CPU tensors and a fake implementation that
+gives the output's shape, dtype and strides, so that ``torch.export``
+traces the served forward through the op and the exported program calls
+the kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -112,3 +121,22 @@ def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+# the kernels' custom ops, t4s::<name>: defined and implemented on this
+# library directly (Library.define / Library.impl), which costs the host less a
+# call than torch.library.custom_op's wrappers (PERF.md, §6)
+_OPS = torch.library.Library("t4s", "DEF")
+
+
+def define_op(name: str, schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """The custom op ``t4s::<name>`` with ``schema`` (its arguments and
+    result, e.g. ``"(Tensor q, int h) -> Tensor"``): ``cpu`` for CPU tensors,
+    ``cuda`` (the kernel's launch and its launch count) for CUDA tensors,
+    ``fake`` for tracing. No other device has an implementation, so such a
+    call raises. Returns the op's ``OpOverload``."""
+    _OPS.define(name + schema)
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"t4s::{name}", fake, lib=_OPS)
+    return getattr(torch.ops.t4s, name).default

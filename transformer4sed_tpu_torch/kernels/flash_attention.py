@@ -45,8 +45,10 @@ caller's layout. Each has a plain version and a launch counter.
 :func:`flash_attention_nhd` and :func:`flash_attention` dispatch like the
 JAX ``custom_vjp``: with autograd recording and an operand that requires
 grad they run their autograd Function (LSE forward, saved-O/LSE backward),
-otherwise the plain forward kernel. :func:`flash_attention_nhd` sends any
-head dim other than 64 through strided head-major views to
+otherwise the plain forward kernel; :func:`flash_attention_nhd` reaches it
+through the custom op ``t4s::flash_nhd_fwd`` (``_build.define_op``), which
+``torch.export`` records in a served program. :func:`flash_attention_nhd`
+sends any head dim other than 64 through strided head-major views to
 :func:`flash_attention`, as the JAX package does. Each wrapper launches its
 kernel for CUDA tensors and uses its plain version only for tensors on the
 CPU.
@@ -254,9 +256,10 @@ def flash_attention_nhd(q, k, v, num_heads: int, sm_scale: Optional[float] = Non
     """softmax(scale * Q K^T) V per head, q/k/v [B, N, H*d] -> [B, N, H*d].
 
     At head dim 64, differentiated calls run :class:`FlashAttentionNHD`;
-    others launch the forward kernel for CUDA tensors (bf16) and take the
-    plain version for CPU tensors. Any other head dim goes, as in the JAX
-    package's fall-back, through strided [B, H, N, d] views (no copy) to
+    others call the op ``t4s::flash_nhd_fwd``, which launches the forward
+    kernel for CUDA tensors (bf16) and takes the plain version for CPU
+    tensors. Any other head dim goes, as in the JAX package's fall-back,
+    through strided [B, H, N, d] views (no copy) to
     :func:`flash_attention`, and the heads are merged back (a reshape of the
     kernel's [B, N, H, d] buffer). What neither family takes raises.
     """
@@ -266,11 +269,20 @@ def flash_attention_nhd(q, k, v, num_heads: int, sm_scale: Optional[float] = Non
                                             scale))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionNHD.apply(q, k, v, num_heads, scale)
-    if q.device.type == "cpu":
-        return flash_attention_nhd_reference(q, k, v, num_heads, scale)
+    return flash_nhd_fwd(q, k, v, num_heads, float(scale))
+
+
+def _nhd_fwd_cuda(q, k, v, num_heads: int, scale: float):
     out, _ = _forward_kernel(q, k, v, num_heads, scale, with_lse=False)
     flash_attention_nhd.launches += 1
     return out
+
+
+# row 1 as the custom op t4s::flash_nhd_fwd (the no-grad calls of flash_attention_nhd)
+flash_nhd_fwd = _build.define_op(
+    "flash_nhd_fwd", "(Tensor q, Tensor k, Tensor v, int num_heads, float scale) -> Tensor",
+    cpu=flash_attention_nhd_reference, cuda=_nhd_fwd_cuda,
+    fake=lambda q, k, v, num_heads, scale: q.new_empty(q.shape))
 
 
 # -- the head-major family: any strides, head dims 32 and 64 ----------------------

@@ -22,7 +22,8 @@ a group of heads over a slice of the images, planned in ``csrc/window.cuh``
 :func:`swin_window_attention` dispatches like the JAX ``custom_vjp``: with
 autograd recording and an operand that requires grad it runs
 :class:`SwinWindowAttention` (forward kernel, saved q, k, v, bias, mask and
-output, backward kernel), otherwise the forward kernel alone. Each wrapper
+output, backward kernel), otherwise the forward kernel alone, through the
+custom op ``t4s::window_fwd`` (``_build.define_op``). Each wrapper
 launches its kernel for CUDA tensors (bf16, n = 64, d = 24: every HTSAT
 stage) and uses its plain version only for tensors on the CPU.
 """
@@ -216,12 +217,26 @@ def swin_window_attention(q, k, v, bias, shift_mask, n_windows: int, sm_scale: f
     q/k/v: [B*nW, n, H, d]; bias: [H, n, n]; shift_mask: [nW, n, n] additive
     (or None); n_windows = nW (windows per image, the mask's period).
     Returns [B*nW, n, H, d]. Differentiated calls run
-    :class:`SwinWindowAttention`; others the forward alone.
+    :class:`SwinWindowAttention`; others the forward alone, through the op
+    ``t4s::window_fwd``.
     """
     tensors = (q, k, v, bias) + (() if shift_mask is None else (shift_mask,))
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         return SwinWindowAttention.apply(q, k, v, bias, shift_mask, n_windows, sm_scale)
-    return window_attention(q, k, v, bias, shift_mask, n_windows, sm_scale)
+    return window_fwd(q, k, v, bias, shift_mask, n_windows, float(sm_scale))
+
+
+def _window_fwd_cpu(q, k, v, bias, shift_mask, n_windows: int, sm_scale: float):
+    """The plain version in the kernel's layout ([B*nW, n, H, d] contiguous)."""
+    return window_attention_plain(q, k, v, bias, shift_mask, n_windows, sm_scale).contiguous()
+
+
+# row 14 as the custom op t4s::window_fwd (the no-grad calls of swin_window_attention)
+window_fwd = _build.define_op(
+    "window_fwd", "(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? shift_mask, "
+    "int n_windows, float sm_scale) -> Tensor",
+    cpu=_window_fwd_cpu, cuda=window_attention,
+    fake=lambda q, *args: q.new_empty(q.shape))
 
 
 window_attention.launches = 0

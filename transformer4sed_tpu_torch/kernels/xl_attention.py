@@ -40,8 +40,10 @@ plain versions compute the full position scores and skew them
 (:func:`rel_shift`, and its adjoint :func:`rel_unshift` in the backward).
 :func:`flash_xl_attention_nhd` dispatches like the JAX ``custom_vjp``: at
 head dim 64 differentiated calls run :class:`XLAttentionNHD` and others the
-plain forward kernel; any other head dim goes, as in the JAX package's
-fall-back, through strided head-major views to :func:`flash_xl_attention`.
+plain forward kernel, through the custom op ``t4s::xl_nhd_fwd`` (row 9's
+no-grad calls go through ``t4s::xl_hm_fwd``); any other head dim goes, as
+in the JAX package's fall-back, through strided head-major views to
+:func:`flash_xl_attention`.
 """
 
 from __future__ import annotations
@@ -574,17 +576,14 @@ def flash_xl_attention(qu, qv, k, v, p, sm_scale: float,
     batch, head and row strides, p [H, 2T-1, d] -> [B, H, T, d] (a view of a
     [B, T, H, d] buffer).
 
-    Differentiated calls run :class:`XLAttention`; others launch the forward
-    kernel for CUDA tensors (bf16, head dim 32 or 64) and take the plain
-    version for CPU tensors. Any other case raises.
+    Differentiated calls run :class:`XLAttention`; others call the op
+    ``t4s::xl_hm_fwd``, which launches the forward kernel for CUDA tensors
+    (bf16, head dim 32 or 64) and takes the plain version for CPU tensors.
+    Any other case raises.
     """
     if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, qv, k, v, p)):
         return XLAttention.apply(qu, qv, k, v, p, sm_scale, band_widths)
-    if qu.device.type == "cpu":
-        return flash_xl_attention_reference(qu, qv, k, v, p, sm_scale, band_widths)
-    out, _ = _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse=False)
-    flash_xl_attention.launches += 1
-    return out
+    return xl_hm_fwd(qu, qv, k, v, p, float(sm_scale), _band_list(band_widths))
 
 
 def flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float,
@@ -593,9 +592,10 @@ def flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale:
     -> [B, T, H*d].
 
     At head dim 64, differentiated calls run :class:`XLAttentionNHD`; others
-    launch the forward kernel for CUDA tensors (bf16 q/k/v/p) and take the
-    plain version for CPU tensors. Any other head dim takes the head-major
-    family, as the JAX package's fall-back does: q + bias_u and q + bias_v in
+    call the op ``t4s::xl_nhd_fwd``, which launches the forward kernel for
+    CUDA tensors (bf16 q/k/v/p) and takes the plain version for CPU tensors.
+    Any other head dim takes the head-major family, as the JAX package's
+    fall-back does: q + bias_u and q + bias_v in
     float32 rounded to q's dtype, strided head-major views of k and v (no
     copy), :func:`flash_xl_attention`, and the heads merged back (a reshape
     of the kernel's [B, T, H, d] buffer). Autograd then forms dq = dqu + dqv
@@ -609,13 +609,48 @@ def flash_xl_attention_nhd(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale:
         return _merge_heads(out)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias_u, bias_v, p)):
         return XLAttentionNHD.apply(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths)
-    if q.device.type == "cpu":
-        return xl_attention_nhd_reference(q, k, v, bias_u, bias_v, p, num_heads, sm_scale,
-                                          band_widths)
+    return xl_nhd_fwd(q, k, v, bias_u, bias_v, p, num_heads, float(sm_scale),
+                      _band_list(band_widths))
+
+
+# -- rows 2 and 9 as custom ops (the no-grad calls of the two wrappers) --------------
+
+
+def _band_list(band_widths) -> Optional[list]:
+    """Band widths as the ops' ``int[]?`` argument."""
+    return None if band_widths is None else [int(w) for w in band_widths]
+
+
+def _nhd_fwd_cuda(q, k, v, bias_u, bias_v, p, num_heads: int, sm_scale: float, band_widths):
     out, _ = _forward_kernel(q, k, v, bias_u, bias_v, p, num_heads, sm_scale, band_widths,
                              with_lse=False)
     flash_xl_attention_nhd.launches += 1
     return out
+
+
+def _hm_fwd_cpu(qu, qv, k, v, p, sm_scale: float, band_widths):
+    """The plain version in the kernel's layout (a view of a [B, T, H, d]
+    buffer), as the op's fake implementation gives it."""
+    out = hm_empty(qu.shape, qu.dtype, qu.device)
+    return out.copy_(flash_xl_attention_reference(qu, qv, k, v, p, sm_scale, band_widths))
+
+
+def _hm_fwd_cuda(qu, qv, k, v, p, sm_scale: float, band_widths):
+    out, _ = _hm_forward_kernel(qu, qv, k, v, p, sm_scale, band_widths, with_lse=False)
+    flash_xl_attention.launches += 1
+    return out
+
+
+xl_nhd_fwd = _build.define_op(
+    "xl_nhd_fwd", "(Tensor q, Tensor k, Tensor v, Tensor bias_u, Tensor bias_v, Tensor p, "
+    "int num_heads, float sm_scale, int[]? band_widths) -> Tensor",
+    cpu=xl_attention_nhd_reference, cuda=_nhd_fwd_cuda,
+    fake=lambda q, *args: q.new_empty(q.shape))
+xl_hm_fwd = _build.define_op(
+    "xl_hm_fwd", "(Tensor qu, Tensor qv, Tensor k, Tensor v, Tensor p, float sm_scale, "
+    "int[]? band_widths) -> Tensor",
+    cpu=_hm_fwd_cpu, cuda=_hm_fwd_cuda,
+    fake=lambda qu, *args: hm_empty(qu.shape, qu.dtype, qu.device))
 
 
 flash_xl_attention_nhd.launches = 0

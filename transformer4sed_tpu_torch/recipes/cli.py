@@ -13,13 +13,18 @@ card, where the model computes in bf16 with f32 params, optimizer state and
 EMA (``docs/PRECISION.md``); ``--device cpu`` runs it on the CPU in f32
 throughout. The JAX package's other stages are not ported yet and raise,
 naming their ROADMAP.md item.
+
+:func:`build_model` is the one model builder; :func:`serving_model` (a
+config and a checkpoint -> the model in eval mode, frontend, codec, median
+widths, forward kwargs) serves the serve, infer, stream and export entry
+points.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple
 
 import torch
 
@@ -34,6 +39,24 @@ _LATER_STAGES = {
     "dasm_train": 10, "dasm_ov": 10, "openset_eval": 10,
 }
 _LATER_MODELS = {"PasstComplexCNN": 9, "CLAP_SED": 9, "DASM_HTSAT": 9, "DASM": 10}
+
+
+# upstream's spellings of the CNN branch's geometry (config/pmam/*.yaml)
+_CNN_NAMES = {"kernel": "kernel_size", "pad": "padding"}
+
+
+def _upstream_names(kwargs: Dict) -> Dict:
+    """Constructor kwargs with upstream's names in the PMAM configs mapped to
+    the port's: ``cnn_param``'s ``kernel`` / ``pad``, and ``f_pool_heads``
+    dropped where it is the 6 heads of the attention f-pool
+    (``models/passt_sed.py``; upstream reads it only to split its weights)."""
+    kwargs = dict(kwargs)
+    heads = kwargs.pop("f_pool_heads", 6)
+    if heads != 6:
+        raise ValueError(f"f_pool_heads={heads}: the attention f-pool has 6 heads")
+    if isinstance(kwargs.get("cnn_param"), dict):
+        kwargs["cnn_param"] = {_CNN_NAMES.get(k, k): v for k, v in kwargs["cnn_param"].items()}
+    return kwargs
 
 
 def build_model(config, device: torch.device):
@@ -53,10 +76,24 @@ def build_model(config, device: torch.device):
             f"model {name!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_MODELS[name]}")
     model_cls = {"PaSST_SED": PaSST_SED, "PaSST_CNN": PaSST_CNN, "HTSAT_CNN": HTSAT_CNN}[name]
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = model_cls(**common.model_init_kwargs(config, name), dtype=dtype, device="cpu")
+    model = model_cls(**_upstream_names(common.model_init_kwargs(config, name)), dtype=dtype,
+                      device="cpu")
     frontend = (HTSATFrontend(device=device) if name == "HTSAT_CNN"
                 else PasstFrontend(device=device))
     return model, frontend
+
+
+def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in a checkpoint of the port's or an upstream ``.pt``
+    file; a JAX orbax directory is refused by name."""
+    from transformer4sed_tpu_torch.utils.checkpoint import restore_params
+
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (a JAX orbax checkpoint?); the port reads its own "
+            "checkpoints and upstream .pt state dicts, not orbax directories (ROADMAP.md, not "
+            "ported)")
+    return restore_params(path)
 
 
 def load_pretrained(model, config, args, logger, device: torch.device):
@@ -64,21 +101,12 @@ def load_pretrained(model, config, args, logger, device: torch.device):
     ``load_partial`` with ``generals.warm_start_drop``; moves the model to
     ``device``. The checkpoint is a file of the port's or an upstream ``.pt``
     state dict; a JAX orbax directory is not read."""
-    from transformer4sed_tpu_torch.utils.checkpoint import (
-        dropped_keys,
-        load_partial,
-        restore_params,
-    )
+    from transformer4sed_tpu_torch.utils.checkpoint import dropped_keys, load_partial
     from transformer4sed_tpu_torch.utils.weights import init_weights_
 
     init_weights_(model, seed=args.random_seed)
     if args.pretrained_ckpt:
-        if os.path.isdir(args.pretrained_ckpt):
-            raise ValueError(
-                f"{args.pretrained_ckpt} is a directory (a JAX orbax checkpoint?); the port reads "
-                "its own checkpoints and upstream .pt state dicts, not orbax directories "
-                "(ROADMAP.md, not ported)")
-        restored = restore_params(args.pretrained_ckpt)
+        restored = read_checkpoint(args.pretrained_ckpt)
         drop = config["generals"].get("warm_start_drop", [])
         own = model.state_dict()
         model.load_state_dict(load_partial(own, restored, drop_patterns=drop))
@@ -88,6 +116,41 @@ def load_pretrained(model, config, args, logger, device: torch.device):
         logger.info(f"warm start: {len(loaded) - len(dropped)} of {len(own)} keys loaded, "
                     f"dropped {dropped}")
     return model.to(device)
+
+
+class Serving(NamedTuple):
+    """What the serving entry points need of a config and a checkpoint."""
+
+    model: torch.nn.Module
+    frontend: Any
+    codec: Any
+    median_filter: List[int]
+    model_kwargs: Dict
+
+
+def serving_model(config, ckpt: str, device: torch.device) -> Serving:
+    """The config's model (:func:`build_model`) with every weight of ``ckpt``
+    (:func:`read_checkpoint`), on ``device`` in eval mode; its frontend; the
+    codec (the classes of ``dataset.labels`` or of ``dataset.label_dict``,
+    as the AudioSet-strong configs give them); the median widths; the
+    forward's ``test_kwargs``."""
+    name = config.get("model_name", "PaSST_SED")
+    codec = common.codec_from_config(config, labels=common.label_dict_labels(config))
+    model, frontend = build_model(config, device)
+    model.load_state_dict(read_checkpoint(ckpt))
+    return Serving(model.to(device).eval(), frontend, codec,
+                   common.median_filter_from_config(config, codec),
+                   dict(config.get(name, {}).get("test_kwargs", {})))
+
+
+def serving_engine(config, ckpt: str, device: torch.device, batch_size: int,
+                   threshold: float = 0.5):
+    """``recipes.serve.InferenceEngine`` over :func:`serving_model`."""
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    s = serving_model(config, ckpt, device)
+    return InferenceEngine(s.model, s.frontend, s.codec, s.median_filter, batch_size=batch_size,
+                           threshold=threshold, model_kwargs=s.model_kwargs, device=device)
 
 
 def _precision_line(device: torch.device) -> str:

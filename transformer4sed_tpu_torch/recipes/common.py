@@ -24,6 +24,7 @@ their rows, ``parallel.put_batch``), ``shard_eval_put`` and
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import random
@@ -156,6 +157,19 @@ def codec_from_config(config: Dict, labels: Optional[List[str]] = None) -> Label
         net_pooling=feat.get("net_pooling", feat.get("net_subsample", 1)),
         sr=feat.get("sample_rate", feat.get("sr")),
     )
+
+
+def label_dict_labels(config: Dict) -> Optional[List[str]]:
+    """The class list of ``dataset.label_dict`` (or ``label_dict_path``), a
+    {label: index} JSON, in index order, as the JAX CLI reads the
+    AudioSet-strong configs' classes; None where the config names none."""
+    ds_cfg = config.get("dataset", {})
+    path = ds_cfg.get("label_dict_path") or ds_cfg.get("label_dict")
+    if not path:
+        return None
+    with open(path) as f:
+        mapping = json.load(f)
+    return sorted(mapping, key=mapping.get)
 
 
 def desed_dataset_setting(config: Dict, codec: LabelCodec, seed: int = 42):
