@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases kernel_timing  # every kernel's time alone, no build check
     python3 chip_smoke.py --phases build,score  # the test stage's scoring path alone
     python3 chip_smoke.py --phases build,stages  # the matsed_* stages through the CLI
+    python3 chip_smoke.py --phases build,pmam_stages  # the pmam_* stages and PMAM's chain
     python3 chip_smoke.py --phases build,score,serving  # serve, infer, stream and export
 
 Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
@@ -133,7 +134,9 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      the dataset paths and the epochs changed, each override logged):
      ``matsed_pretrain`` (1 epoch), ``matsed_finetune`` (1 epoch,
      warm-started from the pretrain's best student), ``matsed_finetune``
-     again to 2 epochs with ``--resume_ckpt auto``, ``matsed_test``; checks:
+     again to 2 epochs with ``--resume_ckpt auto``, ``matsed_test``, and
+     one epoch of the shipped ``finetune2.yaml`` (its sliding windows) from
+     the finetune's best student; checks:
      (a) every stage returns 0 and writes the JAX stage's files, (b) the
      warm start dropped exactly what ``classifier|at_head|at_pool`` names
      and loaded every other key bitwise, (c) the second finetune resumed at
@@ -148,6 +151,34 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
      smoke timing) and the validation and test split (device, decode,
      PSDS sweeps, loader and the rest) beside the card's name and power
      limit;
+  4d. pmam_stages: PMAM's chain (``exps/pmam/train.sh``) through the CLI on
+     the card at full width and depth: the shipped
+     ``config/pmam/post_pretrain.yaml`` (dataset paths and epochs changed,
+     and the MLM head's ``out_dim`` made the tap's 384: the shipped 768 cannot
+     meet the 384-wide GMM means in either package) over 48 written 10-s
+     clips, from a seeded post-pretrain checkpoint (LoRA factors N(0, 0.05)):
+     ``pmam_extract``, ``pmam_gmm`` (K = 30, full, 50 iterations),
+     ``pmam_pseudo_labels``, ``pmam_train`` (1 epoch, B=24), then
+     ``matsed_finetune`` on ``config/pmam/finetune1.yaml`` and
+     ``finetune2.yaml`` (1 epoch each, phase 4c's mini DESED) and
+     ``matsed_test``; checks: every stage returns 0 and launches what
+     PERF.md predicts a batch or step; (a) ``features.npy`` has 2 x 6000
+     rows of 384, and the card's bf16 tap of two clips is within 3 %
+     (relative Frobenius) of the CPU's f32 tap on the same mask and offsets;
+     (b) the GMM's mean log-likelihood never falls by more than f32 noise,
+     its weights sum to 1, every covariance factors, and one EM iteration
+     in f32 on the card is within 1e-4 (relative) of the same iteration in
+     f64 on the CPU; (c) 48 TSVs of 1000 x (2 + 30), probabilities summing
+     to 1 within 2e-5, two clips' values equal to ``predict_proba`` of their
+     tap computed apart within 1e-6; (d) a finite loss, every LoRA factor
+     moved, every other backbone tensor bitwise unchanged, the decoder and
+     the MLM head moved, rows 7, 8, 10 and 11 a step; (e) the post-pretrain
+     step, card bf16 against CPU f32, 3 steps at B=3 (phase
+     ``pmam_train_parity``'s clips, labelled by the tokenizer) with the train-parity
+     bounds over the trainable params; (f) finetune1, finetune2 and the test
+     log finite numbers, and finetune1 logs the LoRA factors and MLM head it
+     drops; (g) two planted faults fall OUTSIDE: LoRA's scale alpha for
+     alpha / r against (a), the GMM's means permuted alone against (c);
   5. train: mean-teacher steps of the same flagship at B=24 (strong 8 |
      weak 8 | unlabeled 8) on seeded synthetic clips and labels, default
      augmentation (fmin/fmax draw, frame shift, mixup p=0.5, two filt_aug
@@ -274,10 +305,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "parity", "score", "serving", "stages", "train",
-          "train_parity", "parallel_train", "multichip_dryrun", "htsat_serve", "htsat_parity",
-          "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity", "pmam_train",
-          "pmam_train_parity", "mlm_train", "mlm_train_parity", "masked_decoder",
+PHASES = ("build", "kernels", "serve", "parity", "score", "serving", "stages", "pmam_stages",
+          "train", "train_parity", "parallel_train", "multichip_dryrun", "htsat_serve",
+          "htsat_parity", "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity",
+          "pmam_train", "pmam_train_parity", "mlm_train", "mlm_train_parity", "masked_decoder",
           "finetune2_serve", "finetune2_parity", "finetune2_train", "finetune2_train_parity",
           "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
@@ -2275,14 +2306,14 @@ def write_stage_split(root, codec):
     return gt, durations
 
 
-def stage_config(root, name, tag, overrides):
-    """The shipped ``config/mat-sed/<name>.yaml`` read by the port's YAML
+def stage_config(root, name, tag, overrides, family="mat-sed"):
+    """The shipped ``config/<family>/<name>.yaml`` read by the port's YAML
     reader, the mini DESED's paths and ``overrides`` ({"section.key": value})
     set and each logged, written as ``root/<tag>.yaml``: its path."""
     from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
     from transformer4sed_tpu_torch.utils.yamlio import safe_dump
 
-    cfg = load_yaml_with_include(str(ROOT / "config" / "mat-sed" / f"{name}.yaml"))
+    cfg = load_yaml_with_include(str(ROOT / "config" / family / f"{name}.yaml"))
     paths = {
         "dataset.strong_folder": f"{root}/strong", "dataset.strong_tsv": f"{root}/strong.tsv",
         "dataset.weak_folder": f"{root}/weak", "dataset.weak_tsv": f"{root}/weak.tsv",
@@ -2299,7 +2330,8 @@ def stage_config(root, name, tag, overrides):
         node = cfg
         for part in parents:
             node = node.setdefault(part, {})
-        log(f"stages: {name}.yaml -> {tag}.yaml: {key} = {value!r} (shipped {node.get(leaf)!r})")
+        log(f"stages: {family}/{name}.yaml -> {tag}.yaml: {key} = {value!r} (shipped "
+            f"{node.get(leaf)!r})")
         node[leaf] = value
     out = root / f"{tag}.yaml"
     out.write_text(safe_dump(cfg))
@@ -2405,6 +2437,8 @@ def stages(device="cuda"):
             "training.scheduler.n_epochs": 1, "training.scheduler.n_epochs_cut": 1})
         ft2_cfg = stage_config(root, "finetune1", "finetune1_e2", {
             "training.scheduler.n_epochs": 2, "training.scheduler.n_epochs_cut": 1})
+        ft2w_cfg = stage_config(root, "finetune2", "finetune2_e1", {
+            "training.scheduler.n_epochs": 1, "training.scheduler.n_epochs_cut": 1})
         late_cfg = stage_config(root, "finetune1", "finetune1_late", {
             "training.scheduler.n_epochs": 2, "training.scheduler.n_epochs_cut": 1,
             "dataset.test_tsv": f"{root}/val/strong_late.tsv"})
@@ -2416,6 +2450,8 @@ def stages(device="cuda"):
             ("matsed_finetune (resumed)", ft2_cfg, ft_dir,
              ["--pretrained_ckpt", best_student, "--resume_ckpt", "auto"]),
             ("matsed_test", ft2_cfg, ft_dir, ["--resume_ckpt", "auto"]),
+            ("matsed_finetune (finetune2.yaml)", ft2w_cfg, root / "finetune2",
+             ["--pretrained_ckpt", str(ft_dir / "best" / "best_student")]),
             ("matsed_test (1-s-late test split)", late_cfg, root / "test_late",
              ["--resume_ckpt", str(ft_dir / "best" / "last_state")]),
         ]
@@ -2475,6 +2511,8 @@ def stages(device="cuda"):
             pre_dir: ["log.txt", "config.yaml", "best/best_student"],
             ft_dir: ["log.txt", "config.yaml", "best/best_student", "best/best_teacher",
                      "best/best_metric.json", "best/last_state", "best/last_state.prev"],
+            root / "finetune2": ["log.txt", "config.yaml", "best/best_student",
+                                 "best/best_teacher", "best/last_state"],
             root / "test_late": ["log.txt", "config.yaml"],
         }
         for folder, names in want_files.items():
@@ -2546,12 +2584,16 @@ def stages(device="cuda"):
         pre_nums = finite_log_numbers(read_log(pre_dir), r"INFO epoch \d+: train")
         ft_nums = finite_log_numbers(ft_log, r"INFO (epoch \d+: \w+=|val epoch|test \()")
         late_nums = finite_log_numbers(read_log(root / "test_late"), r"INFO test \(")
+        ft2w_nums = finite_log_numbers(read_log(root / "finetune2"),
+                                       r"INFO (epoch \d+: \w+=|val epoch|test \()")
         check(len(pre_nums) == 2 and len(ft_nums) > 30 and len(late_nums) == 2
-              and all(np.isfinite(v) for v in pre_nums + ft_nums + late_nums),
+              and len(ft2w_nums) > 15
+              and all(np.isfinite(v) for v in pre_nums + ft_nums + late_nums + ft2w_nums),
               "(d) a loss or a PSDS is not finite")
         val_lines = re.findall(r"val epoch (\d): (.*)", ft_log)
         test_lines = re.findall(r"test \(median\): (.*)", ft_log)
-        log(f"stages (d): {len(pre_nums) + len(ft_nums) + len(late_nums)} logged losses and "
+        log(f"stages (d): {len(pre_nums) + len(ft_nums) + len(late_nums) + len(ft2w_nums)} "
+            f"logged losses and "
             f"metrics, all finite; pretrain {re.findall(r'epoch 1: (train .*)', read_log(pre_dir))}; "
             f"validation {val_lines}; test {test_lines} (seeded random weights)")
 
@@ -2623,6 +2665,409 @@ def stages(device="cuda"):
                  if n.get("forward") else " (the masked-reconstruction loss, loader included)")
         log(f"stages ({card}): {what}: {r['seconds']:.1f} s in all; {train}evaluation "
             f"{t.get('eval', 0.0):.2f} s{split}")
+
+# -- phase pmam_stages: PMAM's tokenizer and post-pretraining through the CLI ----------
+
+PMAM_STAGE_CLIPS = 48  # the unlabeled folder of the tokenizer and post-pretraining
+PMAM_STAGE_SEED = 21
+PMAM_STAGE_BATCH = 24  # config/pmam/post_pretrain.yaml training.batch_size(_val)
+PMAM_TOKENS = 30  # pmam.n_components
+PMAM_TOKEN_DIM = 384  # the transformer_0 tap: decoder_dim
+# The seeded post-pretrain checkpoint's LoRA factors are N(0, 0.05) each:
+# (alpha / r) B A then has a std of 0.354 * 0.05 * 0.05 = 8.8e-4, 2.4 % of a
+# weight's 1 / sqrt(768) = 0.036, so the adapters matter to every check and the
+# planted fault of check (g), scale alpha for alpha / r, makes them 19 %.
+# Check (e) measures bf16 against f32 only where the prototype head is smooth.
+# The head turns the direction of mlm_pred into logits z = (2 leaky_relu(sim)
+# - 1) / T with sim = n . mu_k, a gain of 2 |mu_k| / T, about 540 for the tap's
+# GMM means (|mu_k| ~ 27, T = 0.1), so bf16's error in that direction (0.5 to
+# 1.7 %) moves z by 0.1 to 1.0. The f32 loss has two steps that such errors
+# cross: f32's sigmoid is exactly 1 above z ~ 16.6, where safe_log(1 - p) is
+# the constant -100 with no gradient, and the leaky ReLU's slope is 5x larger
+# above sim = 0 than below it. Any bf16 path shares this, the port's plain
+# path in bf16 on the CPU as much as the kernels (PERF.md, section 6). The
+# first AdamW steps are sign-like (a step-0 gradient norm of 300 to 660,
+# clipped to 20), and each moves an adapter's product B A by an amount in
+# proportion to its factors. At N(0, 0.1), with the adapters at 10 % of every
+# weight, that takes a 3-step trajectory onto both steps: 2.8 % of the targets
+# cross the kink between card and CPU, and 67 % of the other elements pass the
+# clamp, where the CPU's own loss reads 65.7. The compared gradients then
+# measure which elements cross a step, not the arithmetic. At N(0, 0.05) no
+# element crosses either step at the state whose gradients (e) compares.
+PMAM_LORA_STD = 0.05
+# (a) the card's bf16 tap against the port's CPU f32 tap on the same mel, mask
+# and offsets: ||card - cpu||_F / ||cpu||_F. bf16 rounds each GEMM operand and
+# the attention weights (u = 2^-8); ten backbone blocks, the f-pool, the
+# projectors and one decoder block add their errors in quadrature to a few
+# per mille of the features' size, as phase 15's probabilities (0.05, the JAX
+# package's bound) are a few per mille of theirs. 3 % is the train-parity
+# bound on the loss's relative delta (TRAIN_LOSS_REL_MEAN).
+PMAM_TAP_REL = 0.03
+# (b) one EM iteration in f32 on the card against f64 on the CPU, from one
+# state: max|card - ref| / max|ref| for the means, covariances and weights
+PMAM_EM_REL = 1e-4
+# the mean log-likelihood may fall by f32 noise only: sums of 12000 rows of
+# ~10^2 in f32 carry a relative error near 1e-6; 1e-5 of (1 + |ll|)
+PMAM_LOGLIK_SLACK = 1e-5
+# (c) 30 probabilities written with %.6f each round by at most 5e-7
+PMAM_PROB_SUM_TOL = 2e-5
+# (c) the TSV's values against predict_proba of the tap computed apart: the
+# %.6f rounding (5e-7) and nothing else (the same kernels on the same inputs)
+PMAM_PROB_TOL = 1e-6
+# launches, predicted in PERF.md section 6 before the first run: a tap batch
+# stops at backbone block 10 and decoder block 0; a post-pretrain step runs
+# every backbone block's LSE forward and backward (the AT branch reads the
+# final-norm tokens, and the LoRA factors of all twelve blocks need their
+# gradients), the three decoder blocks' LSE forwards and backwards
+PMAM_TAP_LAUNCHES = dict(flash_attention_nhd=10, flash_xl_attention=1)
+PMAM_POST_LAUNCHES = dict(flash_attention_nhd_lse=12, flash_attention_nhd_backward=12,
+                          flash_xl_attention_lse=3, flash_xl_attention_backward=3)
+
+
+def pmam_checkpoint(cfg_path, path):
+    """The seeded post-pretrain PaSST_CNN of ``cfg_path`` (``init_weights_``
+    at STAGE_SEED, the LoRA factors redrawn N(0, PMAM_LORA_STD)), saved as a
+    port checkpoint at ``path``: the stand-in for the MLM stage's best
+    student. Returns its state dict."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.lora import is_lora_factor
+    from transformer4sed_tpu_torch.recipes import cli
+    from transformer4sed_tpu_torch.utils.checkpoint import save_params
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    model, _ = cli.build_model(load_yaml_with_include(cfg_path), torch.device("cpu"))
+    init_weights_(model, seed=STAGE_SEED)
+    gen = torch.Generator().manual_seed(STAGE_SEED + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if is_lora_factor(name):
+                p.copy_(torch.randn(p.shape, generator=gen) * PMAM_LORA_STD)
+    sd = model.state_dict()
+    save_params(path, sd)
+    return sd
+
+
+def pmam_post_trainer(config, state_dict, gmm_means, device, dtype):
+    """A ``PMAMTrainer`` over the post-pretrain model of ``config`` with
+    ``state_dict``, the CNN's dropout, the shift and the views off: the
+    config's temperature, w_AT and param groups, clip 20."""
+    import torch
+
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
+    from transformer4sed_tpu_torch.pmam.train import PMAMConfig, PMAMTrainer
+    from transformer4sed_tpu_torch.recipes import cli, common
+
+    kwargs = cli._upstream_names(common.model_init_kwargs(config, "PaSST_CNN"))
+    kwargs["cnn_param"] = dict(kwargs["cnn_param"], conv_dropout=0.0)
+    model = PaSST_CNN(**kwargs, dtype=dtype, device="cpu")
+    model.load_state_dict(state_dict)
+    pg, _, _ = common.optimizer_from_config(config, 1)
+    cfg = PMAMConfig(temperature=config["pmam"]["temperature"], w_at=config["training"]["w_AT"],
+                     max_shift_frame=0, transform_choice=(0, 0, 0, 0))
+    return PMAMTrainer(model.to(device), PasstFrontend(device=device), gmm_means, cfg, pg)
+
+
+def read_pseudo_label(path):
+    """(header, [T, 2 + K] table) of a pseudo-label TSV."""
+    import numpy as np
+
+    with open(path) as f:
+        header = f.readline().rstrip("\n")
+    return header, np.loadtxt(path, delimiter="\t", skiprows=1, ndmin=2)
+
+
+def pmam_stages(device="cuda"):
+    """PMAM's chain (``exps/pmam/train.sh``) through ``recipes.cli.main`` on
+    the card: the tokenizer (``pmam_extract``, ``pmam_gmm``,
+    ``pmam_pseudo_labels``) and the post-pretraining (``pmam_train``) on the
+    shipped ``config/pmam/post_pretrain.yaml`` at full width and depth, then
+    ``matsed_finetune`` on ``config/pmam/finetune1.yaml`` and
+    ``finetune2.yaml`` and ``matsed_test``; checks (a) to (g)."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from transformer4sed_tpu_torch.models.lora import is_lora_factor, lora_modules
+    from transformer4sed_tpu_torch.pmam.features import draw_offsets, sample_features
+    from transformer4sed_tpu_torch.pmam.gmm import GaussianMixture
+    from transformer4sed_tpu_torch.recipes import cli, common
+    from transformer4sed_tpu_torch.utils.checkpoint import restore_params
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    card = card_line()
+    dev = torch.device(device)
+    seed = str(STAGE_SEED)
+    with without_tensorflow(), tempfile.TemporaryDirectory(prefix="t4s_pmam_") as tmp:
+        root = Path(tmp)
+        codec = common.codec_from_config(
+            load_yaml_with_include(str(ROOT / "config" / "pmam" / "finetune1.yaml")))
+        t0 = time.perf_counter()
+        write_stage_split(root, codec)
+        folder = root / "pmam_unlabeled"
+        folder.mkdir()
+        for i, wav in enumerate(synthetic_clips(PMAM_STAGE_CLIPS, PMAM_STAGE_SEED)):
+            wavfile.write(folder / f"u{i:03d}.wav", SR,
+                          (np.clip(wav / 4.0, -1.0, 1.0) * 32767).astype(np.int16))
+        epoch1 = {"training.scheduler.n_epochs": 1, "training.scheduler.n_epochs_cut": 1}
+        # config/pmam/post_pretrain.yaml's MLM head predicts out_dim 768 while its
+        # transformer_0 tap, which the GMM's means are made of, is 384 wide:
+        # prototype_predictions cannot compare the two, in either package
+        # (ROADMAP.md queue 3, "In the reference"), so the head is made 384 wide
+        post_cfg = stage_config(root, "post_pretrain", "post_pretrain", {
+            **epoch1, "dataset.unlabeled_folder": str(folder),
+            "PaSST_CNN.init_kwargs.mlm_dict.out_dim": PMAM_TOKEN_DIM}, family="pmam")
+        ft1_cfg = stage_config(root, "finetune1", "pmam_finetune1", epoch1, family="pmam")
+        ft2_cfg = stage_config(root, "finetune2", "pmam_finetune2", epoch1, family="pmam")
+        mlm_ckpt = str(root / "mlm" / "best_student")
+        start = pmam_checkpoint(post_cfg, mlm_ckpt)
+        log(f"pmam_stages: mini DESED, {PMAM_STAGE_CLIPS} unlabeled clips and the seeded "
+            f"post-pretrain checkpoint ({sum(v.numel() for v in start.values())} values, LoRA "
+            f"factors N(0, {PMAM_LORA_STD})) written in {time.perf_counter() - t0:.1f} s")
+        tok, post, ft1, ft2 = (root / n for n in ("tokenizer", "post_pretrain", "finetune1",
+                                                 "finetune2"))
+        runs = [
+            ("pmam_extract", post_cfg, tok, ["--pretrained_ckpt", mlm_ckpt]),
+            ("pmam_gmm", post_cfg, tok, []),
+            ("pmam_pseudo_labels", post_cfg, tok, ["--pretrained_ckpt", mlm_ckpt]),
+            ("pmam_train", post_cfg, post, [
+                "--gmm_means_path", str(tok / "gmm_means.npy"),
+                "--pseudo_label_dir", str(tok / "pseudo_labels"), "--pretrained_ckpt", mlm_ckpt]),
+            ("matsed_finetune", ft1_cfg, ft1,
+             ["--pretrained_ckpt", str(post / "best" / "best_student")]),
+            ("matsed_finetune (finetune2.yaml)", ft2_cfg, ft2,
+             ["--pretrained_ckpt", str(ft1 / "best" / "best_student")]),
+            ("matsed_test", ft2_cfg, ft2, ["--resume_ckpt", "auto"]),
+        ]
+        results = {}
+        for what, cfg, out, extra in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([what.split()[0], "--config_dir", cfg, "--save_folder", str(out),
+                           "--random_seed", seed, *extra])
+            torch.cuda.synchronize()
+            results[what] = dict(rc=rc, seconds=time.perf_counter() - t0, launches=read_launches())
+            log(f"pmam_stages: {what} returned {rc} in {results[what]['seconds']:.1f} s")
+        check(all(r["rc"] == 0 for r in results.values()), "a PMAM stage returned non-zero")
+        n_batches = -(-PMAM_STAGE_CLIPS // PMAM_STAGE_BATCH)
+        for what, per, times in (("pmam_extract", PMAM_TAP_LAUNCHES, n_batches),
+                                 ("pmam_pseudo_labels", PMAM_TAP_LAUNCHES, n_batches),
+                                 ("pmam_train", with_bwd_passes(PMAM_POST_LAUNCHES), n_batches)):
+            got = results[what]["launches"]
+            want = {name: 0 for name in got}
+            want.update({k: n * times for k, n in per.items()})
+            log(f"pmam_stages: {what}: launches {({k: v for k, v in got.items() if v})}, "
+                f"predicted {per} a {'step' if what == 'pmam_train' else 'batch'} x {times}")
+            check(got == want, f"{what}: launches {got}, expected {want}")
+
+        # (a) the tap: features.npy, and the card's bf16 tap against the CPU's f32 one
+        feats = np.load(tok / "features.npy")
+        rows = n_batches * -(-PMAM_STAGE_BATCH * 1000 // 4)
+        check(feats.shape == (rows, PMAM_TOKEN_DIM) and np.isfinite(feats).all(),
+              f"(a) features.npy is {feats.shape}, expected ({rows}, {PMAM_TOKEN_DIM}), finite")
+        st = cli.setup(["pmam_pseudo_labels", "--config_dir", post_cfg, "--save_folder",
+                        str(root / "check_card"), "--random_seed", seed,
+                        "--pretrained_ckpt", mlm_ckpt])
+        st.logger.close()
+        model = st.model.eval()
+        mel, names = next(iter(cli._mels(st, cli._unlabeled_loader(st, True))))
+        cpu = cli.setup(["pmam_pseudo_labels", "--config_dir", post_cfg, "--save_folder",
+                         str(root / "check_cpu"), "--random_seed", seed, "--device", "cpu",
+                         "--pretrained_ckpt", mlm_ckpt])
+        cpu.logger.close()
+        gen = torch.Generator().manual_seed(7)
+        draws = model.masker.draw(gen, 2, 1000)  # the decoder's 1000 frames a clip
+        offsets = draw_offsets(gen, 2 * 1000, 4)
+        layer = load_yaml_with_include(post_cfg)["pmam"]["feature_layer"]
+
+        def tap(m, x):
+            f = m.tap(x, layer, mlm_draws=draws)
+            return sample_features(f.reshape(-1, f.shape[-1]), 4, offsets=offsets).float().cpu()
+
+        ref = tap(cpu.model.eval(), mel[:2].float().cpu())
+        del cpu
+
+        def tap_error():
+            got = tap(model, mel[:2])
+            return float((got - ref).norm() / ref.norm()), float((got - ref).abs().max())
+
+        rel, mx = tap_error()
+        log(f"pmam_stages (a): features.npy {feats.shape}, finite; the card's bf16 "
+            f"{layer} tap of 2 clips against the CPU f32 one (same mask and offsets, "
+            f"{tuple(ref.shape)}): relative Frobenius error {rel:.5f} (limit {PMAM_TAP_REL}), "
+            f"max |err| {mx:.4f} of max |ref| {float(ref.abs().max()):.3f}")
+        check(rel < PMAM_TAP_REL, "(a) the card's tap leaves the CPU's")
+        layers = lora_modules(model).values()
+        for m in layers:
+            m.scale = m.alpha
+        rel_fault, _ = tap_error()
+        for m in layers:
+            m.scale = m.alpha / m.rank
+        log(f"pmam_stages (g): LoRA's scale taken as alpha, not alpha / r, in {len(layers)} "
+            f"layers: the tap's relative error {rel_fault:.5f} (limit {PMAM_TAP_REL}): "
+            f"{'within' if rel_fault < PMAM_TAP_REL else 'OUTSIDE'}")
+        check(rel_fault >= PMAM_TAP_REL, "(g) the tap check let the LoRA scale fault through")
+
+        # (b) the GMM
+        t0 = time.perf_counter()
+        gmm = GaussianMixture(PMAM_TOKENS, "full", n_iter=50, device=dev).fit(feats)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        stage_means = np.load(tok / "gmm_means.npy")
+        check(np.array_equal(gmm.means, stage_means),
+              "(b) the refit's means differ from the stage's gmm_means.npy")
+        ll = np.array(gmm.log_likelihoods)
+        falls = ll[:-1] - ll[1:]
+        slack = PMAM_LOGLIK_SLACK * (1 + np.abs(ll[:-1]))
+        covs = torch.from_numpy(gmm.covariances).to(dev)
+        info = torch.linalg.cholesky_ex(covs).info.cpu()
+        wsum = float(np.sum(gmm.weights, dtype=np.float64))
+        log(f"pmam_stages (b): GMM of {PMAM_TOKENS} full covariances over {feats.shape[0]} "
+            f"rows x {feats.shape[1]}, 50 EM iterations ({gmm.rows_per_chunk} rows a chunk) "
+            f"({card}): the stage {results['pmam_gmm']['seconds']:.2f} s with its loads and "
+            f"model-free setup; the fit {fit_s:.3f} s, {feats.shape[0] * 50 / fit_s:.0f} "
+            f"rows/s over the iterations; mean log-likelihood {ll[0]:.4f} -> {ll[-1]:.4f}, "
+            f"largest fall {falls.max():.3e}, at most {(falls / slack).max():.3f} of its "
+            f"slack {PMAM_LOGLIK_SLACK:g} (1 + |ll|); weights sum to "
+            f"{wsum:.8f}; Cholesky failures {int((info != 0).sum())}")
+        check(np.all(falls <= slack), "(b) the mean log-likelihood fell across an iteration")
+        check(abs(wsum - 1.0) < 1e-5 and bool((info == 0).all()),
+              "(b) the weights do not sum to 1 or a covariance does not factor")
+        init = gmm.initial_state(feats)
+        got = GaussianMixture(PMAM_TOKENS, "full", device=dev).em_step(
+            torch.from_numpy(feats).to(dev), *init)
+        want = GaussianMixture(PMAM_TOKENS, "full", device="cpu", dtype=torch.float64).em_step(
+            feats, *init)
+        errs = {name: float((g.double().cpu() - w).abs().max() / w.abs().max())
+                for name, g, w in zip(("means", "covariances", "weights"), got[:3], want[:3])}
+        log(f"pmam_stages (b): one EM iteration from the KMeans start, card f32 against CPU "
+            f"f64: relative max error {errs} (limit {PMAM_EM_REL}); mean log-likelihood "
+            f"{float(got[3]):.6f} vs {float(want[3]):.6f}")
+        check(all(v < PMAM_EM_REL for v in errs.values()), "(b) the card's EM step leaves f64")
+
+        # (c) the pseudo-labels
+        tsvs = sorted((tok / "pseudo_labels").glob("*.tsv"))
+        header = "onset\toffset\t" + "\t".join(f"proto_{i}" for i in range(PMAM_TOKENS))
+        worst = 0.0
+        tables = {}
+        for path in tsvs:
+            head, table = read_pseudo_label(path)
+            check(head == header and table.shape == (1000, 2 + PMAM_TOKENS),
+                  f"(c) {path.name}: header or shape {table.shape}")
+            worst = max(worst, float(np.abs(table[:, 2:].sum(1) - 1.0).max()))
+            tables[path.stem] = table
+        check(len(tsvs) == PMAM_STAGE_CLIPS and worst <= PMAM_PROB_SUM_TOL,
+              f"(c) {len(tsvs)} TSVs, probability sums off by {worst}")
+        stage_gmm = cli.load_gmm(str(tok), dev)
+        gen = torch.Generator().manual_seed(STAGE_SEED)
+        tapped = model.tap(mel, layer, gen)
+        stems = [Path(n).stem for n in names[:2]]
+
+        def label_error(g):
+            probs = g.predict_proba(tapped[:2].reshape(-1, tapped.shape[-1]).float())
+            probs = probs.reshape(2, -1, PMAM_TOKENS).cpu().numpy()
+            return max(float(np.abs(probs[j] - tables[s][:, 2:]).max())
+                       for j, s in enumerate(stems))
+
+        err = label_error(stage_gmm)
+        log(f"pmam_stages (c): {len(tsvs)} TSVs of 1000 x (2 + {PMAM_TOKENS}), probability "
+            f"sums within {worst:.2e} of 1 (limit {PMAM_PROB_SUM_TOL}); clips {stems}: the "
+            f"TSVs against predict_proba of their tap computed apart, max |err| {err:.2e} "
+            f"(limit {PMAM_PROB_TOL})")
+        check(err <= PMAM_PROB_TOL, "(c) the TSVs are not the tap's posteriors")
+        perm = np.roll(np.arange(PMAM_TOKENS), 1)
+        stage_gmm.means = stage_gmm.means[perm]
+        err_fault = label_error(stage_gmm)
+        log(f"pmam_stages (g): the GMM's means permuted alone (covariances and weights kept): "
+            f"max |err| {err_fault:.3e} (limit {PMAM_PROB_TOL}): "
+            f"{'within' if err_fault <= PMAM_PROB_TOL else 'OUTSIDE'}")
+        check(err_fault > PMAM_PROB_TOL, "(c) the check let the permuted means through")
+        # (e)'s batch: phase pmam_train_parity's clips, labelled by the tokenizer
+        parity_wav = synthetic_train_batch(PARITY_SPLIT, seed=13)["wav"]
+        with torch.no_grad():
+            pmel = st.frontend.normalize(st.frontend(torch.from_numpy(parity_wav).to(dev)))
+            ptap = model.tap(pmel, layer, torch.Generator().manual_seed(STAGE_SEED))
+            probs = cli.load_gmm(str(tok), dev).predict_proba(
+                ptap.reshape(-1, PMAM_TOKEN_DIM).float())
+        parity_batch = {"wav": parity_wav, "labels": probs.reshape(
+            len(parity_wav), -1, PMAM_TOKENS).transpose(1, 2).cpu().numpy()}
+        del st, model, tapped, ptap
+
+        # (d) the post-pretraining
+        text = read_log(post)
+        nums = finite_log_numbers(text, r"INFO epoch \d+: loss")
+        best = restore_params(str(post / "best" / "best_student"))
+        lora = [k for k in start if is_lora_factor(k)]
+        frozen = [k for k in start if k.startswith("backbone.") and k not in lora]
+        learned = [k for k in start if k.startswith(("decoder.", "mlm_mlp."))]
+        check(len(nums) == 3 and all(np.isfinite(nums)), f"(d) the train losses {nums}")
+        check(len(lora) == 96 and all(not torch.equal(best[k], start[k]) for k in lora),
+              "(d) a LoRA factor did not move")
+        check(all(torch.equal(best[k], start[k]) for k in frozen),
+              "(d) a frozen backbone param moved")
+        still = [k for k in learned if torch.equal(best[k], start[k])]
+        check(not still, f"(d) decoder or head params did not move: {still}")
+        steps = n_batches
+        per_step = {k: results["pmam_train"]["launches"][k] / steps for k in PMAM_POST_LAUNCHES}
+        log(f"pmam_stages (d): one epoch, {steps} steps at B={PMAM_STAGE_BATCH}: "
+            f"{re.search(r'epoch 1: (.*)', text).group(1)}; all {len(lora)} LoRA factors "
+            f"moved, the other {len(frozen)} backbone tensors bitwise unchanged, all "
+            f"{len(learned)} decoder and MLM-head tensors moved; best_student written; a step's "
+            f"launches {per_step} (predicted {PMAM_POST_LAUNCHES}; row 8 launches: the LoRA "
+            f"gradients cross the backbone); the stage {results['pmam_train']['seconds']:.1f} s "
+            f"({card})")
+
+        # (e) the prototype-BCE step, card bf16 against CPU f32
+        post_config = load_yaml_with_include(post_cfg)
+
+        def clips_batch(n):
+            """The first n clips of the unlabeled folder and their pseudo-labels (the
+            stage's TSVs)."""
+            wavs = [wavfile.read(folder / f"u{i:03d}.wav")[1] / 32768.0 for i in range(n)]
+            wav = np.stack([np.pad(w, (0, CLIP_SAMPLES - len(w))) for w in wavs])
+            labels = np.stack([tables[f"u{i:03d}"][:, 2:].T for i in range(n)])
+            return {"wav": wav.astype(np.float32), "labels": labels.astype(np.float32)}
+
+        cpu_t = pmam_post_trainer(post_config, start, stage_means, "cpu", torch.float32)
+        card_t = pmam_post_trainer(post_config, start, stage_means, dev, torch.bfloat16)
+        trainer_parity("PMAM post-pretrain", cpu_t, card_t, parity_batch, PARITY_STEPS,
+                       "loss_total", lambda t: (t.model,), trainable_only=True,
+                       last_step_gradient=True)
+        del cpu_t
+        time_training(card_t, clips_batch(PMAM_STAGE_BATCH), windows=2, per_window=3,
+                      what="PMAM post-pretrain",
+                      parts="frontend, masked forward, prototype BCE, backward through the "
+                            "frozen backbone, clip, AdamW; no CNN dropout")
+        del card_t
+
+        # (f) the rest of the chain
+        for what, out in (("matsed_finetune", ft1), ("matsed_finetune (finetune2.yaml)", ft2),
+                          ("matsed_test", ft2)):
+            text = read_log(out)
+            nums = finite_log_numbers(text, r"INFO (epoch \d+: \w+=|val epoch|test \()")
+            check(nums and all(np.isfinite(nums)), f"(f) {what}: a logged number is not finite")
+        ft1_log = read_log(ft1)
+        lacks = re.search(r"warm start: (\d+) checkpoint keys the model lacks, dropped: (.*)",
+                          ft1_log)
+        ft1_keys = restore_params(str(ft1 / "best" / "best_student"))
+        want_lacks = [k for k in best if k not in ft1_keys]
+        check(lacks is not None and int(lacks.group(1)) == len(want_lacks)
+              and all(is_lora_factor(k) or k.startswith(
+                  ("mlm_mlp.", "mask_token")) for k in want_lacks),
+              f"(f) finetune1's log of the keys it dropped: {lacks and lacks.group(0)}")
+        log(f"pmam_stages (f): finetune1 from the post-pretrained student dropped "
+            f"{lacks.group(1)} keys the model lacks: {lacks.group(2)}; "
+            + re.search(r"warm start: \d+ of \d+ keys loaded, dropped \[.*\]",
+                        ft1_log).group(0)
+            + f"; finetune2, test: {re.findall(r'test \(median\): (.*)', read_log(ft2))} "
+            "(seeded weights); every logged number finite")
+    for what, r in results.items():
+        log(f"pmam_stages ({card}): {what}: {r['seconds']:.1f} s")
 
 # -- phases 5 and 6: the train step ---------------------------------------------
 
@@ -2734,7 +3179,8 @@ def train(results):
     return trainer, batch
 
 
-def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
+def trainer_parity(what, cpu, card, batch, steps, loss_key, modules, trainable_only=False,
+                   last_step_gradient=False):
     """The same weights, ``steps`` steps on the CPU in f32 (plain versions)
     and on the card in bf16 (kernels), each step's draws from a generator
     seeded alike on both: loss trajectories, then the gradient at the CPU's
@@ -2742,7 +3188,14 @@ def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
     ``card`` may be a dict of named card trainers: each is held against the
     CPU and against the others with the same bounds. ``modules(trainer)``
     lists the modules that hold a trainer's state, the differentiated one
-    first; params the loss does not read have no gradient on either side."""
+    first; params the loss does not read have no gradient on either side.
+    ``trainable_only`` holds the gradients of the params the optimizer
+    updates (its labels other than 'frozen') only. ``last_step_gradient``
+    holds, in place of the end state's, the gradient that the CPU's last
+    step computed (read before the clip) against the card's at the state
+    that step started from, with its draws: the CPU then runs no fourth
+    forward and backward."""
+    import copy
     import itertools
 
     import numpy as np
@@ -2751,14 +3204,37 @@ def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
     cards = card if isinstance(card, dict) else {"card_bf16": card}
     sides = {"cpu_f32": cpu, **cards}
     pairs = [("cpu_f32", name) for name in cards] + list(itertools.combinations(cards, 2))
+
+    def gradients(trainer):
+        return {k: p.grad.detach().double().flatten().cpu()
+                for k, p in modules(trainer)[0].named_parameters()
+                if p.grad is not None and not (trainable_only and trainer.labels[k] == "frozen")}
+
+    grads = {}
     losses = {name: [] for name in sides}
     for i in range(steps):
+        if last_step_gradient and i == steps - 1:
+            start = [copy.deepcopy(m.state_dict()) for m in modules(cpu)]
+            start_count, seed = cpu.step_count, 10 + i
+            forward_backward = cpu.forward_backward
+
+            def keep_gradient(*args, **kwargs):
+                metrics = forward_backward(*args, **kwargs)
+                grads["cpu_f32"] = gradients(cpu)
+                return metrics
+
+            cpu.forward_backward = keep_gradient
         for name, trainer in sides.items():
             t0 = time.perf_counter()
             values = finite_metrics(trainer.step(batch, torch.Generator().manual_seed(10 + i)))
             losses[name].append(values[loss_key])
             log(f"{what} parity step {i} {name}: {loss_key} {values[loss_key]:.6f}, grad_norm "
                 f"{values['grad_norm']:.4f} ({time.perf_counter() - t0:.1f} s)")
+    if last_step_gradient:
+        del cpu.forward_backward
+    else:
+        start = [m.state_dict() for m in modules(cpu)]
+        start_count, seed = cpu.step_count, 20
     for a, b in pairs:
         ref, got = np.array(losses[a]), np.array(losses[b])
         rel = np.abs(ref - got) / np.maximum(np.abs(ref), 1e-9)
@@ -2768,24 +3244,33 @@ def trainer_parity(what, cpu, card, batch, steps, loss_key, modules):
         check(rel.mean() < TRAIN_LOSS_REL_MEAN and rel.max() < TRAIN_LOSS_REL_MAX,
               f"{what}: the {b} loss trajectory leaves the {a} one")
 
-    for trainer in cards.values():
-        for ours, theirs in zip(modules(trainer), modules(cpu)):
-            ours.load_state_dict(theirs.state_dict())
-        trainer.step_count = cpu.step_count
-    grads = {}
+    for name, trainer in cards.items():
+        for ours, theirs in zip(modules(trainer), start):
+            ours.load_state_dict(theirs)
+        trainer.step_count = start_count
     for name, trainer in sides.items():
-        trainer.forward_backward(batch, torch.Generator().manual_seed(20))
-        grads[name] = {k: p.grad.detach().double().flatten().cpu()
-                       for k, p in modules(trainer)[0].named_parameters() if p.grad is not None}
+        if name not in grads:
+            trainer.forward_backward(batch, torch.Generator().manual_seed(seed))
+            grads[name] = gradients(trainer)
+    state = f"the f32 state of step {steps - 1}" if last_step_gradient else "the f32 end state"
     for a, b in pairs:
         check(grads[a].keys() == grads[b].keys() and grads[a],
               f"{what}: {a} and {b} give gradients to different params")
         g32, g16 = (torch.cat(list(grads[name].values())) for name in (a, b))
         cos = float(g32 @ g16 / (g32.norm() * g16.norm() + 1e-30))
         ratio = float(g16.norm() / (g32.norm() + 1e-30))
-        log(f"{what} train parity {b} vs {a}: gradient at the f32 end state over "
+        log(f"{what} train parity {b} vs {a}: gradient at {state} over "
             f"{len(grads[a])} params, cosine {cos:.6f} (limit {TRAIN_GRAD_COS}), norm ratio "
             f"{ratio:.5f} (limits {TRAIN_GRAD_RATIO}), |g| {a} {float(g32.norm()):.5f}")
+        if not (cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1]):
+            # where the two gradients part: the params with the largest share
+            # of |g_b - g_a|^2, each with its own norms
+            diff = {k: float((grads[b][k] - grads[a][k]).square().sum()) for k in grads[a]}
+            total = sum(diff.values()) or 1.0
+            for k in sorted(diff, key=diff.get, reverse=True)[:12]:
+                log(f"{what} train parity {b} vs {a}: {k}: {diff[k] / total:.1%} of the "
+                    f"squared difference, |g| {a} {float(grads[a][k].norm()):.5f}, "
+                    f"{b} {float(grads[b][k].norm()):.5f}")
         check(cos > TRAIN_GRAD_COS and TRAIN_GRAD_RATIO[0] < ratio < TRAIN_GRAD_RATIO[1],
               f"{what}: the {b} gradient disagrees with the {a} one")
 
@@ -4781,6 +5266,11 @@ def main(argv=None) -> int:
         stages()
         torch.cuda.empty_cache()
         log(f"stages phase {time.perf_counter() - t0:.1f} s")
+    if "pmam_stages" in phases:
+        t0 = time.perf_counter()
+        pmam_stages()
+        torch.cuda.empty_cache()
+        log(f"pmam_stages phase {time.perf_counter() - t0:.1f} s")
     trainer = train_batch = None
     if phases & {"train", "timing", "profile"}:
         t0 = time.perf_counter()

@@ -279,22 +279,14 @@ def test_xl_block_with_an_explicit_mask_matches_jax_masked_branch(tiny, kind):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("name", ["lora_rank", "ReweightedASL", "AsymmetricalFocalLoss"])
+@pytest.mark.parametrize("name", ["ReweightedASL", "AsymmetricalFocalLoss"])
 def test_unported_options_raise_naming_their_queue_item(name):
-    """LoRA (config/pmam/post_pretrain.yaml's ``lora_rank: 8``) and the two
-    losses of the JAX registry that the port lacks raise
-    ``NotImplementedError`` citing ROADMAP.md queue 1, items 8 and 9, where
-    the JAX package takes them; nothing is built first."""
-    if name == "lora_rank":
-        assert {"lora_rank", "lora_alpha"} <= set(JaxSED.__dataclass_fields__)
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            PaSST_SED(**TINY, lora_rank=8, lora_alpha=16.0, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            PaSST_CNN(**TINY_PMAM, lora_rank=8, device="cpu")
-    else:
-        assert callable(jax_losses.loss_function_factory(name, {}))
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            losses.loss_function_factory(name, {})
+    """The two losses of the JAX registry that the port lacks raise
+    ``NotImplementedError`` citing ROADMAP.md queue 1, item 9, where the JAX
+    package takes them; nothing is built first."""
+    assert callable(jax_losses.loss_function_factory(name, {}))
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        losses.loss_function_factory(name, {})
 
 
 def test_window_backbone_call_stops_at_the_tap_layer():

@@ -192,7 +192,6 @@ def test_passt_cnn_without_a_cnn_branch_projects_onto_the_decoder_width():
     (dict(cnn_name="FDY-CNN"), NotImplementedError, "queue 1, item 9"),
     (dict(cnn_name="resnet"), NotImplementedError, "queue 1, item 9"),
     (dict(cnn_name="tdnn"), NotImplementedError, "unknown cnn encoder"),
-    (dict(mlm=True), NotImplementedError, "queue 1, item 8"),
     (dict(f_pool="frequency_wise_tranformer_encoder"), NotImplementedError, "queue 1, item 12"),
     (dict(decoder="conformer"), NotImplementedError, "queue 1, item 12"),
 ])

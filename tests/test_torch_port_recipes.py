@@ -664,7 +664,7 @@ def test_stages_run_on_the_card_unless_asked_for_the_cpu(mini_desed, tmp_path):
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="orbax"):
         run_stage("matsed_test", cfg, tmp_path / "y", "--pretrained_ckpt", str(tmp_path / "orbax"))
-    for stage, item in (("pmam_train", 8), ("audioset_supervised", 9), ("dasm_ov", 10)):
+    for stage, item in (("clap_train", 9), ("audioset_supervised", 9), ("dasm_ov", 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             cli.main([stage, "--config_dir", cfg, "--save_folder", str(tmp_path / "z")])
 

@@ -276,8 +276,10 @@ def test_exported_artifact_serves_what_the_config_and_checkpoint_serve(files, tm
 
 def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(files, tmp_path):
     """Without ``--device cpu`` on a host without a card each entry point
-    raises before it writes anything; unported options name their queue
-    item; an orbax directory is refused by name."""
+    raises before it writes anything; ``--lora_ckpt`` loads (the tiny model
+    has no LoRA layer, so either policy serves the ``.pt``'s weights as they
+    are); unported options name their queue item; an orbax directory is
+    refused by name."""
     cfg = files["tiny"]
     common = ["--config_dir", cfg["yaml"], "--ckpt", cfg["pt"]]
     if not torch.cuda.is_available():
@@ -290,8 +292,10 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(files, tmp_path):
                 main(common + args)
         assert not list(tmp_path.iterdir())
     out = ["--wav_dir", str(files["clips"]), "--out_dir", str(tmp_path / "y"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(common + out + ["--lora_ckpt", "merged"])
+    plain = _serve(files, tmp_path / "plain", *common)
+    for policy in ("merged", "unmerged"):
+        served = _serve(files, tmp_path / policy, *common, "--lora_ckpt", policy)
+        assert served[1] == plain[1] and served[2] == plain[2]
     with pytest.raises(NotImplementedError, match="item 10"):
         serve.main(common + out + ["--query", "q.npy"])
     (tmp_path / "orbax").mkdir()

@@ -211,7 +211,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 15
     assert {pkg / "recipes" / f"{m}.py" for m in ("cli", "common", "matsed", "serve", "infer",
                                                    "stream", "export")} | {
-        pkg / "utils" / f"{m}.py" for m in ("checkpoint", "logging")} <= set(files)
+        pkg / "utils" / f"{m}.py" for m in ("checkpoint", "logging")} | {
+        pkg / "pmam" / f"{m}.py" for m in ("__init__", "features", "gmm", "pseudo_labels",
+                                           "train")} | {pkg / "models" / "lora.py"} <= set(files)
     for path in files:
         for name in _top_level_imports(path):
             assert name not in FORBIDDEN and name != "transformer4sed_tpu", (path, name)

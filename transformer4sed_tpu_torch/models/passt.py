@@ -15,7 +15,8 @@ patch grid, unstructured patchout ``u_patchout`` tokens of the sequence, each
 a random subset kept in order; token dropout ``drop_rate`` follows the cls and
 dist tokens. All are zero in the flagship. The draws (:class:`PatchoutDraws`)
 come from the caller's generator, or are handed in; in a data-parallel step
-the dropout masks are drawn for the global batch (``rows``).
+the dropout masks are drawn for the global batch (``rows``). ``lora_rank`` > 0
+gives every block LoRA adapters (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class PaSST(nn.Module):
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  img_size: Tuple[int, int] = (128, 998), tap_layer: int = 10,
                  u_patchout: int = 0, s_patchout_t: int = 0, s_patchout_f: int = 0,
-                 drop_rate: float = 0.0, drop_path_rate: float = 0.0, dtype=torch.float32):
+                 drop_rate: float = 0.0, drop_path_rate: float = 0.0, dtype=torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.dtype = dtype
         self.tap_layer = tap_layer
@@ -69,7 +71,8 @@ class PaSST(nn.Module):
         self.freq_new_pos_embed = nn.Parameter(torch.zeros(1, embed_dim, self.grid_size[0], 1))
         self.time_new_pos_embed = nn.Parameter(torch.zeros(1, embed_dim, 1, self.grid_size[1]))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, drop=drop_rate, drop_path=drop_path_rate, dtype=dtype)
+            Block(embed_dim, num_heads, drop=drop_rate, drop_path=drop_path_rate, dtype=dtype,
+                  lora_rank=lora_rank, lora_alpha=lora_alpha)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6)
 

@@ -13,9 +13,14 @@ keep the upstream names (``cnn.cnn.*``, ``cnn_projector``,
 finetune2) only the PaSST branch is windowed (``PaSST_SED._encode_frames``);
 the CNN branch sees the whole clip.
 
+With ``mlm=True`` (PMAM's post-pretraining, ``config/pmam/post_pretrain.yaml``)
+the merged frames go through the MLM masker, then the decoder, the AT branch
+and the ``mlm_mlp`` head (``PaSST_SED._finish``): the output carries
+``mlm_pred``, ``frame_before_mask`` and ``mask_id_seq``, read by the
+prototype loss of ``pmam/train.py``.
+
 Not ported yet: the ``FDY-CNN`` and ``resnet`` branches (ROADMAP.md, queue 1,
-item 9), ``PasstComplexCNN`` and ``PaSST_CNN(mlm=True)`` with the prototype
-loss of the post-pretrain stage (item 8).
+item 9) and ``PasstComplexCNN``.
 """
 
 from __future__ import annotations
@@ -28,13 +33,13 @@ import torch.nn as nn
 from transformer4sed_tpu_torch.models.cnn import CNN, BatchRows
 from transformer4sed_tpu_torch.models.interpolate import resize_time
 from transformer4sed_tpu_torch.models.layers import Dense
+from transformer4sed_tpu_torch.models.mlm import MLMDraws
 from transformer4sed_tpu_torch.models.passt import PatchoutDraws
 from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 from transformer4sed_tpu_torch.models.sed_model import SEDOutput
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 _CNN_FAMILY = "is not ported yet: ROADMAP.md, queue 1, item 9 (the rest of models/cnn.py)"
-_PMAM = "is not ported yet: ROADMAP.md, queue 1, item 8 (PMAM's post-pretrain stage)"
 
 
 class PaSST_CNN(PaSST_SED):
@@ -42,8 +47,6 @@ class PaSST_CNN(PaSST_SED):
 
     def __init__(self, cnn_name: str = "base", cnn_param: Optional[Dict[str, Any]] = None,
                  device=None, **kwargs):
-        if kwargs.get("mlm"):
-            raise NotImplementedError(f"PaSST_CNN(mlm=True) {_PMAM}")
         if cnn_param is not None and cnn_name in ("FDY-CNN", "resnet"):
             raise NotImplementedError(f"cnn_name={cnn_name!r} {_CNN_FAMILY}")
         if cnn_param is not None and cnn_name != "base":
@@ -60,6 +63,29 @@ class PaSST_CNN(PaSST_SED):
         self.transformer_projector = Dense(self.embed_dim, self.decoder_dim)
         self.to(device)
 
+    def _frames(self, mel, train, generator, patchout_draws=None, encoder_win=False,
+                mix_rate=0.5, win_param=(512, 49), window_draws=None, rows=None,
+                dropout_masks=None, upto_tap=False):
+        """The PaSST branch's frames and the CNN branch's, merged at the
+        decoder's width; and the backbone's output."""
+        if self.cnn is not None and train != self.training:
+            raise ValueError(f"train={train} but the module is in "
+                             f"{'training' if self.training else 'eval'} mode")
+        x, backbone_out = self._encode_frames(mel, train, generator, patchout_draws, encoder_win,
+                                              mix_rate, win_param, window_draws, rows, upto_tap)
+        if self.cnn is not None:
+            cnn_feat = self.cnn(mel.transpose(1, 2)[:, None], generator=generator,
+                                dropout_masks=dropout_masks, rows=rows)  # [B, C, T', F']
+            if cnn_feat.shape[-1] != 1:
+                raise ValueError("the CNN branch must pool frequency to 1, got "
+                                 f"{tuple(cnn_feat.shape)}")
+            cnn_feat = resize_time(cnn_feat[:, :, :, 0].transpose(1, 2), x.shape[1],
+                                   self.interpolate_mode)
+            x = self.transformer_projector(x) + self.merge_weight * self.cnn_projector(cnn_feat)
+        else:
+            x = self.transformer_projector(x)
+        return x, backbone_out
+
     def forward(
         self,
         mel: torch.Tensor,  # [B, F, T] normalised log-mel
@@ -73,27 +99,16 @@ class PaSST_CNN(PaSST_SED):
         dropout_masks: Optional[Sequence[torch.Tensor]] = None,
         rows: Optional[BatchRows] = None,
         window_draws: Optional[Sequence[PatchoutDraws]] = None,
+        mlm_draws: Optional[MLMDraws] = None,
+        patchout_draws: Optional[PatchoutDraws] = None,
     ) -> SEDOutput:
         """``train`` must agree with the module's mode, which BatchNorm and the
         CNN's dropout follow. The CNN's dropout masks are drawn from
         ``generator`` (or given as ``dropout_masks``); in a data-parallel
         step, for the global batch, of which ``rows`` are this rank's. The
         window groups' backbone draws come after the clip's and before the
-        CNN's (or are given as ``window_draws``, as in PaSST_SED)."""
-        if self.cnn is not None and train != self.training:
-            raise ValueError(f"train={train} but the module is in "
-                             f"{'training' if self.training else 'eval'} mode")
-        x, backbone_out = self._encode_frames(mel, train, generator, None, encoder_win, mix_rate,
-                                              win_param, window_draws, rows)
-        if self.cnn is not None:
-            cnn_feat = self.cnn(mel.transpose(1, 2)[:, None], generator=generator,
-                                dropout_masks=dropout_masks, rows=rows)  # [B, C, T', F']
-            if cnn_feat.shape[-1] != 1:
-                raise ValueError("the CNN branch must pool frequency to 1, got "
-                                 f"{tuple(cnn_feat.shape)}")
-            cnn_feat = resize_time(cnn_feat[:, :, :, 0].transpose(1, 2), x.shape[1],
-                                   self.interpolate_mode)
-            x = self.transformer_projector(x) + self.merge_weight * self.cnn_projector(cnn_feat)
-        else:
-            x = self.transformer_projector(x)
-        return self._finish(x, backbone_out, temp_w, pad_mask, generator, None)
+        CNN's (or are given as ``window_draws``, as in PaSST_SED); with
+        ``mlm=True`` the mask is drawn last (or given as ``mlm_draws``)."""
+        x, backbone_out = self._frames(mel, train, generator, patchout_draws, encoder_win,
+                                       mix_rate, win_param, window_draws, rows, dropout_masks)
+        return self._finish(x, backbone_out, temp_w, pad_mask, generator, mlm_draws, rows)

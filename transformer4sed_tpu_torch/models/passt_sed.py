@@ -18,7 +18,10 @@ decoder's output goes through ``mlm_mlp`` instead of the classifier; the
 output then carries ``mlm_pred``, ``frame_before_mask`` and ``mask_id_seq``.
 Params keep the upstream cai525 state-dict names (including upstream's
 ``at_adpater`` spelling and ``mlm_mlp.0`` / ``mlm_mlp.2``), so published
-``.pt`` files load with ``load_state_dict``. ``train=True`` is the forward
+``.pt`` files load with ``load_state_dict``. ``lora_rank`` > 0 puts LoRA
+adapters (rank ``lora_rank``, scale ``lora_alpha / lora_rank``) on every
+backbone block's ``qkv``, ``proj``, ``fc1`` and ``fc2`` (``models/lora.py``).
+``train=True`` is the forward
 of the train steps; it is differentiable end to end through the attention
 kernels' autograd Functions; in training every backbone call (the clip's,
 then each window group's) makes its own draws: the time-embedding offset (a
@@ -27,6 +30,7 @@ window is shorter than the nominal grid), patchout and dropout.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -46,7 +50,6 @@ from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 _LATER = "is not ported yet: ROADMAP.md, queue 1, item 12 (head and decoder options)"
-_LORA = "is not ported yet: ROADMAP.md, queue 1, item 8 (PMAM remainder and LoRA)"
 
 
 class PaSST_SED(nn.Module):
@@ -82,9 +85,6 @@ class PaSST_SED(nn.Module):
         device=None,
     ):
         super().__init__()
-        # lora_alpha scales the LoRA branch, which exists only with a rank
-        if lora_rank:
-            raise NotImplementedError(f"lora_rank={lora_rank!r} {_LORA}")
         if f_pool not in ("mean_pool", "attention"):
             raise NotImplementedError(f"f_pool={f_pool!r} {_LATER}")
         if decoder != "transformerXL":
@@ -102,6 +102,7 @@ class PaSST_SED(nn.Module):
             embed_dim=embed_dim, depth=backbone_depth, num_heads=backbone_num_heads,
             img_size=tuple(backbone_img_size), tap_layer=passt_feature_layer,
             s_patchout_f=s_patchout_f, s_patchout_t=s_patchout_t, dtype=dtype,
+            lora_rank=lora_rank, lora_alpha=lora_alpha,
         )
         self.out_norm = LayerNorm(embed_dim, eps=1e-5)
         self.f_pool_module = (AttentionPooling(embed_dim, 6, dtype=dtype)
@@ -143,11 +144,14 @@ class PaSST_SED(nn.Module):
         return self.f_pool_module(cols).reshape(b, t_dim, c)
 
     def _encode_frames(self, mel, train, generator, patchout_draws=None, encoder_win=False,
-                       mix_rate=0.5, win_param=(512, 49), window_draws=None, rows=None):
+                       mix_rate=0.5, win_param=(512, 49), window_draws=None, rows=None,
+                       upto_tap=False):
         """Backbone -> f-pool -> pad and interpolate, fused with the sliding
-        windows' embedding under ``encoder_win``: ([B, T, D], backbone_out)."""
+        windows' embedding under ``encoder_win``: ([B, T, D], backbone_out);
+        ``upto_tap`` stops the backbone at its tap layer (no final-norm
+        tokens: nothing after the decoder's input is read)."""
         backbone_out = self.backbone(mel[:, None], train=train, generator=generator,
-                                     patchout_draws=patchout_draws, rows=rows)
+                                     patchout_draws=patchout_draws, upto_tap=upto_tap, rows=rows)
         x = self._f_pool(backbone_out)
         x = torch.cat([x, x[:, -1:, :]], dim=1)
         x = interpolate_time(x, self.decode_ratio, self.interpolate_mode)
@@ -168,18 +172,52 @@ class PaSST_SED(nn.Module):
                             patchout_draws=patchout_draws, upto_tap=True, rows=rows)
         return interpolate_time(self._f_pool(out), self.decode_ratio, self.interpolate_mode)
 
+    def _frames(self, mel, train, generator, patchout_draws=None, encoder_win=False,
+                mix_rate=0.5, win_param=(512, 49), window_draws=None, rows=None,
+                dropout_masks=None, upto_tap=False):
+        """The decoder's input frames [B, T, decoder_dim] and the backbone's
+        output (PaSST_CNN adds its CNN branch here)."""
+        return self._encode_frames(mel, train, generator, patchout_draws, encoder_win, mix_rate,
+                                   win_param, window_draws, rows, upto_tap)
+
+    def _mask(self, x, generator, mlm_draws, rows=None):
+        """The MLM masker on the decoder's input: (masked frames, mask ids)."""
+        if mlm_draws is None:
+            if generator is None:
+                raise ValueError("an MLM forward draws its mask: pass a torch.Generator")
+            mlm_draws = self.masker.draw(generator, x.shape[0], x.shape[1], rows)
+        return self.masker.apply(x, self.mask_token, mlm_draws,
+                                 None if rows is None else rows.gather)
+
+    @torch.no_grad()
+    def tap(self, mel: torch.Tensor, feature_layer: str = "transformer_0",
+            generator: Optional[torch.Generator] = None,
+            mlm_draws: Optional[MLMDraws] = None) -> torch.Tensor:
+        """The PMAM tokenizer's frame features [B, T, C] of an eval forward:
+        ``transformer_k``, the output of decoder block k (after the MLM
+        masker when the model has one, as in the JAX package, whose eval
+        forward masks too), or ``after_interpolate``, the decoder's input
+        before masking (``frame_before_mask``). The forward stops at the tap
+        (the backbone at its tap layer, the decoder after block k), as the
+        compiled JAX program, which returns only the tap, prunes the rest; the
+        mask is drawn from ``generator`` or given as ``mlm_draws``."""
+        m = re.fullmatch(r"transformer_(\d+)", feature_layer)
+        if m is None and feature_layer != "after_interpolate":
+            raise RuntimeError(f"unknown feature layer {feature_layer!r}")
+        x, _ = self._frames(mel, False, generator, upto_tap=True)
+        if m is None:
+            return x
+        if self.masker is not None:
+            x, _ = self._mask(x, generator, mlm_draws)
+        return self.decoder(x, upto=int(m.group(1)))
+
     def _finish(self, x, backbone_out, temp_w, pad_mask, generator, mlm_draws,
                 rows=None) -> SEDOutput:
         """MLM mask -> decoder -> AT branch -> classifier and pools (or the MLM head)."""
         frame_before_mask = x
         mask_id_seq = None
         if self.masker is not None:
-            if mlm_draws is None:
-                if generator is None:
-                    raise ValueError("an MLM forward draws its mask: pass a torch.Generator")
-                mlm_draws = self.masker.draw(generator, x.shape[0], x.shape[1], rows)
-            x, mask_id_seq = self.masker.apply(x, self.mask_token, mlm_draws,
-                                               None if rows is None else rows.gather)
+            x, mask_id_seq = self._mask(x, generator, mlm_draws, rows)
         x = self.decoder(x)
 
         at_out = None

@@ -14,7 +14,11 @@ mask from the ``torch.Generator`` passed to ``forward`` (:func:`dropout`: a
 draw step, ``models/cnn.py:draw_dropout``, and an apply step,
 :func:`apply_dropout`); in a data-parallel step, for the global batch, of
 which ``rows`` are this rank's. Matmuls run in ``dtype`` (bf16 on the flagship) with
-f32 params and f32 layer norms.
+f32 params and f32 layer norms. With ``lora_rank`` > 0 (PMAM's post-pretraining,
+``src/models/passt/passt_lora.py``) ``qkv``, ``proj``, ``fc1`` and ``fc2`` are
+``models/lora.py:LoRADense`` layers under the same names: the low-rank delta
+adds to the full [B, N, 3C] qkv output before it is sliced into the
+heads-in-lanes q, k and v, so the kernels' inputs keep their layout.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from transformer4sed_tpu_torch.kernels.flash_attention import (
 )
 from transformer4sed_tpu_torch.models.cnn import BatchRows, device_generator, draw_dropout
 from transformer4sed_tpu_torch.models.layers import Dense, LayerNorm
+from transformer4sed_tpu_torch.models.lora import LoRADense
 
 
 def fast_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -60,12 +65,22 @@ def dropout(x: torch.Tensor, rate: float, train: bool, generator: Optional[torch
     return apply_dropout(x, draw_dropout(gen, shape, rate, x.device, rows))
 
 
+def dense(in_features: int, out_features: int, dtype, lora_rank: int = 0,
+          lora_alpha: float = 1.0) -> Dense:
+    """A Dense layer, or a LoRA one under the same name when ``lora_rank`` > 0."""
+    if lora_rank > 0:
+        return LoRADense(in_features, out_features, rank=lora_rank, alpha=lora_alpha,
+                         dtype=dtype)
+    return Dense(in_features, out_features, dtype=dtype)
+
+
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_features: int, drop: float = 0.0, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_features: int, drop: float = 0.0, dtype=torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.drop = drop
-        self.fc1 = Dense(dim, hidden_features, dtype=dtype)
-        self.fc2 = Dense(hidden_features, dim, dtype=dtype)
+        self.fc1 = dense(dim, hidden_features, dtype, lora_rank, lora_alpha)
+        self.fc2 = dense(hidden_features, dim, dtype, lora_rank, lora_alpha)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -77,12 +92,13 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention, no mask (the only path the slice runs)."""
 
-    def __init__(self, dim: int, num_heads: int, proj_drop: float = 0.0, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, proj_drop: float = 0.0, dtype=torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.num_heads = num_heads
         self.proj_drop = proj_drop
-        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
-        self.proj = Dense(dim, dim, dtype=dtype)
+        self.qkv = dense(dim, 3 * dim, dtype, lora_rank, lora_alpha)
+        self.proj = dense(dim, dim, dtype, lora_rank, lora_alpha)
         self.tp = None  # parallel.partition.TPShard once the block is sharded
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -107,13 +123,14 @@ class Block(nn.Module):
     1e-6, MLP ratio 4)."""
 
     def __init__(self, dim: int, num_heads: int, drop: float = 0.0, drop_path: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_rank: int = 0, lora_alpha: float = 1.0):
         super().__init__()
         self.drop_path = drop_path
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, proj_drop=drop, dtype=dtype)
+        self.attn = Attention(dim, num_heads, proj_drop=drop, dtype=dtype, **lora)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, 4 * dim, drop=drop, dtype=dtype)
+        self.mlp = Mlp(dim, 4 * dim, drop=drop, dtype=dtype, **lora)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,

@@ -179,11 +179,18 @@ class TransformerXLDecoder(nn.Module):
         center = self.pe.shape[1] // 2
         return self.pe[:, center - t + 1:center + t]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, upto: Optional[int] = None) -> torch.Tensor:
+        """The decoded frames; ``upto`` = k stops after block k and returns its
+        output (the PMAM tokenizer's ``transformer_k`` tap)."""
+        if upto is not None and not 0 <= upto < len(self.encoder_blocks):
+            raise ValueError(f"no decoder block {upto}: the decoder has "
+                             f"{len(self.encoder_blocks)}")
         pos_emb = self.pos_emb(x.shape[1])
         x = x * math.sqrt(x.shape[-1])
-        for blk in self.encoder_blocks:
+        for i, blk in enumerate(self.encoder_blocks):
             x = blk(x, pos_emb, band_widths=self.band_widths)
+            if i == upto:
+                break
         return x
 
 

@@ -189,6 +189,8 @@ def shard_params(model: nn.Module, mesh: Mesh,
         ok = True
         for leaf, spec in children:
             lin = getattr(parent, leaf)
+            if hasattr(lin, "lora_A"):  # its factors would be dropped, not sharded
+                raise ValueError(f"shard_params does not shard a LoRA layer ({leaf})")
             width = lin.weight.shape[0] if spec == COLUMN else lin.weight.shape[1]
             packed = leaf in _PACKED
             if packed and (heads is None or heads % tp):

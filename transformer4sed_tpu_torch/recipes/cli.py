@@ -5,14 +5,22 @@
   matsed_finetune  mean-teacher semi-supervised fine-tune (stages 2-3;
                    finetune2 differs only by config: encoder_win)
   matsed_test      test with the median or max filter, or cSEBB
+  pmam_extract / pmam_gmm / pmam_pseudo_labels
+                   PMAM's tokenizer: frame features tapped from the frozen
+                   MLM net, a GMM fitted on them, per-clip pseudo-label TSVs
+  pmam_train       PMAM's post-pretraining: prototype BCE on the masked
+                   frames against the pseudo-labels, LoRA inside a frozen
+                   backbone (--gmm_means_path, --pseudo_label_dir)
 
 Stages hand off through ``--pretrained_ckpt`` (a checkpoint of the port's,
 or an upstream ``.pt`` state dict) with the config's ``warm_start_drop``;
 ``--resume_ckpt auto`` resumes from ``best/last_state``. A stage runs on the
 card, where the model computes in bf16 with f32 params, optimizer state and
 EMA (``docs/PRECISION.md``); ``--device cpu`` runs it on the CPU in f32
-throughout. The JAX package's other stages are not ported yet and raise,
-naming their ROADMAP.md item.
+throughout; the GMM runs in full f32 on either (``pmam/gmm.py``). The
+tokenizer's draws (mask and frame offsets) come from a generator seeded by
+``--random_seed``, where the JAX stages fold fixed keys. The JAX package's
+other stages are not ported yet and raise, naming their ROADMAP.md item.
 
 :func:`build_model` is the one model builder; :func:`serving_model` (a
 config and a checkpoint -> the model in eval mode, frontend, codec, median
@@ -22,9 +30,11 @@ points.
 
 from __future__ import annotations
 
+import collections
 import os
+import re
 import sys
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -32,9 +42,9 @@ from transformer4sed_tpu_torch.recipes import common
 from transformer4sed_tpu_torch.utils.device import resolve_device
 
 MATSED_STAGES = ("matsed_pretrain", "matsed_finetune", "matsed_test")
+PMAM_STAGES = ("pmam_extract", "pmam_gmm", "pmam_pseudo_labels", "pmam_train")
 # the JAX package's other stages and models, by their ROADMAP.md queue 1 item
 _LATER_STAGES = {
-    "pmam_extract": 8, "pmam_gmm": 8, "pmam_pseudo_labels": 8, "pmam_train": 8,
     "audioset_supervised": 9, "clap_train": 9,
     "dasm_train": 10, "dasm_ov": 10, "openset_eval": 10,
 }
@@ -96,25 +106,56 @@ def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return restore_params(path)
 
 
+def read_weights(path: str, model, config, lora_ckpt: Optional[str] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """:func:`read_checkpoint` for ``model``: an upstream ``.pt`` whose
+    weights carry the merged LoRA delta (``common.lora_ckpt_merged``: the
+    ``--lora_ckpt`` flag, else the config, else merged) has the delta of each
+    of ``model``'s LoRA layers subtracted, as the JAX package's converter
+    does; the port's own checkpoints keep the factors unmerged and are read
+    as they are. A model without LoRA keeps the merged weights and drops the
+    factors (upstream's strict=False load into a plain PaSST)."""
+    from transformer4sed_tpu_torch.models.lora import lora_modules, unmerge_lora_checkpoint
+
+    restored = read_checkpoint(path)
+    if (path.endswith(".pt") and lora_modules(model)
+            and common.lora_ckpt_merged(config, lora_ckpt)):
+        restored = unmerge_lora_checkpoint(model, restored)
+    return restored
+
+
+def _factor_pattern(name: str) -> str:
+    """A LoRA factor's key with its block index starred (a log line's pattern)."""
+    return re.sub(r"\.\d+\.", ".*.", name)
+
+
 def load_pretrained(model, config, args, logger, device: torch.device):
     """A seeded init (``--random_seed``), then ``--pretrained_ckpt`` through
     ``load_partial`` with ``generals.warm_start_drop``; moves the model to
     ``device``. The checkpoint is a file of the port's or an upstream ``.pt``
-    state dict; a JAX orbax directory is not read."""
+    state dict (:func:`read_weights`); a JAX orbax directory is not read. The
+    log counts the keys loaded, those dropped by the config, and those the
+    model lacks, by name pattern (finetune1 drops the post-pretrain stage's
+    LoRA factors and MLM head so)."""
     from transformer4sed_tpu_torch.utils.checkpoint import dropped_keys, load_partial
     from transformer4sed_tpu_torch.utils.weights import init_weights_
 
     init_weights_(model, seed=args.random_seed)
     if args.pretrained_ckpt:
-        restored = read_checkpoint(args.pretrained_ckpt)
+        restored = read_weights(args.pretrained_ckpt, model, config,
+                                getattr(args, "lora_ckpt", None))
         drop = config["generals"].get("warm_start_drop", [])
         own = model.state_dict()
         model.load_state_dict(load_partial(own, restored, drop_patterns=drop))
         loaded = [k for k in restored if k in own and restored[k].shape == own[k].shape]
         dropped = dropped_keys(own, restored, drop)
+        unknown = collections.Counter(_factor_pattern(k) for k in restored if k not in own)
         logger.info(f"warm-started from {args.pretrained_ckpt} (dropped: {drop})")
         logger.info(f"warm start: {len(loaded) - len(dropped)} of {len(own)} keys loaded, "
                     f"dropped {dropped}")
+        if unknown:
+            logger.info(f"warm start: {sum(unknown.values())} checkpoint keys the model lacks, "
+                        f"dropped: {dict(sorted(unknown.items()))}")
     return model.to(device)
 
 
@@ -128,27 +169,29 @@ class Serving(NamedTuple):
     model_kwargs: Dict
 
 
-def serving_model(config, ckpt: str, device: torch.device) -> Serving:
+def serving_model(config, ckpt: str, device: torch.device,
+                  lora_ckpt: Optional[str] = None) -> Serving:
     """The config's model (:func:`build_model`) with every weight of ``ckpt``
-    (:func:`read_checkpoint`), on ``device`` in eval mode; its frontend; the
+    (:func:`read_weights`, ``lora_ckpt`` its merged-ness policy for an
+    upstream LoRA ``.pt``), on ``device`` in eval mode; its frontend; the
     codec (the classes of ``dataset.labels`` or of ``dataset.label_dict``,
     as the AudioSet-strong configs give them); the median widths; the
     forward's ``test_kwargs``."""
     name = config.get("model_name", "PaSST_SED")
     codec = common.codec_from_config(config, labels=common.label_dict_labels(config))
     model, frontend = build_model(config, device)
-    model.load_state_dict(read_checkpoint(ckpt))
+    model.load_state_dict(read_weights(ckpt, model, config, lora_ckpt))
     return Serving(model.to(device).eval(), frontend, codec,
                    common.median_filter_from_config(config, codec),
                    dict(config.get(name, {}).get("test_kwargs", {})))
 
 
 def serving_engine(config, ckpt: str, device: torch.device, batch_size: int,
-                   threshold: float = 0.5):
+                   threshold: float = 0.5, lora_ckpt: Optional[str] = None):
     """``recipes.serve.InferenceEngine`` over :func:`serving_model`."""
     from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
 
-    s = serving_model(config, ckpt, device)
+    s = serving_model(config, ckpt, device, lora_ckpt)
     return InferenceEngine(s.model, s.frontend, s.codec, s.median_filter, batch_size=batch_size,
                            threshold=threshold, model_kwargs=s.model_kwargs, device=device)
 
@@ -214,7 +257,7 @@ def setup(argv) -> Stage:
     if stage in _LATER_STAGES:
         raise NotImplementedError(
             f"stage {stage!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_STAGES[stage]}")
-    if stage not in MATSED_STAGES:
+    if stage not in MATSED_STAGES + PMAM_STAGES:
         raise SystemExit(f"unknown stage {stage!r}")
     args = common.build_argparser().parse_args(rest)
     device = resolve_device(args.device)  # raises before anything is written without a card
@@ -224,6 +267,163 @@ def setup(argv) -> Stage:
     logger.info(_precision_line(device))
     model = load_pretrained(model, config, args, logger, device)
     return Stage(stage, args, config, paths, logger, codec, device, model, frontend)
+
+
+def _unlabeled_loader(st: Stage, return_name: bool):
+    """The unlabeled folder at ``training.batch_size_val``, in order, the last
+    batch kept."""
+    from transformer4sed_tpu_torch.data.datasets import UnlabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+
+    ds = UnlabeledDataset(st.config["dataset"]["unlabeled_folder"], return_name, st.codec)
+    return DataLoader(ds, batch_size=st.config["training"].get("batch_size_val", 16),
+                      num_workers=st.config["generals"].get("num_workers", 4), drop_last=False)
+
+
+def _mels(st: Stage, loader):
+    for batch in loader:
+        wav = torch.from_numpy(batch["wav"]).to(st.device)
+        yield st.frontend.normalize(st.frontend(wav)), batch.get("filename")
+
+
+def pmam_extract(st: Stage) -> int:
+    """PMAM tokenizer, stage 1: the frozen MLM net's frame features (the
+    ``pmam.feature_layer`` tap, one frame in ``downsample_rate``) ->
+    ``features.npy``."""
+    import numpy as np
+
+    from transformer4sed_tpu_torch.pmam.features import extract_frame_features
+
+    pm = st.config.get("pmam", {})
+    gen = torch.Generator().manual_seed(st.args.random_seed)
+    feats = extract_frame_features(
+        st.model.eval(), (mel for mel, _ in _mels(st, _unlabeled_loader(st, False))),
+        feature_layer=pm.get("feature_layer", "transformer_0"),
+        downsample_rate=pm.get("downsample_rate", 4), generator=gen)
+    out = f"{st.paths['save_folder']}/features.npy"
+    np.save(out, feats)
+    st.logger.info(f"extracted {feats.shape} features -> {out}")
+    return 0
+
+
+def pmam_gmm(st: Stage) -> int:
+    """PMAM tokenizer, stage 2: a GMM (optionally after PCA) on
+    ``features.npy`` -> ``gmm_means.npy``, ``gmm_covariances.npy``,
+    ``gmm_weights.npy``."""
+    import time
+
+    import numpy as np
+
+    from transformer4sed_tpu_torch.pmam.gmm import PCA, GaussianMixture
+
+    pm = st.config.get("pmam", {})
+    folder = st.paths["save_folder"]
+    feats = np.load(f"{folder}/features.npy")
+    if pm.get("pca_dim"):
+        feats = PCA(pm["pca_dim"], device=st.device).fit_transform(feats)
+    t0 = time.perf_counter()
+    gmm = GaussianMixture(num_components=pm.get("n_components", 64),
+                          covariance_type=pm.get("covariance_type", "full"),
+                          n_iter=pm.get("n_iter", 50), device=st.device).fit(feats)
+    seconds = time.perf_counter() - t0
+    np.save(f"{folder}/gmm_means.npy", gmm.means)
+    np.save(f"{folder}/gmm_covariances.npy", gmm.covariances)
+    np.save(f"{folder}/gmm_weights.npy", gmm.weights)
+    st.logger.info(f"fitted GMM: means {gmm.means.shape} on {feats.shape[0]} rows in "
+                   f"{seconds:.2f} s ({gmm.n_iter} EM iterations, {gmm.rows_per_chunk} rows a "
+                   f"chunk); mean log-likelihood {gmm.log_likelihoods[0]:.4f} -> "
+                   f"{gmm.log_likelihoods[-1]:.4f}")
+    return 0
+
+
+def load_gmm(folder: str, device: torch.device):
+    """The GMM that ``pmam_gmm`` wrote to ``folder``; the covariance layout
+    gives its type ([K, D] diagonal, [K, D, D] full)."""
+    import numpy as np
+
+    from transformer4sed_tpu_torch.pmam.gmm import GaussianMixture
+
+    covs = np.load(f"{folder}/gmm_covariances.npy")
+    gmm = GaussianMixture(num_components=covs.shape[0],
+                          covariance_type="diag" if covs.ndim == 2 else "full", device=device)
+    gmm.means = np.load(f"{folder}/gmm_means.npy")
+    gmm.covariances = covs
+    gmm.weights = np.load(f"{folder}/gmm_weights.npy")
+    return gmm
+
+
+def pmam_pseudo_labels(st: Stage) -> int:
+    """PMAM tokenizer, stage 3: the GMM's posteriors of every clip's tapped
+    frames -> ``pseudo_labels/<clip>.tsv``, batch by batch."""
+    from transformer4sed_tpu_torch.pmam.pseudo_labels import generate_pseudo_labels
+
+    pm = st.config.get("pmam", {})
+    gmm = load_gmm(st.paths["save_folder"], st.device)
+    gen = torch.Generator().manual_seed(st.args.random_seed)
+    n = generate_pseudo_labels(st.model.eval(), gmm, _mels(st, _unlabeled_loader(st, True)),
+                               out_dir=f"{st.paths['save_folder']}/pseudo_labels",
+                               feature_layer=pm.get("feature_layer", "transformer_0"),
+                               generator=gen)
+    st.logger.info(f"wrote {n} pseudo-label TSVs")
+    return 0
+
+
+def pmam_train(st: Stage) -> int:
+    """PMAM post-pretraining (upstream ``recipes/desed/pmam/{main,train}.py``):
+    the prototype BCE on the masked frames against the pseudo-labels, LoRA
+    factors, decoder and heads training (``opt.lora_trainable`` defaults to
+    true); the best student by training loss. As in the JAX stage the step's
+    config takes ``pmam.temperature``, ``training.w_AT`` and the model's
+    ``train_kwargs`` only (the transform keeps its defaults), and the student
+    is saved with its LoRA factors unmerged."""
+    import numpy as np
+
+    from transformer4sed_tpu_torch.data.datasets import FrameWiseLabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+    from transformer4sed_tpu_torch.parallel import multihost
+    from transformer4sed_tpu_torch.pmam.train import PMAMConfig, PMAMTrainer
+    from transformer4sed_tpu_torch.utils.checkpoint import save_params
+
+    if multihost.process_count() > 1:
+        raise NotImplementedError("pmam_train under several ranks is not ported yet: "
+                                  "ROADMAP.md, queue 1, item 8a")
+    config, args, folder = st.config, st.args, st.paths["save_folder"]
+    pm = config.get("pmam", {})
+    gmm_means = np.load(args.gmm_means_path
+                        or pm.get("gmm_means_path", f"{folder}/gmm_means.npy"))
+    ds = FrameWiseLabeledDataset(
+        args.pseudo_label_dir or pm.get("pseudo_label_dir", f"{folder}/pseudo_labels"),
+        config["dataset"]["unlabeled_folder"], False, st.codec)
+    bs = config["training"]["batch_size"]
+    loader = DataLoader(ds, batch_size=bs if isinstance(bs, int) else sum(bs),
+                        num_workers=config["generals"].get("num_workers", 4))
+    config.setdefault("opt", {}).setdefault("lora_trainable", True)
+    pg, schedule, accum = common.optimizer_from_config(config, len(loader))
+    name = config.get("model_name", "PaSST_CNN")
+    cfg = PMAMConfig(temperature=pm.get("temperature", 0.1),
+                     w_at=config["training"].get("w_AT", 0.0),
+                     model_kwargs=config.get(name, {}).get("train_kwargs", {}))
+    trainer = PMAMTrainer(st.model, st.frontend, gmm_means, cfg, pg, schedule, accum)
+    best, n = float("inf"), len(loader)
+    for epoch in range(config["training"]["scheduler"]["n_epochs"]):
+        loader.set_epoch(epoch)
+        acc: Dict[str, float] = {}
+        for i, batch in enumerate(loader):
+            metrics = trainer.step({"wav": batch["wav"], "labels": batch["label"]},
+                                   common.step_generator(args.random_seed, epoch * n + i))
+            for k in ("loss_total", "loss_strong", "loss_weak"):
+                acc[k] = acc.get(k, 0.0) + float(metrics[k]) / n
+        st.logger.scalars("Train", acc, epoch + 1)
+        st.logger.info(f"epoch {epoch + 1}: "
+                       + " ".join(f"{k}={v:.5f}" for k, v in sorted(acc.items())))
+        if acc["loss_total"] < best:
+            best = acc["loss_total"]
+            save_params(f"{st.paths['best_paths']}/best_student", trainer.model.state_dict())
+    return 0
+
+
+_PMAM_RUN = {"pmam_extract": pmam_extract, "pmam_gmm": pmam_gmm,
+             "pmam_pseudo_labels": pmam_pseudo_labels, "pmam_train": pmam_train}
 
 
 def finetune_trainer(st: Stage):
@@ -244,6 +444,8 @@ def main(argv=None) -> int:
     try:
         if st.name == "matsed_pretrain":
             return pretrain(st.model, st.frontend, config, st.codec, args, st.paths, logger)
+        if st.name in _PMAM_RUN:
+            return _PMAM_RUN[st.name](st)
         trainer = finetune_trainer(st)
         start_epoch = 0
         resume = common.resolve_resume(args, st.paths, logger)

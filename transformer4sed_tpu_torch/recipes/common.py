@@ -55,8 +55,8 @@ _FORWARD_KWARG_KEYS = (
     "val_kwargs",
     "test_kwargs",
 )
-_GROUPS_LATER = ("is not ported yet: ROADMAP.md, queue 1, items 8 and 9 (the LoRA and "
-                 "AudioSet param-group policies)")
+_GROUPS_LATER = ("is not ported yet: ROADMAP.md, queue 1, item 9 (the AudioSet param-group "
+                 "policies)")
 
 
 def model_init_kwargs(config: Dict, name: Optional[str] = None) -> Dict:
@@ -118,6 +118,10 @@ def build_argparser() -> argparse.ArgumentParser:
              "'unmerged' = mid-training BestModels saves")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
+    parser.add_argument("--gmm_means_path", type=str, default=None,
+                        help="pmam_train: the tokenizer's gmm_means.npy")
+    parser.add_argument("--pseudo_label_dir", type=str, default=None,
+                        help="pmam_train: the tokenizer's pseudo-label TSVs")
     return parser
 
 
@@ -267,8 +271,6 @@ def optimizer_from_config(config: Dict, steps_per_epoch: int
     for group in ("at_decoder", "query"):
         if lr_dict.get(group):
             raise NotImplementedError(f"the opt.param_groups.{group} group {_GROUPS_LATER}")
-    if config["opt"].get("lora_trainable"):
-        raise NotImplementedError(f"opt.lora_trainable {_GROUPS_LATER}")
 
     def spec(d):
         return GroupSpec(lr=d["lr"], weight_decay=d.get("weight_decay", 1e-8))
@@ -282,6 +284,7 @@ def optimizer_from_config(config: Dict, steps_per_epoch: int
         cnn=spec(lr_dict["cnn"]) if lr_dict.get("cnn") else None,
         backbone_depth=config.get("backbone_depth", 12),
         clip_grad=20.0 if config["training"].get("clip_grad") else 0.0,
+        lora_trainable=bool(config["opt"].get("lora_trainable", False)),
     )
     sch = config["training"]["scheduler"]
     accum = int(config["training"].get("accum_steps", 1) or 1)

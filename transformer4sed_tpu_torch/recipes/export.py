@@ -124,10 +124,8 @@ def main(argv=None) -> int:
                         help="torch device (default: the card; 'cpu' exports the plain versions)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    if args.lora_ckpt:
-        raise NotImplementedError("--lora_ckpt: LoRA is not ported yet: ROADMAP.md, queue 1, "
-                                  "item 8")
-    s = cli.serving_model(load_yaml_with_include(args.config_dir), args.ckpt, device)
+    s = cli.serving_model(load_yaml_with_include(args.config_dir), args.ckpt, device,
+                          args.lora_ckpt)
     exported = export_serving_forward(s.model, s.frontend, s.codec, args.batch_size,
                                       s.median_filter, s.model_kwargs)
     meta = write_artifact(args.out, exported, s.codec, args.batch_size)

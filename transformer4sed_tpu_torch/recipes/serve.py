@@ -241,9 +241,6 @@ def main(argv=None) -> int:
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)  # raises before anything is written without a card
-    if args.lora_ckpt:
-        raise NotImplementedError("--lora_ckpt: LoRA is not ported yet: ROADMAP.md, queue 1, "
-                                  "item 8")
     if args.query or args.query_names:
         raise NotImplementedError("--query/--query_names: open-vocabulary DASM serving is not "
                                   "ported yet: ROADMAP.md, queue 1, item 10")
@@ -256,7 +253,8 @@ def main(argv=None) -> int:
     if not args.config_dir or not args.ckpt:
         parser.error("--config_dir and --ckpt are required unless --exported is given")
     config = load_yaml_with_include(args.config_dir)
-    engine = cli.serving_engine(config, args.ckpt, device, args.batch_size, args.threshold)
+    engine = cli.serving_engine(config, args.ckpt, device, args.batch_size, args.threshold,
+                                lora_ckpt=args.lora_ckpt)
     return _run_engine(engine, args, num_workers=config.get("generals", {}).get("num_workers", 4))
 
 

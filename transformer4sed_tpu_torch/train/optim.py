@@ -29,10 +29,13 @@ works as ``optax.MultiSteps`` does in the JAX package: the k micro-batch
 gradients are averaged as a running mean, and every k-th call applies them;
 clipping runs on the averaged gradient inside that update, and the schedule
 (and, in the trainers, the EMA and the step counter) advance only then
-(:func:`apply_gradients`). ``child_tuning`` and the remaining groups of the
-AudioSet and LoRA policies (at_decoder, query, lora) are not ported yet:
-they come with those training paths and model families (ROADMAP.md,
-queue 1, items 8 and 9).
+(:func:`apply_gradients`). With ``lora_trainable`` (PMAM's post-pretraining,
+``opt.lora_trainable``; upstream's ``mark_only_lora_as_trainable``) the LoRA
+factors take the decoder group wherever they sit, so they train inside a
+backbone that the encoder's lr 0 freezes, as the JAX package labels them.
+``child_tuning`` and the remaining groups of the AudioSet policies
+(at_decoder, query) are not ported yet: they come with those training paths
+and model families (ROADMAP.md, queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from typing import Callable, Collection, Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+
+from transformer4sed_tpu_torch.models.lora import is_lora_factor
 
 
 @dataclass(frozen=True)
@@ -64,6 +69,8 @@ class ParamGroupConfig:
     cnn: Optional[GroupSpec] = None
     backbone_depth: int = 12
     clip_grad: float = 20.0
+    # PMAM/LoRA mode: the LoRA factors train at the decoder group's rate
+    lora_trainable: bool = False
 
 
 # union of the reference's decoder-group keyword lists (DESED cnn_trans
@@ -95,6 +102,8 @@ def label_params(names: Iterable[str], cfg: ParamGroupConfig) -> Dict[str, str]:
     global_block_idx = {k: i for i, k in enumerate(block_keys)}
 
     def label_of(name: str) -> str:
+        if cfg.lora_trainable and is_lora_factor(name):
+            return "decoder"
         if _in_backbone(name):
             bk = _backbone_block_key(name)
             block_idx = global_block_idx[bk] if bk is not None else None

@@ -24,7 +24,12 @@ is the inverse of the JAX package's ``utils/torch_import.py``
     ``cnn.cnn.cg0`` (or ``glu0``), whichever the model has;
   * BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and the
     ``batch_stats`` leaves ``mean``/``var`` -> ``running_mean``/
-    ``running_var``.
+    ``running_var``;
+  * LoRA factors ``lora_A [in, r]`` / ``lora_B [r, out]`` -> upstream
+    loralib's ``lora_A [r, in]`` / ``lora_B [out, r]`` (``models/lora.py``),
+    and a merged Dense's per-group ``lora_A_g{i}`` / ``lora_B_g{i}`` ->
+    upstream ``MergedLinear``'s stacked ``lora_A`` / ``lora_B``, enabled
+    groups in order. Both packages keep the factors unmerged.
 
 A missing or an extra key raises. Buffers that are counters or are
 computed from the configuration (``num_batches_tracked``,
@@ -148,13 +153,21 @@ def jax_params_to_state_dict(variables: Mapping,
             raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
         sd[".".join(_torch_name(path[:-1], names) + [_STATS[path[-1]]])] = val
     mha: Dict[str, Dict[Tuple[str, str], np.ndarray]] = {}
+    lora_groups: Dict[str, list] = {}
     for path, val in _flatten(params).items():
         if len(path) >= 3 and path[-3] == "frequency_att" and path[-2] in _MHA_PARTS:
             prefix = ".".join(_torch_name(path[:-2]))
             mha.setdefault(prefix, {})[(path[-2], path[-1])] = val
             continue
         parts = _torch_name(path, names)
-        if parts[-1] == "kernel":
+        group = re.fullmatch(r"(lora_[AB])_g(\d+)", parts[-1])
+        if group:  # a merged Dense's per-group factor: stacked below
+            key = ".".join(parts[:-1] + [group.group(1)])
+            lora_groups.setdefault(key, []).append((int(group.group(2)), val.T))
+            continue
+        if parts[-1] in ("lora_A", "lora_B"):
+            val = val.T
+        elif parts[-1] == "kernel":
             parts[-1] = "weight"
             if val.ndim == 2:
                 val = val.T
@@ -165,6 +178,8 @@ def jax_params_to_state_dict(variables: Mapping,
         elif parts[-1] == "scale":
             parts[-1] = "weight"
         sd[".".join(parts)] = val
+    for key, parts in lora_groups.items():
+        sd[key] = np.concatenate([v for _, v in sorted(parts, key=lambda p: p[0])])
     for prefix, m in mha.items():
         expected = {(p, leaf) for p in _MHA_PARTS for leaf in ("kernel", "bias")}
         if set(m) != expected:
