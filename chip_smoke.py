@@ -15,12 +15,17 @@
     python3 chip_smoke.py --phases build,stages  # the matsed_* stages through the CLI
     python3 chip_smoke.py --phases build,pmam_stages  # the pmam_* stages and PMAM's chain
     python3 chip_smoke.py --phases build,score,serving  # serve, infer, stream and export
+    python3 chip_smoke.py --phases build,dasm_serve,dasm_parity,dasm_train,dasm_train_parity,audioset_stages
 
-Three networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
+Four networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
 19, and finetune2's sliding windows, phases 20 to 23), HTSAT_CNN (phases 9 to
-12) and PMAM's PaSST_CNN (phases 13 to 16, and its finetune2 step in 22 and
-23). Phases, in order (19 runs right after 2); any failure exits non-zero:
+12), PMAM's PaSST_CNN (phases 13 to 16, and its finetune2 step in 22 and
+23) and DASM (phases 24 to 28). The CPU f32 train parities of phases 6, 6a,
+16, 18, 23 and 4d's check (e) run the PaSST backbone cut to PARITY_DEPTH of
+its blocks (PARITY_CUT), with their bounds unchanged; every other phase runs
+the full depth. Phases, in order (19 runs right after 2); any failure exits
+non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
@@ -269,6 +274,34 @@ MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
  23. finetune2 train parity: both steps, 2 steps at B=3 with windows of 512
      at a step of 490 (two width groups), CPU f32 against card bf16, held as
      in phase 6;
+ 24. dasm_serve: config/dasm/closed_set.yaml's DASM (PaSST 768/12/12 tapped at
+     10, the attention f-pool, 3 XL blocks at T=1000, two query projectors, 2
+     AT-decoder layers, the 448-way head), seeded weights and seeded [447,
+     512] text and [447, 768] audio banks, served at B=8 with the text bank
+     on phase 3's clips: shapes, finiteness, events at 0.5 and at half the
+     largest score, the padded frames at the floor, rows 1 and 2 at 12 and 3
+     a batch; served clips/s over three windows, and the AT decoder's
+     forward time against a batch's;
+ 25. dasm_parity: the same weights on 2 clips, each quantity on its own
+     scale: (a) the card's f32 tail (einsum, / temp_w, sigmoid, prior, pad,
+     clamp) against f64 of its own tensors, (b) card bf16 against CPU f32 on
+     z = logits / temp_w, the AT head's logits, the prior, strong and weak,
+     by relative L2 error; five planted faults fall outside;
+ 26. dasm_train: the closed-set step (DASMStep: shift, mixup, filt_aug, the
+     AT decoder's dropout, a modality drawn per query, strong BCE + the
+     448-way CE) at the shipped B=48: finite losses, rows 7, 8, 12 and 13 at
+     12, 12, 3 and 3 a step and nothing else; three windows of four steps,
+     peak memory, the AT decoder's forward and backward time;
+ 27. dasm_train_parity: that step at full width and depth, 2 steps at B=2
+     without augmentation or dropout, CPU f32 against card bf16, held as in
+     phase 6;
+ 28. audioset_stages: ``audioset_supervised`` (htsat_cnn.yaml), ``dasm_train``
+     (closed_set.yaml), ``dasm_ov`` (open_vocab.yaml) and ``openset_eval``
+     through the CLI on the card from a mini 447-class tree of written
+     clips (the vendored label tables, 34 novel labels), dataset paths and
+     epochs changed and ``query_type: text`` for open_vocab.yaml's one bank;
+     checks (a) to (d) (files, finite logs, launches, the warm start, then
+     ``serve --query`` and ``infer --query`` bitwise against the engine);
 then, inside phases 7 and 8, the window kernels at the four stages (device
 and host times, and their sums over an HTSAT_CNN step beside the bound),
 the head-major XL,
@@ -305,11 +338,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 PHASES = ("build", "kernels", "serve", "parity", "score", "serving", "stages", "pmam_stages",
           "train", "train_parity", "parallel_train", "multichip_dryrun", "htsat_serve",
           "htsat_parity", "htsat_train", "htsat_train_parity", "pmam_serve", "pmam_parity",
           "pmam_train", "pmam_train_parity", "mlm_train", "mlm_train_parity", "masked_decoder",
           "finetune2_serve", "finetune2_parity", "finetune2_train", "finetune2_train_parity",
+          "dasm_serve", "dasm_parity", "dasm_train", "dasm_train_parity", "audioset_stages",
           "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
 SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
@@ -354,6 +389,18 @@ LSE_RTOL = 2.0 ** -14
 # the same-params eval forward in the two compute dtypes
 # (tests/test_precision.py, docs/PRECISION.md)
 DTYPE_MAX_ABS = 5e-2
+# phase dasm_parity, where a seeded DASM's probabilities are small (the
+# 448-way prior near 1/448) and each quantity is held on its own scale.
+# (a) The card's f32 tail (the einsum of its bf16 mask embedding and frames,
+# / temp_w, sigmoid, prior, pad, clamp) against the same tail in f64 from the
+# same card tensors, max |err| over max |strong|: f32 rounding of a 768-term
+# dot product and a 448-way softmax is near 1e-6 of that.
+DASM_TAIL_RTOL = 1e-4
+# (b) Card bf16 against CPU f32, relative L2 error of z = logits / temp_w,
+# the AT head's logits, the prior, strong and weak: bf16 rounds every GEMM
+# operand (u = 2^-8) through 12 backbone blocks, 3 XL blocks, 2 AT-decoder
+# layers and the MLPs; PMAM_TAP_REL's 3 %, the train parity's loss bound.
+DASM_REL_L2 = 0.03
 # card bf16 vs CPU f32 training: the JAX package's own bounds for the same
 # comparison (tests/test_precision.py:86-138): relative loss delta over the
 # trajectory (mean, max) and the gradient at the f32 end state (cosine,
@@ -2749,10 +2796,11 @@ def pmam_checkpoint(cfg_path, path):
     return sd
 
 
-def pmam_post_trainer(config, state_dict, gmm_means, device, dtype):
+def pmam_post_trainer(config, state_dict, gmm_means, device, dtype, cut=False):
     """A ``PMAMTrainer`` over the post-pretrain model of ``config`` with
     ``state_dict``, the CNN's dropout, the shift and the views off: the
-    config's temperature, w_AT and param groups, clip 20."""
+    config's temperature, w_AT and param groups, clip 20. ``cut``: the
+    backbone cut to PARITY_CUT, its first blocks' weights from ``state_dict``."""
     import torch
 
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
@@ -2762,8 +2810,8 @@ def pmam_post_trainer(config, state_dict, gmm_means, device, dtype):
 
     kwargs = cli._upstream_names(common.model_init_kwargs(config, "PaSST_CNN"))
     kwargs["cnn_param"] = dict(kwargs["cnn_param"], conv_dropout=0.0)
-    model = PaSST_CNN(**kwargs, dtype=dtype, device="cpu")
-    model.load_state_dict(state_dict)
+    model = PaSST_CNN(**{**kwargs, **(PARITY_CUT if cut else {})}, dtype=dtype, device="cpu")
+    model.load_state_dict({k: state_dict[k] for k in model.state_dict()})
     pg, _, _ = common.optimizer_from_config(config, 1)
     cfg = PMAMConfig(temperature=config["pmam"]["temperature"], w_at=config["training"]["w_AT"],
                      max_shift_frame=0, transform_choice=(0, 0, 0, 0))
@@ -3033,12 +3081,13 @@ def pmam_stages(device="cuda"):
             labels = np.stack([tables[f"u{i:03d}"][:, 2:].T for i in range(n)])
             return {"wav": wav.astype(np.float32), "labels": labels.astype(np.float32)}
 
-        cpu_t = pmam_post_trainer(post_config, start, stage_means, "cpu", torch.float32)
-        card_t = pmam_post_trainer(post_config, start, stage_means, dev, torch.bfloat16)
+        cpu_t = pmam_post_trainer(post_config, start, stage_means, "cpu", torch.float32, cut=True)
+        card_t = pmam_post_trainer(post_config, start, stage_means, dev, torch.bfloat16, cut=True)
         trainer_parity("PMAM post-pretrain", cpu_t, card_t, parity_batch, PARITY_STEPS,
                        "loss_total", lambda t: (t.model,), trainable_only=True,
                        last_step_gradient=True)
-        del cpu_t
+        del cpu_t, card_t
+        card_t = pmam_post_trainer(post_config, start, stage_means, dev, torch.bfloat16)
         time_training(card_t, clips_batch(PMAM_STAGE_BATCH), windows=2, per_window=3,
                       what="PMAM post-pretrain",
                       parts="frontend, masked forward, prototype BCE, backward through the "
@@ -3075,6 +3124,16 @@ TRAIN_SPLIT = (8, 8, 8)  # bench.py:measure_train: B=24, strong | weak | unlabel
 TRAIN_STEPS = 2
 PARITY_SPLIT = (1, 1, 1)
 PARITY_STEPS = 3
+# The CPU f32 train parities of the earlier networks (phases 6, 6a's parity
+# steps, 16, 18, 23 and check (e) of pmam_stages) run the PaSST backbone cut
+# to PARITY_DEPTH of its 12 blocks, tapped at PARITY_TAP where the full nets
+# tap at 10: the blocks past the tap still feed only the final-norm tokens.
+# The CPU's f32 time there is mostly the backbone; the bounds are unchanged,
+# and serving, training, timing and the profiles keep the full depth.
+PARITY_DEPTH, PARITY_TAP = 4, 3
+PARITY_CUT = dict(backbone_depth=PARITY_DEPTH, passt_feature_layer=PARITY_TAP)
+# PMAM's freeze_layer (8 of 12 blocks) scaled to the cut backbone
+PMAM_PARITY_FREEZE = round(8 * PARITY_DEPTH / 12)
 
 
 def synthetic_train_batch(split, seed):
@@ -3104,13 +3163,13 @@ def synthetic_train_batch(split, seed):
     return {"wav": wav, "labels": labels}
 
 
-def build_trainer(device, dtype, split, augment, state_dict=None, mesh=None):
+def build_trainer(device, dtype, split, augment, state_dict=None, mesh=None, cut=False):
     """The flagship's mean-teacher trainer as bench.py:measure_train sets it:
     clip 20 then AdamW 1e-4 (optax.adamw's weight decay 1e-4) on every
     param, EMA 0.999; ``augment=False`` turns mixup, shift and views off.
     With a ``mesh``: the parallel layout, params sharded by
     ``parallel.shard_params`` and the step wrapped by
-    ``parallel.shard_train_step``."""
+    ``parallel.shard_train_step``. ``cut``: the backbone cut to PARITY_CUT."""
     import torch
 
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
@@ -3120,7 +3179,7 @@ def build_trainer(device, dtype, split, augment, state_dict=None, mesh=None):
     from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
     from transformer4sed_tpu_torch.utils.weights import init_weights_
 
-    model = PaSST_SED(**FLAGSHIP, dtype=dtype, device="cpu")
+    model = PaSST_SED(**{**FLAGSHIP, **(PARITY_CUT if cut else {})}, dtype=dtype, device="cpu")
     if state_dict is None:
         init_weights_(model, seed=0)
     else:
@@ -3282,13 +3341,14 @@ def train_parity(mesh=None):
     held against both (one CPU f32 trajectory serves the two card paths)."""
     import torch
 
-    cpu = build_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False)
+    cpu = build_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, cut=True)
     state = cpu.student.state_dict()
     cards = {"card_bf16": build_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
-                                        state_dict=state)}
+                                        state_dict=state, cut=True)}
     if mesh is not None:
         cards["card_parallel_bf16"] = build_trainer("cuda", torch.bfloat16, PARITY_SPLIT,
-                                                    augment=False, state_dict=state, mesh=mesh)
+                                                    augment=False, state_dict=state, mesh=mesh,
+                                                    cut=True)
     params = list(cpu.student.parameters())
     trainer_parity("flagship", cpu, cards, synthetic_train_batch(PARITY_SPLIT, seed=4),
                    PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
@@ -3502,22 +3562,23 @@ def htsat_parity(card_engine, batches):
     check(worst <= DTYPE_MAX_ABS, "HTSAT_CNN: the card's path disagrees with the CPU f32 path")
 
 
-def synthetic_audioset_batch(b, seed):
+def synthetic_audioset_batch(b, seed, frames=HTSAT_FRAMES):
     """Learnable clips for the 447 classes: noise plus three tone bursts, a
     burst of class c at its own pitch 150 * 2^(c / 70) Hz, with strong labels
-    [B, 447, 320] on the model's 32 frames/s grid."""
+    [B, 447, frames] on the model's grid (HTSAT_CNN's 32 frames/s, DASM's 100)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     t = np.arange(CLIP_SAMPLES) / SR
+    fps = frames / 10
     wav = np.zeros((b, CLIP_SAMPLES), np.float32)
-    labels = np.zeros((b, 447, HTSAT_FRAMES), np.float32)
+    labels = np.zeros((b, 447, frames), np.float32)
     for i in range(b):
         x = 0.05 * rng.randn(CLIP_SAMPLES)
         for _ in range(3):
             cls, on, dur = rng.randint(447), rng.uniform(0, 8), rng.uniform(0.3, 2.0)
             x += np.sin(2 * np.pi * 150 * 2 ** (cls / 70) * t) * ((t >= on) & (t < on + dur))
-            labels[i, cls, int(on * 32):int((on + dur) * 32)] = 1.0
+            labels[i, cls, int(on * fps):int((on + dur) * fps)] = 1.0
         wav[i] = x
     return {"wav": wav, "labels": labels}
 
@@ -3627,11 +3688,11 @@ PMAM_TRAIN_LAUNCHES = dict(flash_attention_nhd=12, flash_xl_attention=3,
                            flash_xl_attention_lse=3, flash_xl_attention_backward=3)
 
 
-def build_pmam_model(device, dtype, state_dict=None, **cnn_overrides):
+def build_pmam_model(device, dtype, state_dict=None, cut=False, **cnn_overrides):
     from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
     from transformer4sed_tpu_torch.utils.weights import init_weights_
 
-    cfg = dict(PMAM_CFG)
+    cfg = {**PMAM_CFG, **(PARITY_CUT if cut else {})}
     cfg["cnn_param"] = dict(cfg["cnn_param"], **cnn_overrides)
     model = PaSST_CNN(**cfg, dtype=dtype, device="cpu")
     if state_dict is None:
@@ -3693,16 +3754,17 @@ def pmam_serve(engine, results):
 
 
 def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None,
-                       tch_kwargs=None):
+                       tch_kwargs=None, cut=False):
     """The recipe's mean-teacher trainer over PaSST_CNN: the config's loss
     weights, transform and param groups, clip 20; ``augment=False`` turns mixup,
     shift and views off, ``dropout=False`` the CNN's conv_dropout; ``tch_kwargs``
-    replaces the teacher's forward kwargs."""
+    replaces the teacher's forward kwargs; ``cut``: the backbone cut to
+    PARITY_CUT, PMAM_PARITY_FREEZE of its blocks frozen."""
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
     from transformer4sed_tpu_torch.train.mean_teacher import MeanTeacherConfig, MeanTeacherTrainer
     from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
 
-    model = build_pmam_model(device, dtype, state_dict,
+    model = build_pmam_model(device, dtype, state_dict, cut,
                              **({} if dropout else {"conv_dropout": 0.0}))
     s, w, u = split
     off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0, n_transform=0)
@@ -3710,6 +3772,9 @@ def build_pmam_trainer(device, dtype, split, augment, dropout, state_dict=None,
     if tch_kwargs is not None:
         cfg = dataclasses.replace(cfg, tch_kwargs=dict(tch_kwargs))
     groups = {k: GroupSpec(**v) for k, v in PMAM_OPT.items()}
+    if cut:
+        groups["encoder"] = dataclasses.replace(groups["encoder"],
+                                                freeze_layer=PMAM_PARITY_FREEZE)
     return MeanTeacherTrainer(model, PasstFrontend(device=device), cfg,
                               ParamGroupConfig(**groups, clip_grad=20.0))
 
@@ -3762,9 +3827,10 @@ def pmam_train_parity():
     and dropout off, CPU f32 against card bf16 (:func:`trainer_parity`)."""
     import torch
 
-    cpu = build_pmam_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, dropout=False)
+    cpu = build_pmam_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, dropout=False,
+                             cut=True)
     card = build_pmam_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False, dropout=False,
-                              state_dict=cpu.student.state_dict())
+                              state_dict=cpu.student.state_dict(), cut=True)
     trainer_parity("PMAM", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=13), PARITY_STEPS,
                    "loss_total", lambda t: (t.student, t.teacher))
     check(all(p.grad is not None for p in cpu.student.parameters()),
@@ -3796,14 +3862,14 @@ MLM_TRAIN_LAUNCHES = dict(flash_attention_nhd_lse=12, flash_attention_nhd_backwa
                           flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
 
 
-def build_mlm_trainer(device, dtype, augment, state_dict=None):
+def build_mlm_trainer(device, dtype, augment, state_dict=None, cut=False):
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
     from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
     from transformer4sed_tpu_torch.train.mlm import MLMConfig, MLMTrainer
     from transformer4sed_tpu_torch.train.optim import GroupSpec, ParamGroupConfig
     from transformer4sed_tpu_torch.utils.weights import init_weights_
 
-    model = PaSST_SED(**MLM_CFG, dtype=dtype, device="cpu")
+    model = PaSST_SED(**{**MLM_CFG, **(PARITY_CUT if cut else {})}, dtype=dtype, device="cpu")
     if state_dict is None:
         init_weights_(model, seed=0)
     else:
@@ -3855,9 +3921,9 @@ def mlm_train_parity():
     (:func:`trainer_parity`)."""
     import torch
 
-    cpu = build_mlm_trainer("cpu", torch.float32, augment=False)
+    cpu = build_mlm_trainer("cpu", torch.float32, augment=False, cut=True)
     card = build_mlm_trainer("cuda", torch.bfloat16, augment=False,
-                             state_dict=cpu.model.state_dict())
+                             state_dict=cpu.model.state_dict(), cut=True)
     batch = {"wav": synthetic_train_batch((0, 0, 3), seed=15)["wav"]}
     trainer_parity("MLM", cpu, card, batch, PARITY_STEPS, "loss_mlm", lambda t: (t.model,))
 
@@ -4204,8 +4270,8 @@ def finetune2_serve(results):
     return engine, batches
 
 
-def build_ft2_trainer(device, dtype, split, augment, state_dict=None, kwargs=FT2):
-    trainer = build_trainer(device, dtype, split, augment, state_dict)
+def build_ft2_trainer(device, dtype, split, augment, state_dict=None, kwargs=FT2, cut=False):
+    trainer = build_trainer(device, dtype, split, augment, state_dict, cut=cut)
     trainer.cfg = dataclasses.replace(trainer.cfg, stu_kwargs=dict(kwargs),
                                       tch_kwargs=dict(kwargs))
     return trainer
@@ -4275,19 +4341,633 @@ def finetune2_train_parity():
     import torch
 
     cpu = build_ft2_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False,
-                            kwargs=FT2_PARITY)
+                            kwargs=FT2_PARITY, cut=True)
     card = build_ft2_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
-                             state_dict=cpu.student.state_dict(), kwargs=FT2_PARITY)
+                             state_dict=cpu.student.state_dict(), kwargs=FT2_PARITY, cut=True)
     trainer_parity("finetune2", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=18),
                    FT2_PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
     del cpu, card
     tch = dict(PMAM_FT2_TCH, win_param=FT2_PARITY["win_param"])
     cpu = build_pmam_trainer("cpu", torch.float32, PARITY_SPLIT, augment=False, dropout=False,
-                             tch_kwargs=tch)
+                             tch_kwargs=tch, cut=True)
     card = build_pmam_trainer("cuda", torch.bfloat16, PARITY_SPLIT, augment=False,
-                              dropout=False, state_dict=cpu.student.state_dict(), tch_kwargs=tch)
+                              dropout=False, state_dict=cpu.student.state_dict(), tch_kwargs=tch,
+                              cut=True)
     trainer_parity("PMAM finetune2", cpu, card, synthetic_train_batch(PARITY_SPLIT, seed=19),
                    FT2_PARITY_STEPS, "loss_total", lambda t: (t.student, t.teacher))
+
+
+# -- DASM (config/dasm/*.yaml): serving, the closed-set step and the AudioSet stages ------
+
+DASM_BATCH = 8           # served, as the flagship
+DASM_TRAIN_BATCH = 48    # training.batch_size of both DASM configs
+DASM_TRAIN_STEPS = 2
+DASM_PARITY_BATCH, DASM_PARITY_STEPS = 2, 2
+DASM_SEED = 23           # the seeded weights and query banks
+DASM_FRAMES = 1000       # feature.pred_len
+DASM_QUERY_DIMS = (512, 768)  # query_dim: [text, audio]
+# launches per served batch / per train step: 12 backbone blocks, 3 XL blocks; the
+# AT decoder's attention (447 queries over 1188 tokens) is plain PyTorch, as the
+# JAX package computes it outside any kernel. A step differentiates every
+# backbone block: at_projector reads the final-norm tokens
+DASM_SERVE_LAUNCHES = dict(flash_attention_nhd=12, flash_xl_attention_nhd=3)
+DASM_TRAIN_LAUNCHES = dict(flash_attention_nhd_lse=12, flash_attention_nhd_backward=12,
+                           flash_xl_attention_nhd_lse=3, flash_xl_attention_nhd_backward=3)
+
+
+def dasm_yaml(name="closed_set"):
+    """The shipped ``config/dasm/<name>.yaml``, read by the port's YAML reader."""
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    return load_yaml_with_include(str(ROOT / "config" / "dasm" / f"{name}.yaml"))
+
+
+def dasm_banks(n=447, seed=DASM_SEED):
+    """Seeded stand-ins for the query banks (MGA-CLAP text [n, 512], HTSAT
+    audio prototypes [n, 768]): N(0, 1) rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randn(n, d).astype(np.float32) for d in DASM_QUERY_DIMS]
+
+
+def build_dasm_model(device, state_dict=None, name="closed_set", dtype=None):
+    """The network of ``config/dasm/<name>.yaml`` as ``recipes.cli.build_model``
+    builds it (bf16 compute on the card, f32 on the CPU, unless ``dtype``),
+    seeded or given ``state_dict``."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.dasm import DASM
+    from transformer4sed_tpu_torch.recipes import cli, common
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    if dtype is None:
+        model, _ = cli.build_model(dasm_yaml(name), torch.device(device))
+    else:
+        model = DASM(**common.model_init_kwargs(dasm_yaml(name), "DASM"), dtype=dtype,
+                     device="cpu")
+    if state_dict is None:
+        init_weights_(model, seed=DASM_SEED)
+    else:
+        model.load_state_dict(state_dict)
+    return model.to(device)
+
+
+def build_dasm_engine(device, state_dict=None, dtype=None):
+    """closed_set.yaml's DASM served as ``recipes.serve --query <text bank>
+    --query_type text`` serves it: the 447 AudioSet-strong classes at B=8, the
+    config's val_kwargs and median window, bf16 on the card, f32 on the CPU
+    (unless ``dtype``)."""
+    import torch
+
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.recipes import common
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    config = dasm_yaml()
+    codec = common.codec_from_config(config, labels=audioset_labels())
+    check(codec.n_frames == DASM_FRAMES and codec.n_classes == 447,
+          f"codec of {codec.n_frames} frames and {codec.n_classes} classes")
+    model = build_dasm_model(device, state_dict, dtype=dtype)
+    kwargs = dict(config["DASM"]["val_kwargs"], query_type="text",
+                  query=torch.from_numpy(dasm_banks()[0]).to(device))
+    return InferenceEngine(model.eval(), PasstFrontend(device=device), codec,
+                           common.median_filter_from_config(config, codec),
+                           batch_size=DASM_BATCH, threshold=0.5, model_kwargs=kwargs,
+                           device=device)
+
+
+def dasm_serve(results):
+    """closed_set.yaml's DASM (PaSST 768/12/12 tapped at 10, the attention
+    f-pool, 3 XL blocks at T=1000, two projectors of the [447, 512] text and
+    [447, 768] audio banks, 2 AT-decoder layers, the 448-way logit head),
+    seeded, bf16, serving the 20 clips of phase 3 with the text bank (8, 8 and
+    a ragged 4): shapes, finiteness, events, the padded frames at the floor,
+    and per batch 12 and 3 launches of rows 1 and 2. Returns (engine, batches)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    engine = build_dasm_engine("cuda")
+    log(f"built the DASM engine in {time.perf_counter() - t0:.1f} s")
+    clips = synthetic_clips(20, seed=1)
+    batches = make_batches(clips, engine.codec, DASM_BATCH)
+    reset_launches()
+    served = list(engine.score_batches(batches))
+    launches = read_launches()
+    log(f"DASM served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
+        f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want.update({k: n * len(batches) for k, n in DASM_SERVE_LAUNCHES.items()})
+    check(launches == want, f"kernel launches {launches} on the DASM served path, expected {want}")
+    n_events = 0
+    for (names, scores, weak), batch in zip(served, batches):
+        check(names == batch["filename"], "results come back in order")
+        check(scores.shape == (len(names), DASM_FRAMES, 447) and weak.shape == (len(names), 447),
+              f"output shapes {scores.shape}, {weak.shape}")
+        check(np.all(np.isfinite(scores)) and np.all(np.isfinite(weak)), "finite outputs")
+        check(np.all((scores > 0) & (scores <= 1)) and np.all((weak > 0) & (weak <= 1)),
+              "probabilities in (0, 1]")
+        for i in range(len(names)):
+            for label, onset, offset in engine.decode(scores[i]):
+                check(label in engine.codec.labels and 0.0 <= onset < offset <= 10.0,
+                      f"event {label, onset, offset}")
+                n_events += 1
+    short = served[0][1][5]  # 6.5-s clip: frames from 650 are padding, clipped to 1e-7
+    check(np.all(short[650 + max(engine.median_filter) // 2:] <= 1.0001e-7),
+          "padded frames are at the floor")
+    top = max(float(s.max()) for _, s, _ in served)
+    log(f"decoded {n_events} events; scores finite in (0, 1]; padded frames at the 1e-7 floor; "
+        f"scores span {min(float(s.min()) for _, s, _ in served):.3e} .. {top:.3e}")
+    # the seeded prior keeps every score far under 0.5; the 447-class decode is
+    # also driven at half the largest score, where events fire
+    engine.threshold, low = top / 2, []
+    try:
+        for names, scores, _ in served:
+            for i in range(len(names)):
+                low += [(names[i], e) for e in engine.decode(scores[i])]
+    finally:
+        engine.threshold = 0.5
+    short_name = served[0][0][5]
+    for name, (label, onset, offset) in low:
+        check(label in engine.codec.labels and 0.0 <= onset < offset <= 10.0,
+              f"event {label, onset, offset}")
+        check(name != short_name or onset < (650 + max(engine.median_filter) // 2) / 100,
+              f"an event in the short clip's padding at {onset} s")
+    check(len(low) > 0, "no event at half the largest score")
+    log(f"decoded at the threshold {top / 2:.3e}: {len(low)} events of "
+        f"{len({e[1][0] for e in low})} classes in {len({e[0] for e in low})} clips")
+    return engine, batches
+
+
+def dasm_capture(engine, wav, pad_mask):
+    """One eval forward of ``engine``'s DASM on ``wav`` with its served kwargs,
+    in f64 on the CPU: strong, weak and the AT head's 448-way logits as the
+    model gave them; the logits ``z`` = einsum(mask embedding, frames) /
+    temp_w recomputed from the two tensors the model's einsum read (forward
+    hooks on ``mask_embedding_layer`` and ``sed_head``); the clip prior (the
+    diagonal of the 448-way softmax); and ``tail``, strong recomputed from z
+    and the prior: where(pad, 0, sigmoid(z) * prior) clamped to [1e-7, 1]."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.dasm import multi_class_to_multi_label
+
+    model, seen = engine.model, {}
+    hooks = [model.mask_embedding_layer.register_forward_hook(
+                 lambda mod, args, out: seen.__setitem__("mask_embedding", out)),
+             model.sed_head.register_forward_hook(
+                 lambda mod, args, out: seen.__setitem__("frames", out))]
+    try:
+        with torch.no_grad():
+            mel = engine.frontend.normalize(engine.frontend(wav.to(engine.device)))
+            out = model(mel, pad_mask=pad_mask.to(engine.device), **engine.model_kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def f64(t):
+        return t.detach().to("cpu", torch.float64)
+
+    temp_w = engine.model_kwargs.get("temp_w", 0.1)
+    z = torch.einsum("bqc,btc->btq", f64(seen["mask_embedding"]), f64(seen["frames"])) / temp_w
+    at_out = f64(out.at_out)
+    prior = multi_class_to_multi_label(torch.softmax(at_out, dim=-1))
+    return {"strong": f64(out.strong), "weak": f64(out.weak), "at_out": at_out, "z": z,
+            "prior": prior, "temp_w": temp_w, "pad": pad_mask.cpu(),
+            "tail": dasm_tail(z, prior, pad_mask.cpu())}
+
+
+def dasm_tail(z, prior, pad):
+    """DASM's tail in f64: where(pad, 0, sigmoid(z) * prior) clamped to
+    [1e-7, 1], as [B, Q, T]."""
+    import torch
+
+    sed = torch.where(pad[:, :, None], 0.0, torch.sigmoid(z) * prior[:, None, :])
+    return sed.clamp(1e-7, 1.0).transpose(1, 2)
+
+
+def dasm_tail_error(c, strong=None):
+    """max |strong - tail| / max |tail| of a capture (``strong``: in place of
+    the model's)."""
+    strong = c["strong"] if strong is None else strong
+    return float((strong - c["tail"]).abs().max() / c["tail"].abs().max())
+
+
+def dasm_tail_faults(c):
+    """Check (a)'s planted faults: a capture's strong recomputed with temp_w
+    dropped, with the prior dropped, and with the einsum's output rounded to
+    bf16."""
+    import torch
+
+    z, prior, pad, temp_w = c["z"], c["prior"], c["pad"], c["temp_w"]
+    return {"temp_w dropped": dasm_tail(z * temp_w, prior, pad),
+            "the prior dropped": dasm_tail(z, torch.ones_like(prior), pad),
+            "the einsum's output rounded to bf16": dasm_tail(
+                (z * temp_w).to(torch.bfloat16).double() / temp_w, prior, pad)}
+
+
+def dasm_gaps(other, ref):
+    """Relative L2 errors ||other - ref|| / ||ref|| of z, the AT head's
+    logits, the prior, strong and weak; and where the sigmoid factor
+    sigmoid(z) parts most, its gap and the z of both sides there."""
+    import torch
+
+    gaps = {k: float((other[k] - ref[k]).norm() / ref[k].norm())
+            for k in ("z", "at_out", "prior", "strong", "weak")}
+    sig = (torch.sigmoid(other["z"]) - torch.sigmoid(ref["z"])).abs()
+    at = sig.argmax()
+    gaps.update(sigmoid_gap=float(sig.max()), z_there=(float(other["z"].flatten()[at]),
+                                                       float(ref["z"].flatten()[at])),
+                z_max_abs_gap=float((other["z"] - ref["z"]).abs().max()),
+                z_abs_q=[float(q) for q in torch.quantile(
+                    ref["z"].abs().flatten(), torch.tensor([0.5, 0.99, 1.0],
+                                                           dtype=torch.float64))])
+    return gaps
+
+
+def dasm_parity_clips(batches):
+    """Phase dasm_parity's two clips (clip 5 is the short one) and their pad mask."""
+    import torch
+
+    return (torch.from_numpy(batches[0]["wav"][4:6].copy()),
+            torch.from_numpy(batches[0]["pad_mask"][4:6].copy()))
+
+
+def log_dasm_gaps(what, gaps):
+    log(f"{what}: relative L2 error of z = logits / temp_w {gaps['z']:.4e}, of the AT head's "
+        f"448-way logits {gaps['at_out']:.4e}, of the prior {gaps['prior']:.4e}, of strong "
+        f"{gaps['strong']:.4e}, of weak {gaps['weak']:.4e} (limit {DASM_REL_L2}); |z| median "
+        f"{gaps['z_abs_q'][0]:.3f}, 99th percentile {gaps['z_abs_q'][1]:.3f}, max "
+        f"{gaps['z_abs_q'][2]:.3f}; max |dz| {gaps['z_max_abs_gap']:.4f}; the sigmoid factor "
+        f"parts most by {gaps['sigmoid_gap']:.4f}, at z {gaps['z_there'][0]:.4f} against "
+        f"{gaps['z_there'][1]:.4f}")
+
+
+def dasm_parity(card_engine, batches):
+    """The same weights and text bank on 2 clips in eval mode, each quantity
+    on its own scale (a seeded DASM's probabilities are small: the 448-way
+    prior is near 1/448). (a) The card's tail: its strong against the same
+    tail in f64 from the card's own mask embedding, frames and AT logits
+    (the f32 einsum, / temp_w, sigmoid, prior, pad, clamp), within
+    DASM_TAIL_RTOL; three planted faults (temp_w dropped, the prior dropped,
+    the einsum's output rounded to bf16) fall outside. (b) Card bf16
+    (kernels) against CPU f32 (plain versions): the relative L2 errors of
+    z, the AT head's logits, the prior, strong and weak within DASM_REL_L2;
+    two planted faults (the queries' order rolled by one; the sigmoid of the
+    diagonal logit as the prior) fall outside."""
+    import torch
+
+    state = {k: v.detach().cpu() for k, v in card_engine.model.state_dict().items()}
+    cpu_engine = build_dasm_engine("cpu", state_dict=state)
+    wav, pm = dasm_parity_clips(batches)
+    card, cpu = dasm_capture(card_engine, wav, pm), dasm_capture(cpu_engine, wav, pm)
+    for name, c in (("CPU f32", cpu), ("card bf16", card)):
+        log(f"DASM {name}: strong spans {float(c['strong'].min()):.3e} .. "
+            f"{float(c['strong'].max()):.3e}, the prior {float(c['prior'].min()):.3e} .. "
+            f"{float(c['prior'].max()):.3e}; its tail against f64 of its own tensors "
+            f"{dasm_tail_error(c):.3e} (limit {DASM_TAIL_RTOL})")
+    check(dasm_tail_error(card) <= DASM_TAIL_RTOL and dasm_tail_error(cpu) <= DASM_TAIL_RTOL,
+          "DASM (a): the tail (f32 einsum, / temp_w, sigmoid, prior, pad, clamp) is not "
+          "the model's")
+    for what, strong in dasm_tail_faults(card).items():
+        err = dasm_tail_error(card, strong)
+        log(f"DASM (a) planted fault, {what}: {err:.3e} (limit {DASM_TAIL_RTOL}): "
+            f"{'within' if err <= DASM_TAIL_RTOL else 'OUTSIDE'}")
+        check(err > DASM_TAIL_RTOL, f"DASM (a): the tail check let '{what}' through")
+    gaps = dasm_gaps(card, cpu)
+    log_dasm_gaps("DASM (b) card bf16 vs CPU f32", gaps)
+    check(max(gaps[k] for k in ("z", "at_out", "prior", "strong", "weak")) <= DASM_REL_L2,
+          "DASM (b): the card's path disagrees with the CPU f32 path")
+    rolled = dict(card, z=card["z"].roll(1, dims=2))
+    diag = torch.diagonal(card["at_out"][:, :, :-1], dim1=1, dim2=2)
+    sigmoid_prior = dict(card, prior=torch.sigmoid(diag))
+    sigmoid_prior["strong"] = dasm_tail(card["z"], sigmoid_prior["prior"], card["pad"])
+    for what, fault, key in (("the queries' order rolled by one", rolled, "z"),
+                             ("the sigmoid of the diagonal logit as the prior", sigmoid_prior,
+                              "prior")):
+        err = dasm_gaps(fault, cpu)[key]
+        log(f"DASM (b) planted fault, {what}: relative L2 error of {key} {err:.4e} (limit "
+            f"{DASM_REL_L2}): {'within' if err <= DASM_REL_L2 else 'OUTSIDE'}")
+        check(err > DASM_REL_L2, f"DASM (b): the parity check let '{what}' through")
+
+
+def build_dasm_step(device, augment, dropout=True, state_dict=None):
+    """closed_set.yaml's train step (``DASMTrainer``'s ``DASMStep``): the
+    (C+1)-way CE at w_AT 1, temp_w 0.1, both seeded banks (one modality drawn
+    per query each step), the config's param groups, clip 20;
+    ``augment=False`` turns shift, mixup and filt_aug off, ``dropout=False``
+    the AT decoder's dropout."""
+    import torch
+
+    from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.recipes import common
+    from transformer4sed_tpu_torch.recipes.dasm_recipe import DASMStep, DASMTrainConfig
+
+    config = dasm_yaml()
+    model = build_dasm_model(device, state_dict)
+    if not dropout:
+        model.at_dropout = 0.0
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0)
+    tr = config["training"]
+    cfg = DASMTrainConfig(
+        out_type=config["DASM"]["at_param"]["out_type"], w_at=tr["w_AT"],
+        transform_choice=tuple(tr["transform"]["choice"]) if augment else (0, 0, 0, 0),
+        model_kwargs=config["DASM"]["train_kwargs"], **off)
+    pg, _, _ = common.optimizer_from_config(config, 1)
+    banks = [torch.from_numpy(b).to(device) for b in dasm_banks()]
+    return DASMStep(model, PasstFrontend(device=device), cfg, pg, query=banks)
+
+
+def dasm_train(results):
+    """closed_set.yaml's step at the shipped B=48 with its augmentation and
+    the AT decoder's dropout: finite losses and per step rows 7, 8, 12 and 13
+    at 12, 12, 3 and 3 (and the backwards' passes), nothing else; then three
+    windows of four steps (steps/s, clips/s, peak device memory)."""
+    import torch
+
+    t0 = time.perf_counter()
+    stepper = build_dasm_step("cuda", augment=True)
+    batch = synthetic_audioset_batch(DASM_TRAIN_BATCH, seed=24, frames=DASM_FRAMES)
+    log(f"built the DASM step in {time.perf_counter() - t0:.1f} s; param groups "
+        f"{sorted(set(stepper.labels.values()))}")
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(DASM_TRAIN_STEPS):
+        values = finite_metrics(stepper.step(batch, gen))
+        log(f"DASM train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * DASM_TRAIN_STEPS
+                 for k, n in with_bwd_passes(DASM_TRAIN_LAUNCHES).items()})
+    log(f"DASM train launches over {DASM_TRAIN_STEPS} steps: {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(launches == want, f"kernel launches {launches} on the DASM train path, expected {want}")
+    step_ms = time_training(stepper, batch, windows=3, per_window=4, what="DASM train",
+                            parts="frontend, shift, mixup, filt_aug, forward with the AT "
+                                  "decoder's dropout and a modality a query, strong BCE + CE, "
+                                  "backward, clip, AdamW")
+    return stepper, batch, step_ms
+
+
+def dasm_train_parity():
+    """closed_set.yaml's step at full width and depth, DASM_PARITY_STEPS
+    steps at B=2 without augmentation or dropout (the modality picks drawn
+    alike), CPU f32 against card bf16 (:func:`trainer_parity`)."""
+    import torch
+
+    cpu = build_dasm_step("cpu", augment=False, dropout=False)
+    card = build_dasm_step("cuda", augment=False, dropout=False,
+                           state_dict=cpu.model.state_dict())
+    batch = synthetic_audioset_batch(DASM_PARITY_BATCH, seed=25, frames=DASM_FRAMES)
+    trainer_parity("DASM", cpu, card, batch, DASM_PARITY_STEPS, "loss_total",
+                   lambda t: (t.model,))
+    check(all(p.grad is not None for p in cpu.model.parameters()), "DASM: a param got no gradient")
+
+
+# the mini AudioSet-strong tree of phase audioset_stages: clips of
+# synthetic_bursts, each burst a class of the vendored 447 in turn
+AS_TRAIN_CLIPS = 64   # one step of htsat_cnn.yaml's B=64 and of the DASM configs' B=48
+AS_VAL_CLIPS = 16
+AS_SEED = 31
+
+
+def write_audioset_split(root, labels, novel):
+    """Train and val clips under ``root`` (16-bit WAV at 32 kHz) with their
+    strong-label TSVs on the 447 classes, the val durations, and the open-set
+    table: the val clips with every third event relabelled by a novel class
+    (``openset.tsv``). Returns {split: number of events}."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from transformer4sed_tpu_torch.data.tsv import write_tsv
+
+    events = ["filename", "onset", "offset", "event_label"]
+    counts = {}
+    k = 0
+    for split, n, seed in (("train", AS_TRAIN_CLIPS, AS_SEED), ("val", AS_VAL_CLIPS, AS_SEED + 1)):
+        (root / split).mkdir(parents=True)
+        clips, bursts = synthetic_bursts(n, seed)
+        rows, open_rows, durs = [], [], []
+        for i, (wav, clip_bursts) in enumerate(zip(clips, bursts)):
+            fname = f"{split}{i:03d}.wav"
+            wavfile.write(root / split / fname, SR,
+                          (np.clip(wav / 4.0, -1.0, 1.0) * 32767).astype(np.int16))
+            dur = len(wav) / SR
+            durs.append((fname, dur))
+            for j, (on, off) in enumerate(clip_bursts):
+                if on >= dur:
+                    continue
+                label = labels[(7 * k) % len(labels)]
+                k += 1
+                rows.append((fname, float(on), float(min(off, dur)), label))
+                open_rows.append(rows[-1] if j % 3 else (fname, float(on), float(min(off, dur)),
+                                                         novel[i % len(novel)]))
+        write_tsv(str(root / f"{split}.tsv"), events, rows)
+        write_tsv(str(root / f"{split}_dur.tsv"), ["filename", "duration"], durs)
+        if split == "val":
+            write_tsv(str(root / "openset.tsv"), events, open_rows)
+        counts[split] = len(rows)
+    return counts
+
+
+def audioset_stage_config(root, family, name, tag, overrides):
+    """The shipped ``config/<family>/<name>.yaml`` with ``overrides``
+    ({"section.key": value}, each logged), written as ``root/<tag>.yaml``."""
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+    from transformer4sed_tpu_torch.utils.yamlio import safe_dump
+
+    cfg = load_yaml_with_include(str(ROOT / "config" / family / f"{name}.yaml"))
+    for key, value in overrides.items():
+        *parents, leaf = key.split(".")
+        node = cfg
+        for part in parents:
+            node = node.setdefault(part, {})
+        log(f"audioset_stages: {family}/{name}.yaml -> {tag}.yaml: {key} = {value!r} (shipped "
+            f"{node.get(leaf)!r})")
+        node[leaf] = value
+    out = root / f"{tag}.yaml"
+    out.write_text(safe_dump(cfg))
+    return str(out)
+
+
+def audioset_stages(device="cuda"):
+    """The AudioSet-strong stages as a user runs them, through
+    ``recipes.cli.main`` on the card at full width from a mini 447-class tree
+    (the vendored label dict, type map and novel labels; AS_TRAIN_CLIPS train
+    and AS_VAL_CLIPS val clips of ``synthetic_bursts``): ``audioset_supervised``
+    on ``config/audioset_strong/htsat_cnn.yaml``, ``dasm_train`` on
+    ``config/dasm/closed_set.yaml`` with the seeded banks, ``dasm_ov`` on
+    ``open_vocab.yaml`` from its best student, then ``openset_eval`` with the
+    34 novel labels (seeded text queries); only the dataset paths and the
+    epochs changed, plus ``query_type: text`` in the DASM forward kwargs of
+    open_vocab.yaml (the reference's one bank with two projectors); checks:
+    (a) every stage returns 0 and writes its files, finite logged numbers;
+    (b) rows 1, 2, 7, 8, 12, 13 (HTSAT_CNN: 14, 15, 12, 13) launched by each
+    stage, each train step at least once each; (c) dasm_ov's warm start
+    loaded every key of the closed-set student but the AT head; (d)
+    ``recipes.serve --query <text bank>`` on the closed-set student equals,
+    bitwise, the engine with that bank, and ``recipes.infer --query`` equals
+    the engine at B=1."""
+    import io
+    import tempfile
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.data.datasets import UnlabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+    from transformer4sed_tpu_torch.recipes import audioset_strong, cli, infer
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    card = card_line()
+    dev = torch.device(device)
+    on = [] if dev.type == "cuda" else ["--device", device]  # the entry points' default: the card
+    labels = audioset_labels()
+    meta = ROOT / "meta" / "audioset_strong"
+    with open(meta / "hierarchical" / "openset_label.json") as f:
+        novel = json.load(f)
+    with without_tensorflow(), tempfile.TemporaryDirectory(prefix="t4s_audioset_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        counts = write_audioset_split(root, labels, novel)
+        text, audio = dasm_banks()
+        np.save(root / "text.npy", text)
+        np.save(root / "audio.npy", audio)
+        np.save(root / "novel_text.npy", dasm_banks(len(novel), seed=DASM_SEED + 1)[0])
+        log(f"audioset_stages: mini tree written in {time.perf_counter() - t0:.1f} s: "
+            f"{AS_TRAIN_CLIPS} train clips ({counts['train']} events), {AS_VAL_CLIPS} val "
+            f"({counts['val']}), {len(novel)} novel labels")
+        paths = {"dataset.train_folder": f"{root}/train", "dataset.train_tsv": f"{root}/train.tsv",
+                 "dataset.val_folder": f"{root}/val", "dataset.val_tsv": f"{root}/val.tsv",
+                 "dataset.val_dur": f"{root}/val_dur.tsv", "training.scheduler.n_epochs": 1}
+        sup_cfg = audioset_stage_config(root, "audioset_strong", "htsat_cnn", "supervised", {
+            **paths, "dataset.weight_tsv": None})
+        banks = {"dataset.text_query": f"{root}/text.npy",
+                 "dataset.audio_query": f"{root}/audio.npy"}
+        closed_cfg = audioset_stage_config(root, "dasm", "closed_set", "closed",
+                                           {**paths, **banks})
+        text_kw = {"temp_w": 0.1, "query_type": "text"}
+        ov_cfg = audioset_stage_config(root, "dasm", "open_vocab", "open_vocab", {
+            **paths, **banks, "DASM.train_kwargs": text_kw, "DASM.val_kwargs": text_kw,
+            "DASM.test_kwargs": text_kw,
+            "dataset.openset_label": str(meta / "hierarchical" / "openset_label.json"),
+            "dataset.openset_embedding": f"{root}/novel_text.npy",
+            "dataset.query_bank": f"{root}/text.npy", "dataset.openset_tsv": f"{root}/openset.tsv",
+            "dataset.openset_dur": f"{root}/val_dur.tsv", "dataset.openset_folder": f"{root}/val"})
+        closed_best = root / "closed" / "best" / "best_student"
+        runs = [("audioset_supervised", sup_cfg, root / "supervised", []),
+                ("dasm_train", closed_cfg, root / "closed", []),
+                ("dasm_ov", ov_cfg, root / "open_vocab", ["--pretrained_ckpt", str(closed_best)]),
+                ("openset_eval", ov_cfg, root / "openset",
+                 ["--pretrained_ckpt", str(root / "open_vocab" / "best" / "best_student")])]
+        steps = collections.Counter()
+        step = audioset_strong.SupervisedStep.step
+
+        def counted_step(self, *a, **k):
+            steps[type(self).__name__] += 1
+            return step(self, *a, **k)
+
+        for stage, cfg, folder, extra in runs:
+            t0 = time.perf_counter()
+            reset_launches()
+            before = dict(steps)
+            with unittest.mock.patch.object(audioset_strong.SupervisedStep, "step", counted_step):
+                rc = cli.main([stage, "--config_dir", cfg, "--save_folder", str(folder),
+                               "--random_seed", str(STAGE_SEED), *extra, *on])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            n_steps = sum(steps.values()) - sum(before.values())
+            text_log = read_log(folder)
+            check(rc == 0, f"(a) {stage} returned {rc}")
+            nums = finite_log_numbers(text_log, r"INFO (epoch \d+: train|openset psds)")
+            check(nums and all(np.isfinite(nums)), f"(a) {stage}: a logged number is not finite")
+            want_files = (["single_psds.json"] if stage == "openset_eval" else
+                          ["best/best_student", "best/best_metric.json", "best/last_state"])
+            check(all((folder / f).exists() for f in want_files), f"(a) {stage}: files {want_files}")
+            rows = (("window_attention", "window_attention_backward") if stage ==
+                    "audioset_supervised" else ("flash_attention_nhd_lse",
+                                                "flash_attention_nhd_backward"))
+            rows += ("flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward")
+            served = ("window_attention",) if stage == "audioset_supervised" else (
+                "flash_attention_nhd",)
+            fired = {k: v for k, v in launches.items() if v}
+            ok = all(launches[r] >= n_steps > 0 for r in rows) if stage != "openset_eval" else (
+                not any(launches[r] for r in rows[:2]))
+            check(ok and launches[served[0]] > 0 and launches["flash_xl_attention_nhd"] > 0,
+                  f"(b) {stage}: {n_steps} train steps, launches {fired}")
+            line = re.findall(r"INFO (epoch 1: .*|openset psds=.*)", text_log)[-1]
+            log(f"audioset_stages {stage}: rc 0 in {seconds:.1f} s, {n_steps} train steps, "
+                f"launches {fired}; {line[:400]}")
+        ov_log = read_log(root / "open_vocab")
+        warm = re.search(r"warm start: (\d+) of (\d+) keys loaded, dropped \[.*\]", ov_log)
+        closed_sd = torch.load(closed_best, map_location="cpu", weights_only=True)
+        at_head = [k for k in closed_sd if k.startswith("at_head.layers.1.")]
+        check(warm is not None and int(warm.group(1)) == len(closed_sd) - len(at_head)
+              and int(warm.group(2)) == len(closed_sd),
+              f"(c) dasm_ov's warm start: {warm and warm.group(0)}")
+        log(f"audioset_stages (c): dasm_ov {warm.group(0)} (the 448-way head's last layer, "
+            f"{len(at_head)} tensors, has the sigmoid head's shape there)")
+
+        # (d) serving with queries on the closed-set student
+        config = load_yaml_with_include(closed_cfg)
+        query = torch.from_numpy(text).to(dev)
+        engine = cli.serving_engine(config, str(closed_best), dev, DASM_BATCH,
+                                    model_kwargs={"query": query, "query_type": "text"})
+        ref, _ = engine_pass(engine, root / "val", DASM_BATCH)
+        n_batches = -(-AS_VAL_CLIPS // DASM_BATCH)
+        line, _ = run_serve_main(
+            ["--config_dir", closed_cfg, "--ckpt", str(closed_best), "--wav_dir",
+             str(root / "val"), "--batch_size", str(DASM_BATCH), "--query", str(root / "text.npy"),
+             "--query_type", "text", *on], root / "served",
+            {k: n * n_batches for k, n in DASM_SERVE_LAUNCHES.items()})
+        check(served_as(root / "served", ref), "(d) serve --query differs from the engine")
+        one = cli.serving_engine(config, str(closed_best), dev, 1,
+                                 model_kwargs={"query": query, "query_type": "text"})
+        first = next(iter(DataLoader(UnlabeledDataset(str(root / "val"), True, one.codec),
+                                     batch_size=1, drop_last=False, num_workers=1)))
+        name0 = first["filename"][0]
+        _, s1, w1 = next(one.score_batches([first]))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = infer.main(["--config_dir", closed_cfg, "--ckpt", str(closed_best), "--wav",
+                             str(root / "val" / name0), "--query", str(root / "text.npy"),
+                             "--query_type", "text", *on])
+        got = json.loads(buf.getvalue())
+        ok = (rc == 0 and [tuple(e) for e in got["events"]] == [tuple(e) for e in one.decode(s1[0])]
+              and np.array_equal(np.asarray(got["weak"], np.float32), w1[0]))
+        log(f"audioset_stages (d): {line}; its TSVs and events equal the engine's with the same "
+            f"bank, bitwise; infer --query on {name0}: {len(got['events'])} events and the weak "
+            f"scores against the engine at B=1: {'equal' if ok else 'OUTSIDE'} ({card})")
+        check(ok, "(d) infer --query differs from the engine")
+
+
+def at_decoder_ms(model, run, backward=False):
+    """ms of the AT decoder alone (plain PyTorch: projections, matmuls,
+    softmax) on the inputs it took in ``run()``, forward or forward and
+    backward, by CUDA events."""
+    import torch
+
+    seen = []
+    handle = model.at_decoder.register_forward_hook(
+        lambda mod, args, out: seen.append([a.detach() if torch.is_tensor(a) else a
+                                            for a in args]))
+    try:
+        run()
+    finally:
+        handle.remove()
+    feat, queries, mask, masks = (seen[0] + [None, None])[:4]
+
+    def once():
+        if not backward:
+            with torch.no_grad():
+                return model.at_decoder(feat, queries, mask, masks)
+        f, q = feat.clone().requires_grad_(), queries.clone().requires_grad_()
+        model.at_decoder(f, q, mask, masks).float().square().mean().backward()
+
+    return cuda_ms(once, iters=10, warmup=2)
 
 
 # -- phase 7: timing ------------------------------------------------------------
@@ -5432,6 +6112,48 @@ def main(argv=None) -> int:
         finetune2_train_parity()
         torch.cuda.empty_cache()
         log(f"finetune2 train parity phase {time.perf_counter() - t0:.1f} s")
+    d_engine = d_batches = None
+    if phases & {"dasm_serve", "dasm_parity", "timing", "profile"}:
+        t0 = time.perf_counter()
+        d_engine, d_batches = dasm_serve(results)
+        d_batch_ms = time_serving(d_engine, d_batches, per_window=40, what="DASM served")
+        at_ms = at_decoder_ms(d_engine.model, lambda: d_engine.forward(*d_engine._put(
+            d_batches[0])[1:]))
+        log(f"DASM served: the AT decoder's forward (2 layers, 447 queries over 1188 tokens, "
+            f"plain PyTorch) {at_ms:.3f} ms of {d_batch_ms:.3f} ms a batch of {DASM_BATCH} "
+            f"({at_ms / d_batch_ms:.1%}; {card})")
+        if "profile" in phases:
+            profile_serving(d_engine, d_batches, d_batch_ms, what="DASM served")
+        log(f"DASM serve phase {time.perf_counter() - t0:.1f} s")
+    if "dasm_parity" in phases:
+        t0 = time.perf_counter()
+        dasm_parity(d_engine, d_batches)
+        log(f"DASM parity phase {time.perf_counter() - t0:.1f} s")
+    del d_engine
+    torch.cuda.empty_cache()
+    if phases & {"dasm_train", "timing", "profile"}:
+        t0 = time.perf_counter()
+        d_step, d_batch, d_step_ms = dasm_train(results)
+        gen = torch.Generator().manual_seed(6)
+        at_ms = at_decoder_ms(d_step.model, lambda: d_step.step(d_batch, gen), backward=True)
+        log(f"DASM train: the AT decoder's forward and backward {at_ms:.3f} ms of "
+            f"{d_step_ms:.1f} ms a step at B={DASM_TRAIN_BATCH} ({at_ms / d_step_ms:.1%}; {card})")
+        if "profile" in phases:
+            profile_training(d_step, d_batch, d_step_ms, what="DASM train")
+        del d_step
+        torch.cuda.empty_cache()
+        log(f"DASM train phase {time.perf_counter() - t0:.1f} s")
+    if "dasm_train_parity" in phases:
+        t0 = time.perf_counter()
+        dasm_train_parity()
+        torch.cuda.empty_cache()
+        log(f"DASM train parity phase {time.perf_counter() - t0:.1f} s")
+    if "audioset_stages" in phases:
+        t0 = time.perf_counter()
+        audioset_stages()
+        torch.cuda.empty_cache()
+        log(f"audioset_stages phase {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all ({card})")
     if phases != set(PHASES):
         return 0
 

@@ -11,8 +11,8 @@ the CPU.
     with explicit [T, T], [H, T, T] and [B, H, T, T] masks (JAX's masked
     branch under ``use_flash``), forward and ``jax.vjp``.
   * ``load_jax_params`` on a finetune2 PaSST_SED.
-  * Options the JAX package takes and the port has not ported raise
-    ``NotImplementedError`` naming their ROADMAP queue item.
+  * The AudioSet losses that raised here until the AudioSet slice ported
+    them (``ReweightedASL``, ``AsymmetricalFocalLoss``) against JAX's.
 
 The JAX models are never initialised: the port model is seeded and its state
 dict goes through the JAX package's ``convert_torch_checkpoint``. Inputs come
@@ -279,14 +279,30 @@ def test_xl_block_with_an_explicit_mask_matches_jax_masked_branch(tiny, kind):
                                    err_msg=name)
 
 
+_AUDIOSET_LOSS_KWARGS = {"ReweightedASL": dict(rp=1, rn=3, margin=0.05,
+                                                weight=[0.5, 2.0, 1.0, 3.0]),
+                         "AsymmetricalFocalLoss": dict(gamma=2.0, zeta=1.0)}
+
+
 @pytest.mark.parametrize("name", ["ReweightedASL", "AsymmetricalFocalLoss"])
 def test_unported_options_raise_naming_their_queue_item(name):
-    """The two losses of the JAX registry that the port lacks raise
-    ``NotImplementedError`` citing ROADMAP.md queue 1, item 9, where the JAX
-    package takes them; nothing is built first."""
-    assert callable(jax_losses.loss_function_factory(name, {}))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        losses.loss_function_factory(name, {})
+    """The two losses of the JAX registry that raised here, citing ROADMAP.md
+    queue 1, item 9, until the AudioSet slice ported them: the factory now
+    builds each, equal to JAX's with finite gradients at saturated
+    probabilities; an unknown name still raises."""
+    kwargs = _AUDIOSET_LOSS_KWARGS[name]
+    pred = np.array([[1e-7, 1.0, 0.03, 0.3], [0.999, 0.05, 0.5, 1.0 - 1e-7]], np.float32)
+    target = np.array([[0.0, 1.0, 0.5, 1.0], [1.0, 0.0, 0.2, 0.7]], np.float32)
+    want, jgrad = _jit0(jax.value_and_grad(jax_losses.loss_function_factory(name, kwargs)))(
+        jnp.asarray(pred), jnp.asarray(target))
+    p = torch.from_numpy(pred).requires_grad_()
+    got = losses.loss_function_factory(name, kwargs)(p, torch.from_numpy(target))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrad), rtol=1e-5, atol=1e-6)
+    assert torch.isfinite(p.grad).all()
+    with pytest.raises(KeyError, match="unknown loss"):
+        losses.loss_function_factory("FocalLoss")
 
 
 def test_window_backbone_call_stops_at_the_tap_layer():

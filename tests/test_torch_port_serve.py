@@ -274,12 +274,12 @@ def test_exported_artifact_serves_what_the_config_and_checkpoint_serve(files, tm
 # -- errors ----------------------------------------------------------------------------
 
 
-def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(files, tmp_path):
+def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(files, tmp_path, capsys):
     """Without ``--device cpu`` on a host without a card each entry point
     raises before it writes anything; ``--lora_ckpt`` loads (the tiny model
     has no LoRA layer, so either policy serves the ``.pt``'s weights as they
-    are); unported options name their queue item; an orbax directory is
-    refused by name."""
+    are); ``--query`` on a network without queries is refused; an orbax
+    directory is refused by name."""
     cfg = files["tiny"]
     common = ["--config_dir", cfg["yaml"], "--ckpt", cfg["pt"]]
     if not torch.cuda.is_available():
@@ -296,8 +296,10 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(files, tmp_path):
     for policy in ("merged", "unmerged"):
         served = _serve(files, tmp_path / policy, *common, "--lora_ckpt", policy)
         assert served[1] == plain[1] and served[2] == plain[2]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
         serve.main(common + out + ["--query", "q.npy"])
+    assert "--query serves an open-vocabulary DASM" in capsys.readouterr().err
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="orbax"):
         serve.main(["--config_dir", cfg["yaml"], "--ckpt", str(tmp_path / "orbax")] + out)

@@ -10,7 +10,6 @@ model is seeded and its state dict goes through the JAX package's
 """
 
 import concurrent.futures
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +35,7 @@ from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 from transformer4sed_tpu_torch.train import mean_teacher as mt
 from transformer4sed_tpu_torch.train import optim
 from transformer4sed_tpu_torch.utils.weights import init_weights_, jax_params_to_state_dict
-from tests.torch_port_jax import OPT0, jit0
+from tests.torch_port_jax import OPT0, filt_draws_program, jit0
 
 # the tiny config of tests/test_torch_port_slice.py, with the backbone's
 # nominal time grid equal to the 120-frame input's, so that train=True
@@ -223,23 +222,7 @@ def _jax_filt_draw(key, b, n_freq, lo=3, hi=6, min_bw=6, filter_type="step",
 
 
 def _filt_draws(key, b, n_freq, lo, hi, min_bw, linear):
-    return _filt_draws_program(b, n_freq, lo, hi, min_bw, linear)(key)
-
-
-@functools.lru_cache(maxsize=None)
-def _filt_draws_program(b, n_freq, lo, hi, min_bw, linear):
-    """The filt_aug draws of a key for these static sizes, one program."""
-
-    def draws(key):
-        kn, kb, kf = jax.random.split(key, 3)
-        raws = []
-        for nb in range(lo, hi):
-            mbw = augment._eff_min_bw(n_freq, nb, min_bw)
-            raws.append(jax.random.randint(kb, (nb - 1,), 0, n_freq - nb * mbw + 1))
-        return (jax.random.randint(kn, (), lo, hi), raws,
-                jax.random.uniform(kf, (b, hi - 1 + linear)))
-
-    return jit0(draws)
+    return filt_draws_program(b, n_freq, lo, hi, min_bw, linear)(key)
 
 
 @pytest.mark.parametrize("filter_type", ["step", "linear"])

@@ -34,3 +34,25 @@ def interpret0(fn, *arrays, **static):
     the default)."""
     call = jax.jit(functools.partial(fn, interpret=True, **static))
     return call.lower(*arrays).compile(OPT0)(*arrays)
+
+
+@functools.lru_cache(maxsize=None)
+def filt_draws_program(b, n_freq, lo, hi, min_bw, linear):
+    """The draws of jax ``filt_aug`` from a key for these static sizes, as one
+    program: the band count, the boundary draw for every possible count (made,
+    as JAX makes it, from the same key) and the gains."""
+
+    def eff_min_bw(nb):  # the reference's shrink until the bands fit
+        mbw = min_bw
+        while n_freq - nb * mbw + 1 < 0:
+            mbw -= 1
+        return mbw
+
+    def draws(key):
+        kn, kb, kf = jax.random.split(key, 3)
+        raws = [jax.random.randint(kb, (nb - 1,), 0, n_freq - nb * eff_min_bw(nb) + 1)
+                for nb in range(lo, hi)]
+        return (jax.random.randint(kn, (), lo, hi), raws,
+                jax.random.uniform(kf, (b, hi - 1 + linear)))
+
+    return jit0(draws)

@@ -1,6 +1,7 @@
 """Losses of the ported train steps (port of ``core/losses.py``: ``bce``,
-``bce_logits``, ``mse``, ``asl`` and the factory for the names the shipped
-configs of those steps use; the other losses come with their families).
+``bce_logits``, ``mse``, ``asl``, ``reweighted_asl``, ``asymmetric_focal``
+and the factory of the config names; ``info_nce`` and ``sup_con``, which no
+recipe calls, are ROADMAP.md queue 1 item 13).
 
 ``bce`` keeps the JAX package's ``_safe_log``: the exact log for
 x >= 1e-37, torch BCELoss's -100 clamp below, and finite gradients at
@@ -51,21 +52,30 @@ def asl(pred: torch.Tensor, target: torch.Tensor, rp: float, rn: float,
     return losses.mean()
 
 
-def _not_ported(name: str) -> Callable[..., Callable]:
-    def build(**kw):
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet: ROADMAP.md, queue 1, item 9 (HTSAT / AudioSet "
-            "family remainder)")
+def reweighted_asl(pred: torch.Tensor, target: torch.Tensor, rp: float, rn: float,
+                   margin: float, weight) -> torch.Tensor:
+    """ASL with per-class weights on the trailing (class) dimension."""
+    weight = torch.as_tensor(weight, dtype=pred.dtype, device=pred.device)
+    pred_m = torch.clamp_min(pred - margin, 0.0)
+    losses = -weight * (((1.0 - pred) ** rp) * target * safe_log(pred)
+                        + (pred_m ** rn) * (1.0 - target) * safe_log(1.0 - pred_m))
+    return losses.mean()
 
-    return build
+
+def asymmetric_focal(pred: torch.Tensor, target: torch.Tensor, gamma: float = 0.0,
+                     zeta: float = 0.0) -> torch.Tensor:
+    """Asymmetric focal loss (reference AsymmetricalFocalLoss)."""
+    losses = -(((1.0 - pred) ** gamma) * target * safe_log(pred)
+               + (pred ** zeta) * (1.0 - target) * safe_log(1.0 - pred))
+    return losses.mean()
 
 
 _REGISTRY: Dict[str, Callable[..., Callable]] = {
     "BCELoss": lambda **kw: bce,
     "MSELoss": lambda **kw: mse,
     "AslLoss": lambda **kw: functools.partial(asl, **kw),
-    "ReweightedASL": _not_ported("ReweightedASL"),
-    "AsymmetricalFocalLoss": _not_ported("AsymmetricalFocalLoss"),
+    "ReweightedASL": lambda **kw: functools.partial(reweighted_asl, **kw),
+    "AsymmetricalFocalLoss": lambda **kw: functools.partial(asymmetric_focal, **kw),
 }
 
 

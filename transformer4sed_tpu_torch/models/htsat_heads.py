@@ -10,7 +10,7 @@ pad-mask zeroing, clipping to [1e-7, 1], linear-softmax weak pooling.
 Params keep the upstream state-dict names (``backbone``, ``cnn.cnn``,
 ``cnn_projector``, ``transformer_projector``, ``merge_weight``,
 ``norm_after_merge``, ``sed_decoder``, ``sed_head``). ``CLAP_SED`` and
-``DASM_HTSAT`` come with their recipes (ROADMAP.md, queue 1, items 9 and 10).
+``DASM_HTSAT`` come with their recipes (ROADMAP.md, queue 1, item 9).
 """
 
 from __future__ import annotations

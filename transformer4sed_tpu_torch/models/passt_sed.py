@@ -2,13 +2,14 @@
 
 PaSST encoder tapped at ``passt_feature_layer`` -> drop cls/dist tokens
 -> ``out_norm`` -> frequency pooling over the [B, f, t, C] patch grid (the
-mean, or ``f_pool='attention'``: each time column's f tokens through a
-6-head :class:`AttentionPooling`) -> pad the time grid by its last frame
-(99 -> 100) -> x``decode_ratio`` interpolation (``interpolate_mode`` linear
-or nearest) -> with ``encoder_win`` (finetune2), the sliding-window fusion
-``mix_rate * local + (1 - mix_rate) * global``, the local embedding from
-windows of ``win_param = (width, step)`` mel frames (``models/slide.py``: one
-backbone call per width group, each window through backbone, f-pool and
+mean, or ``f_pool='attention'``: each time column's f tokens through an
+:class:`AttentionPooling` of ``f_pool_heads`` heads, 6 in every shipped
+config) -> pad the time grid by its last frame (99 -> 100) ->
+x``decode_ratio`` interpolation (``interpolate_mode`` linear or nearest) ->
+with ``encoder_win`` (finetune2), the sliding-window fusion ``mix_rate *
+local + (1 - mix_rate) * global``, the local embedding from windows of
+``win_param = (width, step)`` mel frames (``models/slide.py``: one backbone
+call per width group, each window through backbone, f-pool and
 interpolation without the pad) -> Transformer-XL decoder (local attention
 with ``decoder_win_len``) -> classifier -> ``sigmoid(logits / temp_w)``,
 pad-mask zeroing, linear-softmax weak pooling; the AT adapter
@@ -65,6 +66,7 @@ class PaSST_SED(nn.Module):
         embed_dim: int = 768,
         decoder_dim: int = 768,
         f_pool: str = "mean_pool",
+        f_pool_heads: int = 6,
         decoder: str = "transformerXL",
         decoder_layer_num: int = 3,
         decoder_pos_emd_len: int = 1000,
@@ -105,7 +107,7 @@ class PaSST_SED(nn.Module):
             lora_rank=lora_rank, lora_alpha=lora_alpha,
         )
         self.out_norm = LayerNorm(embed_dim, eps=1e-5)
-        self.f_pool_module = (AttentionPooling(embed_dim, 6, dtype=dtype)
+        self.f_pool_module = (AttentionPooling(embed_dim, f_pool_heads, dtype=dtype)
                               if f_pool == "attention" else None)
         self.decoder = TransformerXLDecoder(
             decoder_dim, decoder_layer_num=decoder_layer_num, num_heads=decoder_num_heads,

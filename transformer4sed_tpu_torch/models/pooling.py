@@ -2,9 +2,10 @@
 
 A learned query token cross-attends a token sequence through standard
 multi-head attention with the semantics of flax
-``MultiHeadDotProductAttention``: q/k/v projections in ``dtype``, the
-query scaled by 1/sqrt(head_dim) before the score product, softmax,
-output projection. The params keep torch ``nn.MultiheadAttention``'s
+``MultiHeadDotProductAttention`` (:func:`dot_product_attention`, which
+DASM's AT decoder shares): q/k/v projections in ``dtype``, the query
+scaled by 1/sqrt(head_dim) before the score product, softmax, output
+projection. The params keep torch ``nn.MultiheadAttention``'s
 names (``in_proj_weight``, ``in_proj_bias``, ``out_proj``), which is how
 upstream checkpoints store them. It is plain matmuls and a softmax.
 """
@@ -12,10 +13,35 @@ upstream checkpoints store them. It is plain matmuls and a softmax.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def dot_product_attention(att: nn.MultiheadAttention, query: torch.Tensor,
+                          key_value: torch.Tensor, num_heads: int, dtype,
+                          blocked: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax ``MultiHeadDotProductAttention`` on ``att``'s params: query [N, L,
+    D] attends key_value [N, S, D]; ``blocked`` (bool [L, S], True = blocked)
+    takes the dtype's lowest value before the softmax, as flax's mask does.
+    Plain matmuls and a softmax in ``dtype``."""
+    n, l, d = query.shape
+    s = key_value.shape[1]
+    h, hd = num_heads, d // num_heads
+    wq, wk, wv = att.in_proj_weight.to(dtype).chunk(3)
+    bq, bk, bv = att.in_proj_bias.to(dtype).chunk(3)
+    q = F.linear(query.to(dtype), wq, bq).reshape(n, l, h, hd).transpose(1, 2)
+    k = F.linear(key_value.to(dtype), wk, bk).reshape(n, s, h, hd).transpose(1, 2)
+    v = F.linear(key_value.to(dtype), wv, bv).reshape(n, s, h, hd).transpose(1, 2)
+    q = q / torch.tensor(math.sqrt(hd), dtype=dtype)
+    scores = torch.matmul(q, k.transpose(-1, -2))  # [N, H, L, S]
+    if blocked is not None:
+        scores = scores.masked_fill(blocked, torch.finfo(scores.dtype).min)
+    attn = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(n, l, d)
+    return F.linear(out, att.out_proj.weight.to(dtype), att.out_proj.bias.to(dtype))
 
 
 class AttentionPooling(nn.Module):
@@ -28,19 +54,6 @@ class AttentionPooling(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, S, D] -> [N, D]."""
-        n, s, d = x.shape
-        h, hd = self.num_heads, d // self.num_heads
-        dt = self.dtype
-        att = self.frequency_att
-        wq, wk, wv = att.in_proj_weight.to(dt).chunk(3)
-        bq, bk, bv = att.in_proj_bias.to(dt).chunk(3)
-        query = self.f_att_token.expand(n, 1, d)
-        q = F.linear(query.to(dt), wq, bq).reshape(n, 1, h, hd)
-        k = F.linear(x.to(dt), wk, bk).reshape(n, s, h, hd)
-        v = F.linear(x.to(dt), wv, bv).reshape(n, s, h, hd)
-        q = q / torch.tensor(math.sqrt(hd), dtype=dt)
-        scores = torch.einsum("nqhd,nkhd->nhqk", q, k)
-        attn = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("nhqk,nkhd->nqhd", attn, v).reshape(n, 1, d)
-        out = F.linear(out, att.out_proj.weight.to(dt), att.out_proj.bias.to(dt))
-        return out[:, 0, :]
+        query = self.f_att_token.expand(x.shape[0], 1, x.shape[2])
+        return dot_product_attention(self.frequency_att, query, x, self.num_heads,
+                                     self.dtype)[:, 0, :]

@@ -11,6 +11,15 @@
   pmam_train       PMAM's post-pretraining: prototype BCE on the masked
                    frames against the pseudo-labels, LoRA inside a frozen
                    backbone (--gmm_means_path, --pseudo_label_dir)
+  audioset_supervised
+                   supervised AudioSet-strong training (HTSAT_CNN, PaSST_CNN)
+  dasm_train       closed-set DASM (strong BCE + the AT branch's loss; the
+                   dataset.text_query / audio_query banks of a projector model)
+  dasm_ov          open-vocabulary DASM (common classes only, common-first
+                   validation; needs dataset.state_json or type_map)
+  openset_eval     zero-shot evaluation of the extended vocabulary
+                   (dataset.openset_label, openset_embedding, openset_tsv,
+                   openset_dur, openset_folder; dataset.query_bank)
 
 Stages hand off through ``--pretrained_ckpt`` (a checkpoint of the port's,
 or an upstream ``.pt`` state dict) with the config's ``warm_start_drop``;
@@ -19,8 +28,12 @@ card, where the model computes in bf16 with f32 params, optimizer state and
 EMA (``docs/PRECISION.md``); ``--device cpu`` runs it on the CPU in f32
 throughout; the GMM runs in full f32 on either (``pmam/gmm.py``). The
 tokenizer's draws (mask and frame offsets) come from a generator seeded by
-``--random_seed``, where the JAX stages fold fixed keys. The JAX package's
-other stages are not ported yet and raise, naming their ROADMAP.md item.
+``--random_seed``, where the JAX stages fold fixed keys. The AudioSet stages
+keep ``best/best_student``, ``best_metric.json`` and ``last_state`` each epoch
+(``--resume_ckpt auto``); ``openset_eval`` writes ``single_psds.json``. The
+JAX package's other stages (``clap_train``) and models (``CLAP_SED``,
+``DASM_HTSAT``, ``PasstComplexCNN``) are not ported yet and raise, naming
+their ROADMAP.md item; so do the AudioSet stages under several ranks.
 
 :func:`build_model` is the one model builder; :func:`serving_model` (a
 config and a checkpoint -> the model in eval mode, frontend, codec, median
@@ -43,12 +56,10 @@ from transformer4sed_tpu_torch.utils.device import resolve_device
 
 MATSED_STAGES = ("matsed_pretrain", "matsed_finetune", "matsed_test")
 PMAM_STAGES = ("pmam_extract", "pmam_gmm", "pmam_pseudo_labels", "pmam_train")
+AUDIOSET_STAGES = ("audioset_supervised", "dasm_train", "dasm_ov", "openset_eval")
 # the JAX package's other stages and models, by their ROADMAP.md queue 1 item
-_LATER_STAGES = {
-    "audioset_supervised": 9, "clap_train": 9,
-    "dasm_train": 10, "dasm_ov": 10, "openset_eval": 10,
-}
-_LATER_MODELS = {"PasstComplexCNN": 9, "CLAP_SED": 9, "DASM_HTSAT": 9, "DASM": 10}
+_LATER_STAGES = {"clap_train": 9}
+_LATER_MODELS = {"PasstComplexCNN": 9, "CLAP_SED": 9, "DASM_HTSAT": 9}
 
 
 # upstream's spellings of the CNN branch's geometry (config/pmam/*.yaml)
@@ -57,13 +68,8 @@ _CNN_NAMES = {"kernel": "kernel_size", "pad": "padding"}
 
 def _upstream_names(kwargs: Dict) -> Dict:
     """Constructor kwargs with upstream's names in the PMAM configs mapped to
-    the port's: ``cnn_param``'s ``kernel`` / ``pad``, and ``f_pool_heads``
-    dropped where it is the 6 heads of the attention f-pool
-    (``models/passt_sed.py``; upstream reads it only to split its weights)."""
+    the port's: ``cnn_param``'s ``kernel`` / ``pad``."""
     kwargs = dict(kwargs)
-    heads = kwargs.pop("f_pool_heads", 6)
-    if heads != 6:
-        raise ValueError(f"f_pool_heads={heads}: the attention f-pool has 6 heads")
     if isinstance(kwargs.get("cnn_param"), dict):
         kwargs["cnn_param"] = {_CNN_NAMES.get(k, k): v for k, v in kwargs["cnn_param"].items()}
     return kwargs
@@ -75,6 +81,7 @@ def build_model(config, device: torch.device):
     on the CPU; built on the host with the constructor's weights until
     :func:`load_pretrained` fills and moves them."""
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
+    from transformer4sed_tpu_torch.models.dasm import DASM
     from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
     from transformer4sed_tpu_torch.models.htsat_heads import HTSAT_CNN
     from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
@@ -84,7 +91,8 @@ def build_model(config, device: torch.device):
     if name in _LATER_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_MODELS[name]}")
-    model_cls = {"PaSST_SED": PaSST_SED, "PaSST_CNN": PaSST_CNN, "HTSAT_CNN": HTSAT_CNN}[name]
+    model_cls = {"PaSST_SED": PaSST_SED, "PaSST_CNN": PaSST_CNN, "HTSAT_CNN": HTSAT_CNN,
+                 "DASM": DASM}[name]
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = model_cls(**_upstream_names(common.model_init_kwargs(config, name)), dtype=dtype,
                       device="cpu")
@@ -169,16 +177,16 @@ class Serving(NamedTuple):
     model_kwargs: Dict
 
 
-def serving_model(config, ckpt: str, device: torch.device,
-                  lora_ckpt: Optional[str] = None) -> Serving:
+def serving_model(config, ckpt: str, device: torch.device, lora_ckpt: Optional[str] = None,
+                  labels: Optional[List[str]] = None) -> Serving:
     """The config's model (:func:`build_model`) with every weight of ``ckpt``
     (:func:`read_weights`, ``lora_ckpt`` its merged-ness policy for an
     upstream LoRA ``.pt``), on ``device`` in eval mode; its frontend; the
-    codec (the classes of ``dataset.labels`` or of ``dataset.label_dict``,
-    as the AudioSet-strong configs give them); the median widths; the
-    forward's ``test_kwargs``."""
+    codec (the classes of ``labels``, else of ``dataset.labels`` or of
+    ``dataset.label_dict``, as the AudioSet-strong configs give them); the
+    median widths; the forward's ``test_kwargs``."""
     name = config.get("model_name", "PaSST_SED")
-    codec = common.codec_from_config(config, labels=common.label_dict_labels(config))
+    codec = common.codec_from_config(config, labels=labels or common.label_dict_labels(config))
     model, frontend = build_model(config, device)
     model.load_state_dict(read_weights(ckpt, model, config, lora_ckpt))
     return Serving(model.to(device).eval(), frontend, codec,
@@ -187,13 +195,18 @@ def serving_model(config, ckpt: str, device: torch.device,
 
 
 def serving_engine(config, ckpt: str, device: torch.device, batch_size: int,
-                   threshold: float = 0.5, lora_ckpt: Optional[str] = None):
-    """``recipes.serve.InferenceEngine`` over :func:`serving_model`."""
+                   threshold: float = 0.5, lora_ckpt: Optional[str] = None,
+                   labels: Optional[List[str]] = None, model_kwargs: Optional[Dict] = None):
+    """``recipes.serve.InferenceEngine`` over :func:`serving_model`;
+    ``model_kwargs`` (an open-vocabulary DASM's ``query`` and ``query_type``)
+    join the config's ``test_kwargs``."""
     from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
 
-    s = serving_model(config, ckpt, device, lora_ckpt)
+    s = serving_model(config, ckpt, device, lora_ckpt, labels)
     return InferenceEngine(s.model, s.frontend, s.codec, s.median_filter, batch_size=batch_size,
-                           threshold=threshold, model_kwargs=s.model_kwargs, device=device)
+                           threshold=threshold, model_kwargs={**s.model_kwargs,
+                                                              **(model_kwargs or {})},
+                           device=device)
 
 
 def _precision_line(device: torch.device) -> str:
@@ -257,12 +270,13 @@ def setup(argv) -> Stage:
     if stage in _LATER_STAGES:
         raise NotImplementedError(
             f"stage {stage!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_STAGES[stage]}")
-    if stage not in MATSED_STAGES + PMAM_STAGES:
+    if stage not in MATSED_STAGES + PMAM_STAGES + AUDIOSET_STAGES:
         raise SystemExit(f"unknown stage {stage!r}")
     args = common.build_argparser().parse_args(rest)
     device = resolve_device(args.device)  # raises before anything is written without a card
     config, paths, logger = common.prepare_run(args)
-    codec = common.codec_from_config(config)
+    # AudioSet-strong: the classes of the label dict (setting.py:55-64)
+    codec = common.codec_from_config(config, labels=common.label_dict_labels(config))
     model, frontend = build_model(config, device)
     logger.info(_precision_line(device))
     model = load_pretrained(model, config, args, logger, device)
@@ -426,6 +440,124 @@ _PMAM_RUN = {"pmam_extract": pmam_extract, "pmam_gmm": pmam_gmm,
              "pmam_pseudo_labels": pmam_pseudo_labels, "pmam_train": pmam_train}
 
 
+def _one_rank(stage: str) -> None:
+    from transformer4sed_tpu_torch.parallel import multihost
+
+    if multihost.process_count() > 1:
+        raise NotImplementedError(f"{stage} under several ranks is not ported yet: ROADMAP.md, "
+                                  "queue 1, item 15")
+
+
+def audioset_trainer(st: Stage):
+    """The stage's trainer over the AudioSet-strong loaders:
+    ``SupervisedTrainer`` (audioset_supervised), ``DASMTrainer`` with the
+    ``dataset.text_query`` / ``audio_query`` banks of a projector model
+    (dasm_train), ``OVDASMTrainer`` with the common classes of the type map
+    and the ``dataset.query_bank`` (or ``text_query``) bank (dasm_ov)."""
+    import numpy as np
+
+    from transformer4sed_tpu_torch.recipes.audioset_strong import (
+        SupervisedTrainer,
+        audioset_dataset_setting,
+        load_type_map,
+    )
+    from transformer4sed_tpu_torch.recipes.dasm_recipe import DASMTrainer, OVDASMTrainer
+    from transformer4sed_tpu_torch.utils.config import resolve_meta_path
+
+    ds = st.config["dataset"]
+    train_loader, val_loader = audioset_dataset_setting(st.config, st.codec, st.args.random_seed)
+    state_json = resolve_meta_path(ds.get("state_json") or ds.get("type_map"))
+    type_map = load_type_map(state_json) if state_json else None
+    loaders = (st.model, st.frontend, st.config, st.codec, train_loader, val_loader, st.logger)
+    if st.name == "audioset_supervised":
+        return SupervisedTrainer(*loaders, type_map=type_map)
+    if st.name == "dasm_train":
+        banks = ([np.load(ds[k]) for k in ("text_query", "audio_query") if ds.get(k)]
+                 if st.model.query_projector is not None else [])
+        bank = banks if len(banks) > 1 else (banks[0] if banks else None)
+        return DASMTrainer(*loaders, type_map=type_map, query_bank=bank)
+    if type_map is None:
+        raise SystemExit(f"{st.name} needs dataset.state_json (common/rare map)")
+    common_mask = np.asarray([type_map.get(c) == "common" for c in st.codec.labels])
+    bank_path = ds.get("query_bank") or ds.get("text_query")
+    return OVDASMTrainer(*loaders, type_map=type_map, common_mask=common_mask,
+                         query_bank=np.load(bank_path) if bank_path else None)
+
+
+def audioset_train(st: Stage) -> int:
+    """audioset_supervised, dasm_train, dasm_ov: epochs of training and
+    validation (PSDS at alpha 0), the best student by ``psds``
+    (``best/best_student``, ``best_metric.json``) and ``last_state`` each
+    epoch; ``--resume_ckpt auto`` resumes from it."""
+    from transformer4sed_tpu_torch.utils.logging import BestModels
+
+    _one_rank(st.name)
+    trainer = audioset_trainer(st)
+    ds = st.config["dataset"]
+    gt = common.load_ground_truth(ds["val_tsv"])
+    durations = common.load_durations(ds["val_dur"])
+    median = common.median_filter_from_config(st.config, st.codec)
+    best = BestModels(st.paths["best_paths"], flush_every=1)
+    start_epoch = 0
+    resume = common.resolve_resume(st.args, st.paths, st.logger)
+    if resume:
+        steps = trainer.restore_state(resume)
+        start_epoch = steps // max(len(trainer.train_loader), 1)
+        st.logger.info(f"resumed from {resume} at step {steps} (epoch {start_epoch})")
+    for epoch in range(start_epoch, st.config["training"]["scheduler"]["n_epochs"]):
+        metrics = trainer.train_epoch(epoch, st.args.random_seed)
+        results = trainer.validation(epoch, gt, durations, median_filter=median)
+        st.logger.info(f"epoch {epoch + 1}: train {metrics} val {results}")
+        best.update(epoch, results["psds"], trainer.model.state_dict())
+        trainer.save_state(f"{st.paths['best_paths']}/last_state")
+    best.flush()
+    return 0
+
+
+def openset_eval(st: Stage) -> int:
+    """Zero-shot evaluation of the extended vocabulary (upstream
+    ``detect_any_sound/passt/openset_evaluation.py``): the novel labels of
+    ``dataset.openset_label`` after the codec's, their queries
+    ``dataset.openset_embedding`` after the bank (``dataset.query_bank``, or
+    the model's learnable one), the ``test_kwargs`` forward on
+    ``dataset.openset_tsv`` / ``openset_folder``; logs the PSDS and the ten
+    best classes and writes ``single_psds.json``."""
+    import json
+
+    import numpy as np
+
+    from transformer4sed_tpu_torch.core.codec import LabelCodec
+    from transformer4sed_tpu_torch.data.datasets import StronglyLabeledDataset
+    from transformer4sed_tpu_torch.data.loader import DataLoader
+    from transformer4sed_tpu_torch.data.tsv import read_tsv
+    from transformer4sed_tpu_torch.recipes.dasm_recipe import openset_evaluate
+    from transformer4sed_tpu_torch.utils.config import resolve_meta_path
+
+    _one_rank(st.name)
+    ds, codec = st.config["dataset"], st.codec
+    with open(resolve_meta_path(ds["openset_label"])) as f:
+        extra_labels = json.load(f)
+    codec_open = LabelCodec(labels=tuple(codec.labels) + tuple(extra_labels),
+                            audio_len=codec.audio_len, frame_len=codec.frame_len,
+                            frame_hop=codec.frame_hop, net_pooling=codec.net_pooling, sr=codec.sr)
+    test = StronglyLabeledDataset(read_tsv(ds["openset_tsv"]), ds["openset_folder"], True,
+                                  codec_open)
+    loader = DataLoader(test, batch_size=st.config["training"].get("batch_size_val", 16),
+                        drop_last=False, num_workers=st.config["generals"].get("num_workers", 4))
+    psds, single, top10 = openset_evaluate(
+        st.model, st.frontend, codec_open, loader, np.load(ds["openset_embedding"]),
+        common.load_ground_truth(ds["openset_tsv"]), common.load_durations(ds["openset_dur"]),
+        query_bank=np.load(ds["query_bank"]) if ds.get("query_bank") else None,
+        median_filter=common.median_filter_from_config(st.config, codec_open),
+        model_kwargs=st.config.get(st.config.get("model_name", "DASM"), {}).get(
+            "test_kwargs", {}))
+    with open(f"{st.paths['save_folder']}/single_psds.json", "w") as f:
+        json.dump({k: round(v, 4) for k, v in sorted(single.items(), key=lambda kv: kv[1])}, f,
+                  indent=4)
+    st.logger.info(f"openset psds={psds:.4f}; top10={top10}")
+    return 0
+
+
 def finetune_trainer(st: Stage):
     """The stage's ``MATSEDTrainer`` over the DESED loaders."""
     from transformer4sed_tpu_torch.recipes.matsed import MATSEDTrainer
@@ -446,6 +578,10 @@ def main(argv=None) -> int:
             return pretrain(st.model, st.frontend, config, st.codec, args, st.paths, logger)
         if st.name in _PMAM_RUN:
             return _PMAM_RUN[st.name](st)
+        if st.name == "openset_eval":
+            return openset_eval(st)
+        if st.name in AUDIOSET_STAGES:
+            return audioset_train(st)
         trainer = finetune_trainer(st)
         start_epoch = 0
         resume = common.resolve_resume(args, st.paths, logger)

@@ -55,8 +55,6 @@ _FORWARD_KWARG_KEYS = (
     "val_kwargs",
     "test_kwargs",
 )
-_GROUPS_LATER = ("is not ported yet: ROADMAP.md, queue 1, item 9 (the AudioSet param-group "
-                 "policies)")
 
 
 def model_init_kwargs(config: Dict, name: Optional[str] = None) -> Dict:
@@ -260,7 +258,7 @@ def optimizer_from_config(config: Dict, steps_per_epoch: int
     YAML ``opt`` and ``training`` sections (``recipes/desed/setting.py:254-278``),
     what ``train/optim.py:build_optimizer`` and the trainers take. Accepts the
     DESED naming (encoder/decoder/head) and the AudioSet one
-    (backbone/cnn/sed_decoder/head). ``training.accum_steps`` k averages k
+    (backbone/cnn/sed_decoder/head, with DASM's at_decoder and query groups). ``training.accum_steps`` k averages k
     loader batches per optimizer step; the schedule counts applied steps, so
     its horizon is ``steps_per_epoch // k`` a epoch."""
     lr_dict = config["opt"]["param_groups"]
@@ -268,9 +266,6 @@ def optimizer_from_config(config: Dict, steps_per_epoch: int
     dec = lr_dict.get("decoder") or lr_dict.get("sed_decoder")
     if enc is None or dec is None or "head" not in lr_dict:
         raise KeyError("opt.param_groups needs encoder|backbone, decoder|sed_decoder and head")
-    for group in ("at_decoder", "query"):
-        if lr_dict.get(group):
-            raise NotImplementedError(f"the opt.param_groups.{group} group {_GROUPS_LATER}")
 
     def spec(d):
         return GroupSpec(lr=d["lr"], weight_decay=d.get("weight_decay", 1e-8))
@@ -282,6 +277,8 @@ def optimizer_from_config(config: Dict, steps_per_epoch: int
         decoder=spec(dec),
         head=spec(lr_dict["head"]),
         cnn=spec(lr_dict["cnn"]) if lr_dict.get("cnn") else None,
+        at_decoder=spec(lr_dict["at_decoder"]) if lr_dict.get("at_decoder") else None,
+        query=spec(lr_dict["query"]) if lr_dict.get("query") else None,
         backbone_depth=config.get("backbone_depth", 12),
         clip_grad=20.0 if config["training"].get("clip_grad") else 0.0,
         lora_trainable=bool(config["opt"].get("lora_trainable", False)),

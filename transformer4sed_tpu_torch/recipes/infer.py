@@ -7,14 +7,15 @@ length through windows of ``codec.audio_len`` seconds, all in one batched
 forward, whose frame scores are overlap-added into segment scores
 (``eval/scores.py:segment_scores_overlap_add``, the reference's MAESTRO
 long-file path). Both run on the model's device; :func:`main` builds the
-model on the card unless ``--device cpu`` is given. The open-vocabulary
-queries of the JAX entry point (``--query``) wait on DASM: ROADMAP.md,
-queue 1, item 10.
+model on the card unless ``--device cpu`` is given. An open-vocabulary DASM
+takes its queries as ``query`` (and ``query_type``; ``--query``,
+``--query_type``).
 
 Usage:
   python -m transformer4sed_tpu_torch.recipes.infer \\
       --config_dir config/mat-sed/finetune1.yaml --ckpt <checkpoint or .pt> \\
-      --wav clip.wav [--threshold 0.5] [--long [--stride 5.0]] [--device cpu]
+      --wav clip.wav [--threshold 0.5] [--long [--stride 5.0]] [--query queries.npy
+      [--query_type text|audio]] [--device cpu]
 """
 
 from __future__ import annotations
@@ -35,16 +36,28 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _with_query(model_kwargs: Optional[dict], query, query_type: Optional[str]) -> dict:
+    """The forward's kwargs with an open-vocabulary DASM's query, if any."""
+    kwargs = dict(model_kwargs or {})
+    if query is not None:
+        kwargs["query"] = query
+        kwargs["query_type"] = query_type
+    return kwargs
+
+
 @torch.no_grad()
 def infer_clip(model, frontend, wav: np.ndarray, codec, threshold: float = 0.5,
-               median_filter=7, model_kwargs: Optional[dict] = None
+               median_filter=7, model_kwargs: Optional[dict] = None, query=None,
+               query_type: Optional[str] = None
                ) -> Tuple[List[Tuple[str, float, float]], np.ndarray, np.ndarray]:
     """One clip, padded or cut to ``codec.audio_len`` -> (events, strong
-    scores [C, T] before the filter, weak [C])."""
+    scores [C, T] before the filter, weak [C]); ``query`` / ``query_type``:
+    an open-vocabulary DASM's."""
+    model_kwargs = _with_query(model_kwargs, query, query_type)
     dev = _device_of(model)
     wav_p, pad_mask = pad_wav(np.asarray(wav, np.float32), int(codec.audio_len * codec.sr), codec)
     mel = frontend.normalize(frontend(torch.from_numpy(wav_p[None]).to(dev)))
-    out = model(mel, pad_mask=torch.from_numpy(pad_mask[None]).to(dev), **(model_kwargs or {}))
+    out = model(mel, pad_mask=torch.from_numpy(pad_mask[None]).to(dev), **model_kwargs)
     filtered = apply_class_filter(out.strong.transpose(1, 2), median_filter)
     binary = (filtered[0] > threshold).float().cpu().numpy()
     events = [(label, onset, offset) for label, onset, offset in codec.decode_strong(binary)]
@@ -60,7 +73,8 @@ def window_starts(n_samples: int, win: int, hop: int) -> List[int]:
 @torch.no_grad()
 def infer_long_audio(model, frontend, wav: np.ndarray, codec, threshold: float = 0.5,
                      median_filter=7, stride: Optional[float] = None,
-                     segment_length: float = 1.0, model_kwargs: Optional[dict] = None
+                     segment_length: float = 1.0, model_kwargs: Optional[dict] = None,
+                     query=None, query_type: Optional[str] = None
                      ) -> Tuple[List[Tuple[str, float, float]], np.ndarray]:
     """Audio of any length -> (events, segment scores [n_segments, C]).
 
@@ -72,6 +86,7 @@ def infer_long_audio(model, frontend, wav: np.ndarray, codec, threshold: float =
     """
     from transformer4sed_tpu_torch.eval.scores import ClipScores, segment_scores_overlap_add
 
+    model_kwargs = _with_query(model_kwargs, query, query_type)
     dev = _device_of(model)
     wav = np.asarray(wav, np.float32)
     win = int(codec.audio_len * codec.sr)
@@ -87,8 +102,7 @@ def infer_long_audio(model, frontend, wav: np.ndarray, codec, threshold: float =
         clip_ids.append(f"clip-{on_cs}-{off_cs}")
 
     mel = frontend.normalize(frontend(torch.from_numpy(np.stack(chunks)).to(dev)))
-    out = model(mel, pad_mask=torch.from_numpy(np.stack(pad_masks)).to(dev),
-                **(model_kwargs or {}))
+    out = model(mel, pad_mask=torch.from_numpy(np.stack(pad_masks)).to(dev), **model_kwargs)
     filtered = apply_class_filter(out.strong.transpose(1, 2), median_filter)
     filtered = filtered.float().cpu().numpy()
     edges = np.linspace(0.0, codec.audio_len, filtered.shape[1] + 1)
@@ -123,7 +137,9 @@ def main(argv=None) -> int:
                         help="a port checkpoint or an upstream .pt state dict")
     parser.add_argument("--wav", required=True)
     parser.add_argument("--threshold", type=float, default=0.5)
-    parser.add_argument("--query", default=None)
+    parser.add_argument("--query", default=None, help=".npy query embeddings (open-vocabulary "
+                        "DASM)")
+    parser.add_argument("--query_type", default=None, choices=[None, "text", "audio"])
     parser.add_argument("--long", action="store_true",
                         help="arbitrary-length audio via sliding windows + overlap-add")
     parser.add_argument("--stride", type=float, default=None,
@@ -132,13 +148,12 @@ def main(argv=None) -> int:
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    if args.query:
-        raise NotImplementedError("--query: open-vocabulary DASM inference is not ported yet: "
-                                  "ROADMAP.md, queue 1, item 10")
     s = cli.serving_model(load_yaml_with_include(args.config_dir), args.ckpt, device)
     wav = load_audio(args.wav, s.codec.sr)
+    query = (None if args.query is None
+             else torch.from_numpy(np.load(args.query).astype(np.float32)).to(device))
     kwargs = dict(threshold=args.threshold, median_filter=s.median_filter,
-                  model_kwargs=s.model_kwargs)
+                  model_kwargs=s.model_kwargs, query=query, query_type=args.query_type)
     if args.long:
         events, _ = infer_long_audio(s.model, s.frontend, wav, s.codec, stride=args.stride,
                                      **kwargs)

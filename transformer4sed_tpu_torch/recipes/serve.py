@@ -12,7 +12,11 @@ clip's filtered scores into ``(label, onset, offset)`` events.
 :func:`main` scores a directory: one score TSV per clip in the
 sed_scores_eval layout (``onset offset <labels>``) and ``events.jsonl``,
 from a config and a checkpoint (a port checkpoint or an upstream ``.pt``
-state dict) or from a ``recipes.export`` artifact (``--exported``). It runs
+state dict) or from a ``recipes.export`` artifact (``--exported``). An
+open-vocabulary DASM serves the queries of ``--query`` (an ``.npy`` bank, one
+row a class, through the projector of ``--query_type``), and
+``--query_names`` (one event name a row) becomes the output class list; a
+learnable-query DASM serves its own bank without ``--query``. It runs
 on the card unless ``--device cpu`` is given. Under a process group of
 several ranks each rank scores a strided share of the clips and writes
 their TSVs, and rank 0 writes the one ``events.jsonl`` in the clips' order:
@@ -23,6 +27,9 @@ Usage:
   python -m transformer4sed_tpu_torch.recipes.serve \\
       --config_dir config/mat-sed/finetune1.yaml --ckpt <checkpoint or .pt> \\
       --wav_dir /data/clips --out_dir scores/ [--batch_size 64] [--device cpu]
+  python -m transformer4sed_tpu_torch.recipes.serve --config_dir config/dasm/closed_set.yaml \\
+      --ckpt <checkpoint> --query queries.npy [--query_type text|audio] \\
+      [--query_names names.txt] --wav_dir /data/clips --out_dir scores/
   python -m transformer4sed_tpu_torch.recipes.serve --exported model.pt2 \\
       --wav_dir /data/clips --out_dir scores/
 """
@@ -235,17 +242,21 @@ def main(argv=None) -> int:
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--threshold", type=float, default=0.5)
     parser.add_argument("--lora_ckpt", choices=("merged", "unmerged"), default=None)
-    parser.add_argument("--query", default=None)
-    parser.add_argument("--query_names", default=None)
+    parser.add_argument("--query", default=None,
+                        help=".npy of external query embeddings (open-vocabulary DASM)")
+    parser.add_argument("--query_type", default="text", choices=["text", "audio"])
+    parser.add_argument("--query_names", default=None,
+                        help="text file, one event name per query row; becomes the output "
+                             "class list")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)  # raises before anything is written without a card
-    if args.query or args.query_names:
-        raise NotImplementedError("--query/--query_names: open-vocabulary DASM serving is not "
-                                  "ported yet: ROADMAP.md, queue 1, item 10")
     multihost.maybe_initialize()
     if args.exported:
+        if args.query or args.query_names:
+            parser.error("--exported artifacts have their query baked in at export time; "
+                         "--query/--query_names only apply to --config_dir serving")
         if args.config_dir or args.ckpt:
             parser.error("pass either --exported or --config_dir/--ckpt, not both")
         engine = InferenceEngine.from_exported(args.exported, args.threshold, device)
@@ -253,8 +264,29 @@ def main(argv=None) -> int:
     if not args.config_dir or not args.ckpt:
         parser.error("--config_dir and --ckpt are required unless --exported is given")
     config = load_yaml_with_include(args.config_dir)
+    labels = None
+    if args.query_names:
+        with open(args.query_names) as f:
+            labels = [ln.strip() for ln in f if ln.strip()]
+    extra = {}
+    if args.query:
+        if config.get("model_name", "PaSST_SED") != "DASM":
+            parser.error(f"--query serves an open-vocabulary DASM; {args.config_dir} builds "
+                         f"{config.get('model_name', 'PaSST_SED')}")
+        # the rows are checked against the class list before the model is built
+        query = np.load(args.query)
+        n_classes = len(labels) if labels is not None else len(
+            common.label_dict_labels(config) or config["dataset"]["labels"])
+        if query.shape[0] != n_classes:
+            parser.error(
+                f"--query has {query.shape[0]} rows but the class list has {n_classes}; "
+                + ("they must match one-to-one" if labels is not None else
+                   "pass --query_names with one event name per query row to define the output "
+                   "classes"))
+        extra = {"query": torch.from_numpy(query.astype(np.float32)).to(device),
+                 "query_type": args.query_type}
     engine = cli.serving_engine(config, args.ckpt, device, args.batch_size, args.threshold,
-                                lora_ckpt=args.lora_ckpt)
+                                lora_ckpt=args.lora_ckpt, labels=labels, model_kwargs=extra)
     return _run_engine(engine, args, num_workers=config.get("generals", {}).get("num_workers", 4))
 
 

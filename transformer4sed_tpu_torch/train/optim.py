@@ -33,9 +33,12 @@ clipping runs on the averaged gradient inside that update, and the schedule
 ``opt.lora_trainable``; upstream's ``mark_only_lora_as_trainable``) the LoRA
 factors take the decoder group wherever they sit, so they train inside a
 backbone that the encoder's lr 0 freezes, as the JAX package labels them.
-``child_tuning`` and the remaining groups of the AudioSet policies
-(at_decoder, query) are not ported yet: they come with those training paths
-and model families (ROADMAP.md, queue 1, item 9).
+The AudioSet policies' own groups, when the config gives them: 'at_decoder'
+(DASM's AT decoder, labelled before the generic 'decoder' keyword, which its
+name also holds) and 'query' (DASM's learnable ``at_query`` bank); without
+them those params fall to 'decoder' and 'head' as in the JAX package.
+``child_tuning``, which no recipe or config calls, is not ported yet
+(ROADMAP.md, queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -67,6 +70,9 @@ class ParamGroupConfig:
     # a separate LR for the CNN branch (the AudioSet recipes' policy); None
     # folds it into decoder / head as before
     cnn: Optional[GroupSpec] = None
+    # DASM's AT decoder and learnable query bank (the AudioSet policies' groups)
+    at_decoder: Optional[GroupSpec] = None
+    query: Optional[GroupSpec] = None
     backbone_depth: int = 12
     clip_grad: float = 20.0
     # PMAM/LoRA mode: the LoRA factors train at the decoder group's rate
@@ -121,6 +127,11 @@ def label_params(names: Iterable[str], cfg: ParamGroupConfig) -> Dict[str, str]:
                         and depth - block_idx <= cfg.encoder.step_lr) or is_final_norm
                 return "encoder_high" if high else "encoder_low"
             return "encoder_low"
+        # at_decoder before the generic 'decoder' keyword, which its name holds
+        if cfg.at_decoder is not None and "at_decoder" in name:
+            return "frozen" if cfg.at_decoder.lr <= 0 else "at_decoder"
+        if cfg.query is not None and "at_query" in name:
+            return "frozen" if cfg.query.lr <= 0 else "query"
         if cfg.cnn is not None and (name.startswith("cnn.") or ".cnn." in name):
             return "frozen" if cfg.cnn.lr <= 0 else "cnn"
         for kw in _DECODER_KEYWORDS:
@@ -138,8 +149,10 @@ def _group_specs(cfg: ParamGroupConfig) -> Dict[str, Tuple[float, float]]:
         "decoder": (cfg.decoder.lr, cfg.decoder.weight_decay),
         "head": (cfg.head.lr, cfg.head.weight_decay),
     }
-    if cfg.cnn is not None:
-        specs["cnn"] = (cfg.cnn.lr, cfg.cnn.weight_decay)
+    for label in ("cnn", "at_decoder", "query"):
+        spec = getattr(cfg, label)
+        if spec is not None:
+            specs[label] = (spec.lr, spec.weight_decay)
     return specs
 
 

@@ -1,17 +1,24 @@
 """Weights across the two packages, and a seeded init.
 
 :func:`load_jax_params` fills a port model (:class:`PaSST_SED`,
-:class:`PaSST_CNN`, :class:`HTSAT_CNN`) from the JAX package's variables, given as nested
-dicts of arrays (numpy, or anything ``np.asarray`` takes): a param tree,
+:class:`PaSST_CNN`, :class:`HTSAT_CNN`, :class:`DASM`) from the JAX
+package's variables, given as nested dicts of arrays (numpy, or anything
+``np.asarray`` takes): a param tree,
 or ``{'params': ..., 'batch_stats': ...}`` for a model with BatchNorm. It
 is the inverse of the JAX package's ``utils/torch_import.py``
-(``convert_passt_sed``, ``convert_passt_cnn``, ``convert_htsat_cnn``):
+(``convert_passt_sed``, ``convert_passt_cnn``, ``convert_htsat_cnn``,
+``convert_dasm``):
 
   * Dense ``kernel [in, out]`` -> ``weight [out, in]``;
   * Conv ``kernel`` HWIO -> ``weight`` OIHW;
   * LayerNorm ``scale`` -> ``weight``;
   * flax MHA ``query/key/value.kernel [D, H, hd]`` -> ``in_proj_weight
-    [3D, D]`` and ``out.kernel [H, hd, D]`` -> ``out_proj.weight``;
+    [3D, D]`` and ``out.kernel [H, hd, D]`` -> ``out_proj.weight`` (the
+    f-pool's ``frequency_att``, DASM's ``multihead_attn`` and ``self_attn``);
+  * DASM: ``at_decoder/layers_1`` -> ``at_decoder.decoder.layers.1``,
+    ``query_projector`` -> ``query_projector.0``, ``query_projector_1`` ->
+    ``query_projector.1.0``, ``mask_embedding_layer/layers_0`` ->
+    ``mask_embedding_layer.layers.0``, and its ``at_head`` MLP keeps its name;
   * ``blocks_3`` -> ``blocks.3``; ``decoder_module`` -> ``decoder``;
     ``at_pool``/``at_head`` -> ``at_adpater.0``/``at_adpater.1``;
     ``mlm_fc1``/``mlm_fc2`` -> ``mlm_mlp.0``/``mlm_mlp.2``;
@@ -48,10 +55,14 @@ import torch.nn as nn
 from transformer4sed_tpu_torch.models.norm import RefBatchNorm
 
 _TOP = {"decoder_module": "decoder", "at_pool": "at_adpater.0", "at_head": "at_adpater.1",
-        "mlm_fc1": "mlm_mlp.0", "mlm_fc2": "mlm_mlp.2"}
+        "mlm_fc1": "mlm_mlp.0", "mlm_fc2": "mlm_mlp.2", "query_projector": "query_projector.0"}
+# the flax attention modules whose query/key/value/out Dense params become
+# one torch nn.MultiheadAttention's
+_MHA_MODULES = ("frequency_att", "multihead_attn", "self_attn")
 _MHA_PARTS = ("query", "key", "value", "out")
 _RENAMES = (
-    (re.compile(r"(blocks|encoder_blocks)_(\d+)"), r"\1.\2"),
+    (re.compile(r"(blocks|encoder_blocks|layers)_(\d+)"), r"\1.\2"),
+    (re.compile(r"query_projector_(\d+)"), r"query_projector.\1.0"),
     (re.compile(r"layers_(\d+)_blocks_(\d+)"), r"layers.\1.blocks.\2"),
     (re.compile(r"layers_(\d+)_downsample"), r"layers.\1.downsample"),
     (re.compile(r"patch_embed_(proj|norm)"), r"patch_embed.\1"),
@@ -74,6 +85,14 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return flat
 
 
+def _own_top(name: str, names: Optional[Collection[str]]) -> bool:
+    """Whether the model names its module ``name`` as the JAX package does
+    (DASM's ``at_head`` MLP, where PaSST_SED's ``at_head`` is upstream's
+    ``at_adpater.1``)."""
+    return name == "at_head" and names is not None and any(
+        n.startswith("at_head.layers.") for n in names)
+
+
 def _torch_name(path: Tuple[str, ...], names: Optional[Collection[str]] = None) -> list:
     """Upstream name parts of a JAX path. The CNN branch's ``norm{i}`` and
     ``act{i}`` have two upstream names each: the one found among ``names``
@@ -81,9 +100,11 @@ def _torch_name(path: Tuple[str, ...], names: Optional[Collection[str]] = None) 
     parts = []
     in_cnn = path[0] == "cnn"
     for i, p in enumerate(path):
-        if i == 0 and p in _TOP:
+        if i == 0 and p in _TOP and not _own_top(p, names):
             parts.append(_TOP[p])
             continue
+        if i == 1 and path[0] == "at_decoder":
+            parts.append("decoder")  # upstream wraps DASM's AT layers in a TransformerDecoder
         if in_cnn and i == 1:
             parts.append("cnn")  # upstream wraps the layers in a Sequential named cnn
             m = re.fullmatch(r"(norm|act)(\d+)", p)
@@ -101,11 +122,14 @@ def _torch_name(path: Tuple[str, ...], names: Optional[Collection[str]] = None) 
     return parts
 
 
-_TOP_INV = {v: k for k, v in _TOP.items()}
+_TOP_INV = {v: k for k, v in _TOP.items() if k != "query_projector"}
 _RENAMES_INV = (
     (re.compile(r"layers\.(\d+)\.blocks\.(\d+)"), r"layers_\1_blocks_\2"),
     (re.compile(r"layers\.(\d+)\.downsample"), r"layers_\1_downsample"),
-    (re.compile(r"(blocks|encoder_blocks)\.(\d+)"), r"\1_\2"),
+    (re.compile(r"at_decoder\.decoder\."), r"at_decoder."),
+    (re.compile(r"query_projector\.(\d+)\.0\."), r"query_projector_\1."),
+    (re.compile(r"query_projector\.0\.(?=weight|bias)"), r"query_projector."),
+    (re.compile(r"(blocks|encoder_blocks|layers)\.(\d+)"), r"\1_\2"),
     (re.compile(r"patch_embed\.(proj|norm)"), r"patch_embed_\1"),
 )
 _CNN_INV = {"batchnorm": "norm", "layernorm": "norm", "cg": "act", "glu": "act"}
@@ -155,8 +179,8 @@ def jax_params_to_state_dict(variables: Mapping,
     mha: Dict[str, Dict[Tuple[str, str], np.ndarray]] = {}
     lora_groups: Dict[str, list] = {}
     for path, val in _flatten(params).items():
-        if len(path) >= 3 and path[-3] == "frequency_att" and path[-2] in _MHA_PARTS:
-            prefix = ".".join(_torch_name(path[:-2]))
+        if len(path) >= 3 and path[-3] in _MHA_MODULES and path[-2] in _MHA_PARTS:
+            prefix = ".".join(_torch_name(path[:-2], names))
             mha.setdefault(prefix, {})[(path[-2], path[-1])] = val
             continue
         parts = _torch_name(path, names)
