@@ -16,16 +16,18 @@
     python3 chip_smoke.py --phases build,pmam_stages  # the pmam_* stages and PMAM's chain
     python3 chip_smoke.py --phases build,score,serving  # serve, infer, stream and export
     python3 chip_smoke.py --phases build,dasm_serve,dasm_parity,dasm_train,dasm_train_parity,audioset_stages
+    python3 chip_smoke.py --phases \
+        build,dasm_htsat_serve,dasm_htsat_parity,dasm_htsat_train,clap,htsat_stages
 
-Four networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
+Six networks run: the MAT-SED flagship (PaSST_SED, phases 3 to 6, its
 MLM pretrain step, phases 17 and 18, its decoder with an explicit mask, phase
 19, and finetune2's sliding windows, phases 20 to 23), HTSAT_CNN (phases 9 to
 12), PMAM's PaSST_CNN (phases 13 to 16, and its finetune2 step in 22 and
-23) and DASM (phases 24 to 28). The CPU f32 train parities of phases 6, 6a,
-16, 18, 23 and 4d's check (e) run the PaSST backbone cut to PARITY_DEPTH of
-its blocks (PARITY_CUT), with their bounds unchanged; every other phase runs
-the full depth. Phases, in order (19 runs right after 2); any failure exits
-non-zero:
+23), DASM (phases 24 to 28), DASM_HTSAT and CLAP_SED (phases 29 to 33).
+The CPU f32 train parities of phases 6, 6a, 16, 18, 23 and 4d's check (e)
+run the PaSST backbone cut to PARITY_DEPTH of its blocks (PARITY_CUT), with
+their bounds unchanged; every other phase runs the full depth. Phases, in
+order (19 runs right after 2); any failure exits non-zero:
   1. print the card (nvidia-smi name, power limit); build every CUDA kernel
      from ``transformer4sed_tpu_torch/csrc`` (one nvcc per source, in
      parallel): the serving forwards and the training LSE forwards and
@@ -302,6 +304,32 @@ non-zero:
      epochs changed and ``query_type: text`` for open_vocab.yaml's one bank;
      checks (a) to (d) (files, finite logs, launches, the warm start, then
      ``serve --query`` and ``infer --query`` bitwise against the engine);
+ 29. dasm_htsat_serve: bench.py's DASM_HTSAT (HTSAT tiny, 447 learnable
+     queries, the sigmoid head, 2 XL blocks over 320 frames, temp_w 0.5),
+     seeded, served at B=64 (64 and a ragged 20): shapes, finiteness, events,
+     the padded frames at 0, rows 14 and 2 at 12 and 2 a batch; clips/s and
+     the AT decoder's share; then closed_set.yaml's projector network through
+     ``serve --query`` (a seeded checkpoint, 16 written clips);
+ 30. dasm_htsat_parity: as phase 25 on DASM_HTSAT's 2 clips, the CPU side at
+     full depth ((a) the tail with the clamp before the pad mask; (b) the
+     planted prior rolled by one query for the sigmoid head);
+ 31. dasm_htsat_train: DASMStep on DASM_HTSAT at B=64 with closed_set.yaml's
+     training (shift in time, mixup, filt_aug, the AT decoder's dropout):
+     rows 14, 15, 12 and 13 at 12, 12, 2 and 2 a step, bn0's statistics
+     moving; timed windows; then one step without augmentation or dropout,
+     CPU f32 against card bf16 (the gradient's cosine and norm ratio);
+ 32. clap: config/clap/clap.yaml's CLAP_SED (447 classes, 512-wide queries, a
+     seeded bank as its text_query) served at B=64 (row 14 at 12 a batch, 32
+     frames, the padded frames at 0), held against the CPU f32 path on the
+     logits, strong and weak by relative L2; its ClapStep at B=64 (rows 14
+     and 15 at 12 a step), timed, and one step against the CPU f32 step;
+ 33. htsat_stages: on phase 28's mini tree, through the CLI on the card:
+     ``clap_train`` (clap.yaml), ``dasm_train`` and ``dasm_ov`` on
+     closed_set.yaml and open_vocab.yaml with ``model_name: DASM_HTSAT`` (the
+     YAMLs written to the run's directory), ``openset_eval`` on both
+     networks, ``queries build_text`` from a seeded table, ``queries
+     extract_audio`` from the closed-set student, and ``serve --query`` on
+     that audio bank bitwise against the engine; checks (a) to (e);
 then, inside phases 7 and 8, the window kernels at the four stages (device
 and host times, and their sums over an HTSAT_CNN step beside the bound),
 the head-major XL,
@@ -345,6 +373,7 @@ PHASES = ("build", "kernels", "serve", "parity", "score", "serving", "stages", "
           "pmam_train", "pmam_train_parity", "mlm_train", "mlm_train_parity", "masked_decoder",
           "finetune2_serve", "finetune2_parity", "finetune2_train", "finetune2_train_parity",
           "dasm_serve", "dasm_parity", "dasm_train", "dasm_train_parity", "audioset_stages",
+          "dasm_htsat_serve", "dasm_htsat_parity", "dasm_htsat_train", "clap", "htsat_stages",
           "timing", "profile")
 # subsets of a phase, for the short call after an edit; never part of the whole run
 SUB_PHASES = ("window_kernels", "hm_kernels", "flash_hm_kernels", "bias_kernels",
@@ -4500,16 +4529,19 @@ def dasm_serve(results):
 
 
 def dasm_capture(engine, wav, pad_mask):
-    """One eval forward of ``engine``'s DASM on ``wav`` with its served kwargs,
-    in f64 on the CPU: strong, weak and the AT head's 448-way logits as the
-    model gave them; the logits ``z`` = einsum(mask embedding, frames) /
-    temp_w recomputed from the two tensors the model's einsum read (forward
-    hooks on ``mask_embedding_layer`` and ``sed_head``); the clip prior (the
-    diagonal of the 448-way softmax); and ``tail``, strong recomputed from z
-    and the prior: where(pad, 0, sigmoid(z) * prior) clamped to [1e-7, 1]."""
+    """One eval forward of ``engine``'s DASM or DASM_HTSAT on ``wav`` with its
+    served kwargs, in f64 on the CPU: strong, weak and the AT head's output
+    (448-way logits, or the sigmoid head's probabilities) as the model gave
+    them; the logits ``z`` = einsum(mask embedding, frames) / temp_w
+    recomputed from the two tensors the model's einsum read (forward hooks
+    on ``mask_embedding_layer`` and ``sed_head``); the clip prior (the
+    diagonal of the 448-way softmax, or the sigmoid head's output); and
+    ``tail``, strong recomputed from z and the prior: sigmoid(z) * prior,
+    the pad mask and the clamp to [1e-7, 1] in the model's order."""
     import torch
 
     from transformer4sed_tpu_torch.models.dasm import multi_class_to_multi_label
+    from transformer4sed_tpu_torch.models.htsat_heads import DASM_HTSAT
 
     model, seen = engine.model, {}
     hooks = [model.mask_embedding_layer.register_forward_hook(
@@ -4530,19 +4562,26 @@ def dasm_capture(engine, wav, pad_mask):
     temp_w = engine.model_kwargs.get("temp_w", 0.1)
     z = torch.einsum("bqc,btc->btq", f64(seen["mask_embedding"]), f64(seen["frames"])) / temp_w
     at_out = f64(out.at_out)
-    prior = multi_class_to_multi_label(torch.softmax(at_out, dim=-1))
+    prior = (multi_class_to_multi_label(torch.softmax(at_out, dim=-1)) if at_out.ndim == 3
+             else at_out)
+    late = isinstance(model, DASM_HTSAT)  # DASM_HTSAT clamps, then masks
     return {"strong": f64(out.strong), "weak": f64(out.weak), "at_out": at_out, "z": z,
-            "prior": prior, "temp_w": temp_w, "pad": pad_mask.cpu(),
-            "tail": dasm_tail(z, prior, pad_mask.cpu())}
+            "prior": prior, "temp_w": temp_w, "pad": pad_mask.cpu(), "pad_after_clamp": late,
+            "tail": dasm_tail(z, prior, pad_mask.cpu(), late)}
 
 
-def dasm_tail(z, prior, pad):
-    """DASM's tail in f64: where(pad, 0, sigmoid(z) * prior) clamped to
-    [1e-7, 1], as [B, Q, T]."""
+def dasm_tail(z, prior, pad, pad_after_clamp=False):
+    """DASM's tail in f64: sigmoid(z) * prior, the pad mask and the clamp to
+    [1e-7, 1] (DASM_HTSAT: the clamp, then the pad mask), as [B, Q, T]."""
     import torch
 
-    sed = torch.where(pad[:, :, None], 0.0, torch.sigmoid(z) * prior[:, None, :])
-    return sed.clamp(1e-7, 1.0).transpose(1, 2)
+    sed = torch.sigmoid(z) * prior[:, None, :]
+    if not pad_after_clamp:
+        sed = torch.where(pad[:, :, None], 0.0, sed)
+    sed = sed.clamp(1e-7, 1.0)
+    if pad_after_clamp:
+        sed = torch.where(pad[:, :, None], 0.0, sed)
+    return sed.transpose(1, 2)
 
 
 def dasm_tail_error(c, strong=None):
@@ -4558,21 +4597,28 @@ def dasm_tail_faults(c):
     bf16."""
     import torch
 
-    z, prior, pad, temp_w = c["z"], c["prior"], c["pad"], c["temp_w"]
-    return {"temp_w dropped": dasm_tail(z * temp_w, prior, pad),
-            "the prior dropped": dasm_tail(z, torch.ones_like(prior), pad),
+    z, prior, pad, temp_w, late = c["z"], c["prior"], c["pad"], c["temp_w"], c["pad_after_clamp"]
+    return {"temp_w dropped": dasm_tail(z * temp_w, prior, pad, late),
+            "the prior dropped": dasm_tail(z, torch.ones_like(prior), pad, late),
             "the einsum's output rounded to bf16": dasm_tail(
-                (z * temp_w).to(torch.bfloat16).double() / temp_w, prior, pad)}
+                (z * temp_w).to(torch.bfloat16).double() / temp_w, prior, pad, late)}
 
 
-def dasm_gaps(other, ref):
+def dasm_gaps(other, ref, log_scores=False):
     """Relative L2 errors ||other - ref|| / ||ref|| of z, the AT head's
-    logits, the prior, strong and weak; and where the sigmoid factor
-    sigmoid(z) parts most, its gap and the z of both sides there."""
+    output, the prior, strong and weak (with ``log_scores``, strong and weak
+    in log space, over the frames both hold above 0); and where the sigmoid
+    factor sigmoid(z) parts most, its gap and the z of both sides there."""
     import torch
 
-    gaps = {k: float((other[k] - ref[k]).norm() / ref[k].norm())
-            for k in ("z", "at_out", "prior", "strong", "weak")}
+    def gap(key):
+        a, b = other[key], ref[key]
+        if log_scores and key in ("strong", "weak"):
+            kept = (a > 0) & (b > 0)
+            a, b = a[kept].log(), b[kept].log()
+        return float((a - b).norm() / b.norm())
+
+    gaps = {k: gap(k) for k in ("z", "at_out", "prior", "strong", "weak")}
     sig = (torch.sigmoid(other["z"]) - torch.sigmoid(ref["z"])).abs()
     at = sig.argmax()
     gaps.update(sigmoid_gap=float(sig.max()), z_there=(float(other["z"].flatten()[at]),
@@ -4580,7 +4626,8 @@ def dasm_gaps(other, ref):
                 z_max_abs_gap=float((other["z"] - ref["z"]).abs().max()),
                 z_abs_q=[float(q) for q in torch.quantile(
                     ref["z"].abs().flatten(), torch.tensor([0.5, 0.99, 1.0],
-                                                           dtype=torch.float64))])
+                                                           dtype=torch.float64))],
+                log_scores=log_scores)
     return gaps
 
 
@@ -4593,61 +4640,71 @@ def dasm_parity_clips(batches):
 
 
 def log_dasm_gaps(what, gaps):
+    scale = " (in log space)" if gaps["log_scores"] else ""
     log(f"{what}: relative L2 error of z = logits / temp_w {gaps['z']:.4e}, of the AT head's "
-        f"448-way logits {gaps['at_out']:.4e}, of the prior {gaps['prior']:.4e}, of strong "
-        f"{gaps['strong']:.4e}, of weak {gaps['weak']:.4e} (limit {DASM_REL_L2}); |z| median "
+        f"output {gaps['at_out']:.4e}, of the prior {gaps['prior']:.4e}, of strong{scale} "
+        f"{gaps['strong']:.4e}, of weak{scale} {gaps['weak']:.4e} (limit {DASM_REL_L2}); |z| median "
         f"{gaps['z_abs_q'][0]:.3f}, 99th percentile {gaps['z_abs_q'][1]:.3f}, max "
         f"{gaps['z_abs_q'][2]:.3f}; max |dz| {gaps['z_max_abs_gap']:.4f}; the sigmoid factor "
         f"parts most by {gaps['sigmoid_gap']:.4f}, at z {gaps['z_there'][0]:.4f} against "
         f"{gaps['z_there'][1]:.4f}")
 
 
-def dasm_parity(card_engine, batches):
-    """The same weights and text bank on 2 clips in eval mode, each quantity
+def dasm_parity(card_engine, batches, build=None, what="DASM", log_scores=False):
+    """The same weights and query bank on 2 clips in eval mode, each quantity
     on its own scale (a seeded DASM's probabilities are small: the 448-way
     prior is near 1/448). (a) The card's tail: its strong against the same
-    tail in f64 from the card's own mask embedding, frames and AT logits
+    tail in f64 from the card's own mask embedding, frames and AT output
     (the f32 einsum, / temp_w, sigmoid, prior, pad, clamp), within
     DASM_TAIL_RTOL; three planted faults (temp_w dropped, the prior dropped,
     the einsum's output rounded to bf16) fall outside. (b) Card bf16
     (kernels) against CPU f32 (plain versions): the relative L2 errors of
-    z, the AT head's logits, the prior, strong and weak within DASM_REL_L2;
-    two planted faults (the queries' order rolled by one; the sigmoid of the
-    diagonal logit as the prior) fall outside."""
+    z, the AT head's output, the prior, strong and weak within DASM_REL_L2;
+    two planted faults (the queries' order rolled by one; for the 448-way
+    head the sigmoid of the diagonal logit as the prior, for the sigmoid
+    head its logit negated) fall outside. ``build(device,
+    state_dict)``: the network's engine (DASM's by default). ``log_scores``
+    holds strong and weak in log space: where every score lies in the
+    sigmoid's exponential tail (DASM_HTSAT's seeded z reaches -65 and strong
+    stays under 2e-2), a bf16 dz of a few tenths moves strong by a factor
+    e^dz, which its log space reads as dz, on the scale of log strong."""
     import torch
 
     state = {k: v.detach().cpu() for k, v in card_engine.model.state_dict().items()}
-    cpu_engine = build_dasm_engine("cpu", state_dict=state)
+    cpu_engine = (build or build_dasm_engine)("cpu", state_dict=state)
     wav, pm = dasm_parity_clips(batches)
     card, cpu = dasm_capture(card_engine, wav, pm), dasm_capture(cpu_engine, wav, pm)
     for name, c in (("CPU f32", cpu), ("card bf16", card)):
-        log(f"DASM {name}: strong spans {float(c['strong'].min()):.3e} .. "
+        log(f"{what} {name}: strong spans {float(c['strong'].min()):.3e} .. "
             f"{float(c['strong'].max()):.3e}, the prior {float(c['prior'].min()):.3e} .. "
             f"{float(c['prior'].max()):.3e}; its tail against f64 of its own tensors "
             f"{dasm_tail_error(c):.3e} (limit {DASM_TAIL_RTOL})")
     check(dasm_tail_error(card) <= DASM_TAIL_RTOL and dasm_tail_error(cpu) <= DASM_TAIL_RTOL,
-          "DASM (a): the tail (f32 einsum, / temp_w, sigmoid, prior, pad, clamp) is not "
+          f"{what} (a): the tail (f32 einsum, / temp_w, sigmoid, prior, pad, clamp) is not "
           "the model's")
-    for what, strong in dasm_tail_faults(card).items():
+    for fault, strong in dasm_tail_faults(card).items():
         err = dasm_tail_error(card, strong)
-        log(f"DASM (a) planted fault, {what}: {err:.3e} (limit {DASM_TAIL_RTOL}): "
+        log(f"{what} (a) planted fault, {fault}: {err:.3e} (limit {DASM_TAIL_RTOL}): "
             f"{'within' if err <= DASM_TAIL_RTOL else 'OUTSIDE'}")
-        check(err > DASM_TAIL_RTOL, f"DASM (a): the tail check let '{what}' through")
-    gaps = dasm_gaps(card, cpu)
-    log_dasm_gaps("DASM (b) card bf16 vs CPU f32", gaps)
+        check(err > DASM_TAIL_RTOL, f"{what} (a): the tail check let '{fault}' through")
+    gaps = dasm_gaps(card, cpu, log_scores)
+    log_dasm_gaps(f"{what} (b) card bf16 vs CPU f32", gaps)
     check(max(gaps[k] for k in ("z", "at_out", "prior", "strong", "weak")) <= DASM_REL_L2,
-          "DASM (b): the card's path disagrees with the CPU f32 path")
+          f"{what} (b): the card's path disagrees with the CPU f32 path")
     rolled = dict(card, z=card["z"].roll(1, dims=2))
-    diag = torch.diagonal(card["at_out"][:, :, :-1], dim1=1, dim2=2)
-    sigmoid_prior = dict(card, prior=torch.sigmoid(diag))
-    sigmoid_prior["strong"] = dasm_tail(card["z"], sigmoid_prior["prior"], card["pad"])
-    for what, fault, key in (("the queries' order rolled by one", rolled, "z"),
-                             ("the sigmoid of the diagonal logit as the prior", sigmoid_prior,
-                              "prior")):
-        err = dasm_gaps(fault, cpu)[key]
-        log(f"DASM (b) planted fault, {what}: relative L2 error of {key} {err:.4e} (limit "
+    if card["at_out"].ndim == 3:
+        prior_fault = "the sigmoid of the diagonal logit as the prior"
+        bad_prior = torch.sigmoid(torch.diagonal(card["at_out"][:, :, :-1], dim1=1, dim2=2))
+    else:
+        prior_fault, bad_prior = "the AT head's logit negated (1 - prior)", 1.0 - card["prior"]
+    faulty_prior = dict(card, prior=bad_prior)
+    faulty_prior["strong"] = dasm_tail(card["z"], bad_prior, card["pad"], card["pad_after_clamp"])
+    for fault, faulty, key in (("the queries' order rolled by one", rolled, "z"),
+                               (prior_fault, faulty_prior, "prior")):
+        err = dasm_gaps(faulty, cpu, log_scores)[key]
+        log(f"{what} (b) planted fault, {fault}: relative L2 error of {key} {err:.4e} (limit "
             f"{DASM_REL_L2}): {'within' if err <= DASM_REL_L2 else 'OUTSIDE'}")
-        check(err > DASM_REL_L2, f"DASM (b): the parity check let '{what}' through")
+        check(err > DASM_REL_L2, f"{what} (b): the parity check let '{fault}' through")
 
 
 def build_dasm_step(device, augment, dropout=True, state_dict=None):
@@ -4942,6 +4999,598 @@ def audioset_stages(device="cuda"):
             f"bank, bitwise; infer --query on {name0}: {len(got['events'])} events and the weak "
             f"scores against the engine at B=1: {'equal' if ok else 'OUTSIDE'} ({card})")
         check(ok, "(d) infer --query differs from the engine")
+
+
+# -- the HTSAT half of DASM: DASM_HTSAT and CLAP_SED -------------------------------------
+
+# DASM_HTSAT as bench.py:measure_dasm_ov builds it (bench.py:149-152): HTSAT tiny, the
+# learnable 447-query bank, the sigmoid AT head, 2 XL blocks at 12 heads of 64 over
+# 320 frames, 2 AT-decoder layers; served at temp_w 0.5
+DASM_HTSAT_CFG = dict(class_num=447, decoder_dim=768, num_heads=12, decoder="transformerXL",
+                      decoder_layer_num=2, decoder_pos_emd_len=1024, htsat_config="tiny",
+                      at_decoder_layer=2)
+DASM_HTSAT_KWARGS = {"temp_w": 0.5}
+DASM_HTSAT_SEED = 29
+DASM_HTSAT_TRAIN_STEPS = 2
+# one step at the served batch, CPU f32 against card bf16 (trainer_parity)
+DASM_HTSAT_PARITY_BATCH = 64
+# launches per served batch / per train step: 12 Swin blocks, 2 XL blocks; the AT
+# decoder is plain PyTorch, as the JAX package computes it outside any kernel
+DASM_HTSAT_SERVE_LAUNCHES = dict(window_attention=12, flash_xl_attention_nhd=2)
+DASM_HTSAT_TRAIN_LAUNCHES = dict(window_attention=12, window_attention_backward=12,
+                                 flash_xl_attention_nhd_lse=2, flash_xl_attention_nhd_backward=2)
+# the projector network of config/dasm/closed_set.yaml on HTSAT: 3 XL blocks
+DASM_HTSAT_PROJ_SERVE_LAUNCHES = dict(window_attention=12, flash_xl_attention_nhd=3)
+# the DASM configs' feature section for HTSAT: 32 latent frames x 10 (htsat_cnn.yaml)
+HTSAT_FEATURE = {"feature.pred_len": HTSAT_FRAMES, "feature.net_subsample": HTSAT_NET_POOLING,
+                 "feature.n_mels": 64, "feature.win_length": 1024}
+# config/clap/clap.yaml's CLAP_SED: 447 classes, MGA-CLAP's 512-wide text queries, the 32
+# fine-grained frames (net_subsample 31.25); the common-only step's classes from state.json
+CLAP_CFG = dict(embed_dim=768, class_num=447, query_dim=512, htsat_config="tiny")
+CLAP_FRAMES, CLAP_NET_POOLING = 32, 31.25
+CLAP_SERVE_LAUNCHES = dict(window_attention=12)
+CLAP_TRAIN_LAUNCHES = dict(window_attention=12, window_attention_backward=12)
+CLAP_TRAIN_STEPS = 2
+CLAP_PARITY_BATCH = 64
+HTSAT_FAMILY_LIMIT_S = 150  # the five phases' time together
+
+
+def clap_yaml():
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    return load_yaml_with_include(str(ROOT / "config" / "clap" / "clap.yaml"))
+
+
+def htsat_codec(frames=HTSAT_FRAMES, net_pooling=HTSAT_NET_POOLING):
+    from transformer4sed_tpu_torch.core.codec import LabelCodec
+
+    codec = LabelCodec(audioset_labels(), audio_len=10.0, frame_len=1024, frame_hop=320,
+                       net_pooling=net_pooling, sr=SR)
+    check(codec.n_frames == frames and codec.n_classes == 447,
+          f"codec of {codec.n_frames} frames and {codec.n_classes} classes")
+    return codec
+
+
+def seeded(model, device, state_dict, seed):
+    from transformer4sed_tpu_torch.utils.weights import init_weights_
+
+    if state_dict is None:
+        init_weights_(model, seed=seed)
+    else:
+        model.load_state_dict(state_dict)
+    return model.to(device)
+
+
+def build_dasm_htsat(device, state_dict=None, dtype=None):
+    """bench.py's DASM_HTSAT, seeded (its learnable bank the seeded [447,
+    768] audio rows, N(0, 1): queries as far apart as projected ones; at
+    init's N(0, 0.02) the AT decoder gives every query nearly the same
+    embedding) or given ``state_dict``."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.htsat_heads import DASM_HTSAT
+
+    dtype = dtype or (torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32)
+    model = seeded(DASM_HTSAT(**DASM_HTSAT_CFG, dtype=dtype, device="cpu"), "cpu", state_dict,
+                   DASM_HTSAT_SEED)
+    if state_dict is None:
+        with torch.no_grad():
+            model.at_query.copy_(torch.from_numpy(dasm_banks()[1]))
+    return model.to(device)
+
+
+def build_dasm_htsat_engine(device, state_dict=None, dtype=None):
+    """bench.py's DASM_HTSAT served as a user would: HTSATFrontend, the
+    447-class codec at 320 frames, median 7, temp_w 0.5, B=64; bf16 on the
+    card, f32 on the CPU."""
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    model = build_dasm_htsat(device, state_dict, dtype)
+    return InferenceEngine(model.eval(), HTSATFrontend(device=device), htsat_codec(),
+                           HTSAT_MEDIAN, batch_size=HTSAT_BATCH, threshold=0.5,
+                           model_kwargs=DASM_HTSAT_KWARGS, device=device)
+
+
+def served_family(what, engine, batches, served, frames):
+    """Shapes, finiteness, probabilities in [0, 1], events, and the short
+    clip's padded frames at 0 (beyond the median's half width): the
+    DASM_HTSAT and CLAP_SED paths zero the padded frames after any clamp."""
+    import numpy as np
+
+    n_events = 0
+    for (names, scores, weak), batch in zip(served, batches):
+        check(names == batch["filename"], "results come back in order")
+        check(scores.shape == (len(names), frames, 447) and weak.shape == (len(names), 447),
+              f"{what} output shapes {scores.shape}, {weak.shape}")
+        check(np.all(np.isfinite(scores)) and np.all(np.isfinite(weak)), f"{what}: finite outputs")
+        check(np.all((scores >= 0) & (scores <= 1)) and np.all((weak > 0) & (weak <= 1)),
+              f"{what}: probabilities in [0, 1]")
+        for i in range(len(names)):
+            for label, onset, offset in engine.decode(scores[i]):
+                check(label in engine.codec.labels and 0.0 <= onset < offset <= 10.0,
+                      f"{what}: event {label, onset, offset}")
+                n_events += 1
+    first_pad = int(np.argmax(batches[0]["pad_mask"][5]))
+    half = max(engine.median_filter) // 2 if not isinstance(engine.median_filter, int) else (
+        engine.median_filter // 2)
+    check(0 < first_pad and np.all(served[0][1][5][first_pad + half:] == 0),
+          f"{what}: the short clip's padded frames are not 0")
+    return n_events
+
+
+def write_clips(folder, clips):
+    import numpy as np
+    from scipy.io import wavfile
+
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, wav in enumerate(clips):
+        wavfile.write(folder / f"clip{i:03d}.wav", SR,
+                      (np.clip(wav / 4.0, -1.0, 1.0) * 32767).astype(np.int16))
+
+
+def dasm_htsat_yaml(root, name, tag, overrides):
+    """config/dasm/<name>.yaml with ``model_name: DASM_HTSAT``, its DASM
+    section under that name, HTSAT's feature grid and ``overrides``, written
+    as ``root/<tag>.yaml``."""
+    section = dasm_yaml(name)["DASM"]
+    return audioset_stage_config(root, "dasm", name, tag, {
+        "model_name": "DASM_HTSAT", "DASM_HTSAT": section, **HTSAT_FEATURE, **overrides})
+
+
+def dasm_htsat_serve(results):
+    """bench.py's DASM_HTSAT, seeded, bf16, at B=64 on 84 clips (64 and a
+    ragged 20): launches a batch, outputs, events, the padded frames at 0;
+    served clips/s over three windows and the AT decoder's share of a batch;
+    then closed_set.yaml's projector network (two banks, the 448-way head, 3
+    XL blocks) from a seeded checkpoint through ``serve --query <text bank>``
+    on 16 written clips. Returns (engine, batches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.recipes import cli
+    from transformer4sed_tpu_torch.utils.checkpoint import save_params
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    card = card_line()
+    t0 = time.perf_counter()
+    engine = build_dasm_htsat_engine("cuda")
+    log(f"built the DASM_HTSAT engine in {time.perf_counter() - t0:.1f} s")
+    clips = synthetic_clips(HTSAT_BATCH + 20, seed=33)
+    batches = make_batches(clips, engine.codec, HTSAT_BATCH)
+    reset_launches()
+    served = list(engine.score_batches(batches))
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * len(batches) for k, n in DASM_HTSAT_SERVE_LAUNCHES.items()})
+    log(f"DASM_HTSAT served {sum(len(n) for n, _, _ in served)} clips in {len(served)} batches; "
+        f"launches {launches}")
+    check(launches == want, f"kernel launches {launches} on the DASM_HTSAT served path, expected "
+                            f"{want} (12 window and 2 XL a batch)")
+    n_events = served_family("DASM_HTSAT", engine, batches, served, HTSAT_FRAMES)
+    top = max(float(s.max()) for _, s, _ in served)
+    log(f"DASM_HTSAT: {n_events} events at 0.5; scores finite in [0, 1], up to {top:.3e}; the "
+        "padded frames at 0")
+    batch_ms = time_serving(engine, batches, per_window=8, what="DASM_HTSAT served")
+    at_ms = at_decoder_ms(engine.model, lambda: engine.forward(*engine._put(batches[0])[1:]))
+    log(f"DASM_HTSAT served at B={HTSAT_BATCH}: {HTSAT_BATCH / batch_ms * 1e3:.2f} clips/s, "
+        f"{batch_ms:.3f} ms a batch, rows 14 and 2 at "
+        f"{DASM_HTSAT_SERVE_LAUNCHES['window_attention']} and "
+        f"{DASM_HTSAT_SERVE_LAUNCHES['flash_xl_attention_nhd']} launches a batch; the AT "
+        f"decoder's forward (2 layers, 447 queries over 32 tokens, plain PyTorch) {at_ms:.3f} ms "
+        f"({at_ms / batch_ms:.1%}; {card})")
+
+    with tempfile.TemporaryDirectory(prefix="t4s_dasm_htsat_") as tmp:
+        root = Path(tmp)
+        write_clips(root / "clips", synthetic_clips(16, seed=35))
+        np.save(root / "text.npy", dasm_banks()[0])
+        cfg = dasm_htsat_yaml(root, "closed_set", "closed", {})
+        model, _ = cli.build_model(load_yaml_with_include(cfg), torch.device("cpu"))
+        save_params(str(root / "ckpt"), seeded(model, "cpu", None, DASM_HTSAT_SEED).state_dict())
+        line, seconds = run_serve_main(
+            ["--config_dir", cfg, "--ckpt", str(root / "ckpt"), "--wav_dir", str(root / "clips"),
+             "--batch_size", str(HTSAT_BATCH), "--query", str(root / "text.npy"),
+             "--query_type", "text"], root / "served", DASM_HTSAT_PROJ_SERVE_LAUNCHES)
+        lines = (root / "served" / "events.jsonl").read_text().splitlines()
+        check(len(lines) == 16 and len(list((root / "served").glob("*.tsv"))) == 16,
+              "serve --query on DASM_HTSAT: 16 clips")
+        log(f"DASM_HTSAT (closed_set.yaml's projector network) serve --query <[447, 512] text "
+            f"bank>: {line}; 12 window and 3 XL launches a batch ({card})")
+    return engine, batches
+
+
+def build_dasm_htsat_step(device, augment, dropout=True, state_dict=None):
+    """DASMStep on bench.py's DASM_HTSAT with closed_set.yaml's training: the
+    sigmoid head's BCE at w_AT 1, temp_w 0.1, the config's param groups,
+    clip 20, and with ``augment`` the shift (in time: the step turns the
+    [B, 1, T, F] mel to [B, F, T]), mixup and filt_aug; ``dropout`` the AT
+    decoder's."""
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes import common
+    from transformer4sed_tpu_torch.recipes.dasm_recipe import DASMStep, DASMTrainConfig
+
+    config = dasm_yaml()
+    model = build_dasm_htsat(device, state_dict)
+    if not dropout:
+        model.at_dropout = 0.0
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0)
+    tr = config["training"]
+    cfg = DASMTrainConfig(
+        out_type="sigmoid", w_at=tr["w_AT"],
+        transform_choice=tuple(tr["transform"]["choice"]) if augment else (0, 0, 0, 0),
+        model_kwargs=config["DASM"]["train_kwargs"], **off)
+    pg, _, _ = common.optimizer_from_config(config, 1)
+    return DASMStep(model, HTSATFrontend(device=device), cfg, pg)
+
+
+def running_bn0(model):
+    return {k: v.clone() for k, v in model.state_dict().items() if k.startswith("backbone.bn0.")}
+
+
+def dasm_htsat_train(results):
+    """The step at B=64 with augmentation and dropout: finite losses, per
+    step rows 14, 15, 12 and 13 at 12, 12, 2 and 2 (and the XL backward's
+    passes) and nothing else, bn0's statistics moved; three windows of three
+    steps; then one step at DASM_HTSAT_PARITY_BATCH without augmentation or
+    dropout, CPU f32 against card bf16 (:func:`trainer_parity`)."""
+    import torch
+
+    card = card_line()
+    t0 = time.perf_counter()
+    stepper = build_dasm_htsat_step("cuda", augment=True)
+    batch = synthetic_audioset_batch(HTSAT_BATCH, seed=34)
+    log(f"built the DASM_HTSAT step in {time.perf_counter() - t0:.1f} s; param groups "
+        f"{sorted(set(stepper.labels.values()))}")
+    before = running_bn0(stepper.model)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(DASM_HTSAT_TRAIN_STEPS):
+        values = finite_metrics(stepper.step(batch, gen))
+        log(f"DASM_HTSAT train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * DASM_HTSAT_TRAIN_STEPS
+                 for k, n in with_bwd_passes(DASM_HTSAT_TRAIN_LAUNCHES).items()})
+    log(f"DASM_HTSAT train launches over {DASM_HTSAT_TRAIN_STEPS} steps: {launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(launches == want, f"kernel launches {launches} on the DASM_HTSAT train path, expected "
+                            f"{want}")
+    now = stepper.model.state_dict()
+    check(all(not torch.equal(now[k], v) for k, v in before.items() if "running" in k)
+          and int(now["backbone.bn0.num_batches_tracked"]) == DASM_HTSAT_TRAIN_STEPS,
+          "DASM_HTSAT: bn0's running statistics did not move with each step")
+    step_ms = time_training(stepper, batch, windows=3, per_window=3, what="DASM_HTSAT train",
+                            parts="HTSAT frontend, shift in time, mixup, filt_aug, forward with "
+                                  "the AT decoder's dropout, strong BCE + the AT head's BCE, "
+                                  "backward, clip, AdamW")
+    gen = torch.Generator().manual_seed(6)
+    at_ms = at_decoder_ms(stepper.model, lambda: stepper.step(batch, gen), backward=True)
+    log(f"DASM_HTSAT train: {step_ms:.1f} ms a step at B={HTSAT_BATCH}, the AT decoder's forward "
+        f"and backward {at_ms:.3f} ms ({at_ms / step_ms:.1%}; {card})")
+    del stepper
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = build_dasm_htsat_step("cpu", augment=False, dropout=False)
+    gpu = build_dasm_htsat_step("cuda", augment=False, dropout=False,
+                                state_dict=cpu.model.state_dict())
+    trainer_parity("DASM_HTSAT", cpu, gpu,
+                   synthetic_audioset_batch(DASM_HTSAT_PARITY_BATCH, seed=36), 1, "loss_total",
+                   lambda t: (t.model,), last_step_gradient=True)
+    log(f"DASM_HTSAT train parity (one step at B={DASM_HTSAT_PARITY_BATCH}) "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def build_clap(device, state_dict=None):
+    """clap.yaml's CLAP_SED, seeded, with the seeded [447, 512] text bank as
+    its stored ``text_query``."""
+    import torch
+
+    from transformer4sed_tpu_torch.models.htsat_heads import CLAP_SED
+
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    model = seeded(CLAP_SED(**CLAP_CFG, dtype=dtype, device="cpu"), "cpu", state_dict,
+                   DASM_HTSAT_SEED)
+    if state_dict is None:
+        with torch.no_grad():
+            model.text_query.copy_(torch.from_numpy(dasm_banks()[0]))
+    return model.to(device)
+
+
+def build_clap_engine(device, state_dict=None):
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes import common
+    from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
+
+    config = clap_yaml()
+    codec = htsat_codec(CLAP_FRAMES, CLAP_NET_POOLING)
+    return InferenceEngine(build_clap(device, state_dict).eval(), HTSATFrontend(device=device),
+                           codec, common.median_filter_from_config(config, codec),
+                           batch_size=HTSAT_BATCH, threshold=0.5,
+                           model_kwargs=config["CLAP_SED"]["val_kwargs"], device=device)
+
+
+def clap_capture(engine, wav, pad_mask):
+    """One eval forward in f64 on the CPU: z = logits / temp_w, strong, weak."""
+    import torch
+
+    with torch.no_grad():
+        mel = engine.frontend.normalize(engine.frontend(wav.to(engine.device)))
+        out = engine.model(mel, pad_mask=pad_mask.to(engine.device), **engine.model_kwargs)
+    temp_w = engine.model_kwargs["temp_w"]
+    return {"z": out.extras["logit"].double().cpu() / temp_w, "strong": out.strong.double().cpu(),
+            "weak": out.weak.double().cpu()}
+
+
+def build_clap_step(device, augment, state_dict=None):
+    """clap.yaml's ClapStep: AslLoss, the common classes of the vendored
+    state.json with their rows of the bank, train_kwargs, the param groups,
+    clip 20; ``augment=False`` turns shift, mixup and filt_aug off."""
+    import numpy as np
+
+    from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
+    from transformer4sed_tpu_torch.recipes import common
+    from transformer4sed_tpu_torch.recipes.audioset_strong import SupervisedConfig, load_type_map
+    from transformer4sed_tpu_torch.recipes.clap import ClapStep
+
+    config = clap_yaml()
+    types = load_type_map(str(ROOT / "meta" / "audioset_strong" / "state.json"))
+    common_mask = np.asarray([types.get(c) == "common" for c in audioset_labels()])
+    off = {} if augment else dict(mixup_prob=0.0, max_shift_frame=0,
+                                  transform_choice=(0, 0, 0, 0))
+    cfg = SupervisedConfig(loss_name=config["class_loss"]["loss_name"],
+                           loss_kwargs=config["class_loss"]["kwargs"],
+                           model_kwargs=config["CLAP_SED"]["train_kwargs"], **off)
+    pg, _, _ = common.optimizer_from_config(config, 1)
+    return ClapStep(build_clap(device, state_dict), HTSATFrontend(device=device), cfg, pg,
+                    common_mask=common_mask, query_bank=dasm_banks()[0])
+
+
+def clap_phase(results):
+    """clap.yaml's CLAP_SED served at B=64 on 84 clips: row 14 at 12 a batch
+    and nothing else, 32 frames, the padded frames at 0; clips/s; card bf16
+    against CPU f32 on 2 clips by relative L2 error of z = logits / temp_w,
+    strong and weak (a planted fault: the queries rolled by one); then its
+    ClapStep at B=64: rows 14 and 15 at 12 a step, bn0 moving, timed; and
+    one step without augmentation, CPU f32 against card bf16."""
+    import torch
+
+    card = card_line()
+    engine = build_clap_engine("cuda")
+    clips = synthetic_clips(HTSAT_BATCH + 20, seed=37)
+    batches = make_batches(clips, engine.codec, HTSAT_BATCH)
+    reset_launches()
+    served = list(engine.score_batches(batches))
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * len(batches) for k, n in CLAP_SERVE_LAUNCHES.items()})
+    check(launches == want, f"kernel launches {launches} on the CLAP_SED served path, expected "
+                            f"{want}")
+    n_events = served_family("CLAP_SED", engine, batches, served, CLAP_FRAMES)
+    batch_ms = time_serving(engine, batches, per_window=8, what="CLAP_SED served")
+    log(f"CLAP_SED served at B={HTSAT_BATCH}: {n_events} events; {HTSAT_BATCH / batch_ms * 1e3:.2f}"
+        f" clips/s, {batch_ms:.3f} ms a batch, row 14 at 12 launches a batch ({card})")
+    state = {k: v.detach().cpu() for k, v in engine.model.state_dict().items()}
+    cpu_engine = build_clap_engine("cpu", state_dict=state)
+    wav, pm = dasm_parity_clips(batches)
+    got, ref = clap_capture(engine, wav, pm), clap_capture(cpu_engine, wav, pm)
+    gaps = {k: float((got[k] - ref[k]).norm() / ref[k].norm()) for k in ("z", "strong", "weak")}
+    fault = float((got["z"].roll(1, dims=2) - ref["z"]).norm() / ref["z"].norm())
+    log(f"CLAP_SED card bf16 vs CPU f32: relative L2 error of z {gaps['z']:.4e}, strong "
+        f"{gaps['strong']:.4e}, weak {gaps['weak']:.4e} (limit {DASM_REL_L2}); |z| median "
+        f"{float(ref['z'].abs().median()):.3f}; planted fault, the queries rolled by one: "
+        f"{fault:.4e}: {'within' if fault <= DASM_REL_L2 else 'OUTSIDE'}")
+    check(max(gaps.values()) <= DASM_REL_L2, "CLAP_SED: the card's path disagrees with the CPU's")
+    check(fault > DASM_REL_L2, "CLAP_SED: the parity check let the rolled queries through")
+    del engine, cpu_engine
+    torch.cuda.empty_cache()
+
+    stepper = build_clap_step("cuda", augment=True)
+    batch = synthetic_audioset_batch(HTSAT_BATCH, seed=38, frames=CLAP_FRAMES)
+    before = running_bn0(stepper.model)
+    gen = torch.Generator().manual_seed(0)
+    reset_launches()
+    for i in range(CLAP_TRAIN_STEPS):
+        values = finite_metrics(stepper.step(batch, gen))
+        log(f"CLAP_SED train step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in values.items()))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want.update({k: n * CLAP_TRAIN_STEPS for k, n in CLAP_TRAIN_LAUNCHES.items()})
+    check(launches == want, f"kernel launches {launches} on the CLAP_SED train path, expected "
+                            f"{want}")
+    now = stepper.model.state_dict()
+    check(all(not torch.equal(now[k], v) for k, v in before.items() if "running" in k),
+          "CLAP_SED: bn0's running statistics did not move")
+    step_ms = time_training(stepper, batch, windows=3, per_window=3, what="CLAP_SED train",
+                            parts="HTSAT frontend, shift, mixup, filt_aug, forward on the common "
+                                  "rows of the bank, AslLoss, backward, clip, AdamW")
+    log(f"CLAP_SED train: {step_ms:.1f} ms a step at B={HTSAT_BATCH}, rows 14 and 15 at 12 a "
+        f"step ({card})")
+    del stepper
+    torch.cuda.empty_cache()
+    cpu = build_clap_step("cpu", augment=False)
+    gpu = build_clap_step("cuda", augment=False, state_dict=cpu.model.state_dict())
+    trainer_parity("CLAP_SED", cpu, gpu,
+                   synthetic_audioset_batch(CLAP_PARITY_BATCH, seed=39, frames=CLAP_FRAMES), 1,
+                   "loss_class_strong", lambda t: (t.model,), last_step_gradient=True)
+
+
+def htsat_stages(device="cuda"):
+    """The stages of the HTSAT half of DASM as a user runs them, through the
+    CLI on the card at full width, on phase 28's mini 447-class tree:
+    ``clap_train`` (clap.yaml with the seeded text bank), ``dasm_train`` and
+    ``dasm_ov`` (closed_set.yaml and open_vocab.yaml with ``model_name:
+    DASM_HTSAT``, HTSAT's feature grid, ``query_type: text`` for
+    open_vocab.yaml's one bank), ``openset_eval`` on both networks with the
+    34 novel labels; ``queries build_text`` from a seeded table and
+    ``queries extract_audio`` from the closed-set student. Checks: (a)
+    every stage returns 0, writes its files, logs finite numbers; (b) rows
+    14 and 15 (and on DASM_HTSAT 12 and 13) at least once a train step, no
+    backward in evaluation; (c) dasm_ov's warm start loads every key of the
+    closed-set student but the AT head's last layer; (d) the built text
+    bank equals its table rows bitwise, the extracted audio bank is [447,
+    768], finite, nonzero exactly for the classes the train split holds;
+    (e) ``serve --query <audio bank> --query_type audio`` on the closed-set
+    student equals the engine with that bank, bitwise."""
+    import io
+    import tempfile
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from transformer4sed_tpu_torch.data.tsv import read_tsv
+    from transformer4sed_tpu_torch.recipes import audioset_strong, cli, queries
+    from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
+
+    card = card_line()
+    dev = torch.device(device)
+    on = [] if dev.type == "cuda" else ["--device", device]
+    labels = audioset_labels()
+    meta = ROOT / "meta" / "audioset_strong"
+    with open(meta / "hierarchical" / "openset_label.json") as f:
+        novel = json.load(f)
+    with without_tensorflow(), tempfile.TemporaryDirectory(prefix="t4s_htsat_stages_") as tmp:
+        root = Path(tmp)
+        counts = write_audioset_split(root, labels, novel)
+        text, audio = dasm_banks()
+        np.save(root / "text.npy", text)
+        np.save(root / "audio.npy", audio)
+        np.save(root / "novel_text.npy", dasm_banks(len(novel), seed=DASM_SEED + 1)[0])
+        paths = {"dataset.train_folder": f"{root}/train", "dataset.train_tsv": f"{root}/train.tsv",
+                 "dataset.val_folder": f"{root}/val", "dataset.val_tsv": f"{root}/val.tsv",
+                 "dataset.val_dur": f"{root}/val_dur.tsv", "training.scheduler.n_epochs": 1,
+                 "dataset.weight_tsv": None}
+        openset = {"dataset.openset_label": str(meta / "hierarchical" / "openset_label.json"),
+                   "dataset.openset_embedding": f"{root}/novel_text.npy",
+                   "dataset.query_bank": f"{root}/text.npy",
+                   "dataset.openset_tsv": f"{root}/openset.tsv",
+                   "dataset.openset_dur": f"{root}/val_dur.tsv",
+                   "dataset.openset_folder": f"{root}/val"}
+        banks = {"dataset.text_query": f"{root}/text.npy",
+                 "dataset.audio_query": f"{root}/audio.npy"}
+        clap_cfg = audioset_stage_config(root, "clap", "clap", "clap", {**paths, **openset})
+        closed_cfg = dasm_htsat_yaml(root, "closed_set", "htsat_closed", {**paths, **banks})
+        text_kw = {"temp_w": 0.1, "query_type": "text"}
+        ov_section = dasm_yaml("open_vocab")["DASM"]
+        ov_section.update(train_kwargs=text_kw, val_kwargs=text_kw, test_kwargs=text_kw)
+        ov_cfg = dasm_htsat_yaml(root, "open_vocab", "htsat_open_vocab", {
+            **paths, **banks, **openset, "DASM_HTSAT": ov_section})
+        closed_best = root / "closed" / "best" / "best_student"
+        runs = [("clap_train", clap_cfg, root / "clap", []),
+                ("openset_eval", clap_cfg, root / "clap_openset",
+                 ["--pretrained_ckpt", str(root / "clap" / "best" / "best_student")]),
+                ("dasm_train", closed_cfg, root / "closed", []),
+                ("dasm_ov", ov_cfg, root / "open_vocab", ["--pretrained_ckpt", str(closed_best)]),
+                ("openset_eval", ov_cfg, root / "openset",
+                 ["--pretrained_ckpt", str(root / "open_vocab" / "best" / "best_student")])]
+        steps = collections.Counter()
+        step = audioset_strong.SupervisedStep.step
+
+        def counted_step(self, *a, **k):
+            steps[type(self).__name__] += 1
+            return step(self, *a, **k)
+
+        for stage, cfg, folder, extra in runs:
+            t0 = time.perf_counter()
+            reset_launches()
+            before = sum(steps.values())
+            with unittest.mock.patch.object(audioset_strong.SupervisedStep, "step", counted_step):
+                rc = cli.main([stage, "--config_dir", cfg, "--save_folder", str(folder),
+                               "--random_seed", str(STAGE_SEED), *extra, *on])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            n_steps = sum(steps.values()) - before
+            text_log = read_log(folder)
+            check(rc == 0, f"(a) {stage} returned {rc}")
+            nums = finite_log_numbers(text_log, r"INFO (epoch \d+: train|openset psds)")
+            check(nums and all(np.isfinite(nums)), f"(a) {stage}: a logged number is not finite")
+            want_files = (["single_psds.json"] if stage == "openset_eval" else
+                          ["best/best_student", "best/best_metric.json", "best/last_state"])
+            check(all((folder / f).exists() for f in want_files),
+                  f"(a) {stage}: files {want_files}")
+            dasm_htsat = cfg != clap_cfg
+            rows = ("window_attention_backward",) + (
+                ("flash_xl_attention_nhd_lse", "flash_xl_attention_nhd_backward")
+                if dasm_htsat else ())
+            fired = {k: v for k, v in launches.items() if v}
+            if stage == "openset_eval":
+                ok = not any(launches[r] for r in rows) and launches["window_attention"] > 0 and (
+                    launches["flash_xl_attention_nhd"] > 0 or not dasm_htsat)
+            else:
+                ok = all(launches[r] >= n_steps > 0 for r in rows) and launches[
+                    "window_attention"] >= n_steps
+            check(ok, f"(b) {stage}: {n_steps} train steps, launches {fired}")
+            line = re.findall(r"INFO (epoch 1: .*|openset psds=.*)", text_log)[-1]
+            log(f"htsat_stages {stage} ({'DASM_HTSAT' if dasm_htsat else 'CLAP_SED'}): rc 0 in "
+                f"{seconds:.1f} s, {n_steps} train steps, launches {fired}; {line[:300]}")
+        ov_log = read_log(root / "open_vocab")
+        warm = re.search(r"warm start: (\d+) of (\d+) keys loaded, dropped \[.*\]", ov_log)
+        closed_sd = torch.load(closed_best, map_location="cpu", weights_only=True)
+        at_head = [k for k in closed_sd if k.startswith("at_head.layers.1.")]
+        check(warm is not None and int(warm.group(1)) == len(closed_sd) - len(at_head)
+              and int(warm.group(2)) == len(closed_sd),
+              f"(c) dasm_ov's warm start: {warm and warm.group(0)}")
+        log(f"htsat_stages (c): dasm_ov on DASM_HTSAT {warm.group(0)}")
+
+        # (d) the query-bank tools
+        np.savez(root / "table.npz", names=np.array([f"sound of {c}" for c in labels]),
+                 embeddings=text)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc_text = queries.main(["build_text", "--labels",
+                                    str(meta / "labeldict_audioset_strong.json"), "--embeddings",
+                                    str(root / "table.npz"), "--out",
+                                    str(root / "built" / "text.npy")])
+            rc_audio = queries.main(["extract_audio", "--config_dir", closed_cfg, "--ckpt",
+                                     str(closed_best), "--tsv", f"{root}/train.tsv", "--wav_dir",
+                                     f"{root}/train", "--out", str(root / "built" / "audio.npy"),
+                                     "--batch_size", str(HTSAT_BATCH), *on])
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        built = np.load(root / "built" / "text.npy")
+        extracted = np.load(root / "built" / "audio.npy")
+        seen = {labels.index(row["event_label"]) for row in read_tsv(f"{root}/train.tsv").rows()}
+        nonzero = set(np.flatnonzero(np.abs(extracted).sum(1) > 0).tolist())
+        n_batches = -(-AS_TRAIN_CLIPS // HTSAT_BATCH)
+        check(rc_text == 0 and np.array_equal(built, text),
+              "(d) build_text's bank is not the table's")
+        # a class's row is the mean of the frames its events cover on the 32-frame grid (an
+        # event shorter than a frame may fall between two): nonzero rows are classes seen
+        check(rc_audio == 0 and extracted.shape == (447, 768) and np.all(np.isfinite(extracted))
+              and nonzero and nonzero <= seen, f"(d) extract_audio: {extracted.shape}, "
+                                               f"{len(nonzero)} rows nonzero for {len(seen)} "
+                                               "classes seen")
+        check(launches["window_attention"] == 12 * n_batches and not any(
+            v for k, v in launches.items() if k != "window_attention"),
+              f"(d) extract_audio's launches {launches}")
+        log(f"htsat_stages (d): build_text [447, 512] equals the table bitwise; extract_audio "
+            f"[447, 768] from {AS_TRAIN_CLIPS} clips ({counts['train']} events of {len(seen)} "
+            f"classes; {len(nonzero)} rows nonzero), finite, 12 window launches a batch; both in "
+            f"{seconds:.1f} s ({card})")
+
+        # (e) serve --query on the extracted audio bank
+        config = load_yaml_with_include(closed_cfg)
+        query = torch.from_numpy(extracted).to(dev)
+        engine = cli.serving_engine(config, str(closed_best), dev, HTSAT_BATCH,
+                                    model_kwargs={"query": query, "query_type": "audio"})
+        ref, _ = engine_pass(engine, root / "val", HTSAT_BATCH)
+        n_val = -(-AS_VAL_CLIPS // HTSAT_BATCH)
+        line, _ = run_serve_main(
+            ["--config_dir", closed_cfg, "--ckpt", str(closed_best), "--wav_dir",
+             str(root / "val"), "--batch_size", str(HTSAT_BATCH), "--query",
+             str(root / "built" / "audio.npy"), "--query_type", "audio", *on], root / "served",
+            {k: n * n_val for k, n in DASM_HTSAT_PROJ_SERVE_LAUNCHES.items()})
+        check(served_as(root / "served", ref), "(e) serve --query differs from the engine")
+        log(f"htsat_stages (e): serve --query <extracted audio bank> on DASM_HTSAT: {line}; its "
+            f"TSVs and events equal the engine's with the same bank, bitwise ({card})")
 
 
 def at_decoder_ms(model, run, backward=False):
@@ -6153,6 +6802,38 @@ def main(argv=None) -> int:
         audioset_stages()
         torch.cuda.empty_cache()
         log(f"audioset_stages phase {time.perf_counter() - t0:.1f} s")
+    t_family = time.perf_counter()
+    dh_engine = dh_batches = None
+    if phases & {"dasm_htsat_serve", "dasm_htsat_parity"}:
+        t0 = time.perf_counter()
+        dh_engine, dh_batches = dasm_htsat_serve(results)
+        log(f"DASM_HTSAT serve phase {time.perf_counter() - t0:.1f} s")
+    if "dasm_htsat_parity" in phases:
+        t0 = time.perf_counter()
+        dasm_parity(dh_engine, dh_batches, build_dasm_htsat_engine, what="DASM_HTSAT",
+                    log_scores=True)
+        log(f"DASM_HTSAT parity phase {time.perf_counter() - t0:.1f} s")
+    del dh_engine
+    torch.cuda.empty_cache()
+    if "dasm_htsat_train" in phases:
+        t0 = time.perf_counter()
+        dasm_htsat_train(results)
+        torch.cuda.empty_cache()
+        log(f"DASM_HTSAT train phase {time.perf_counter() - t0:.1f} s")
+    if "clap" in phases:
+        t0 = time.perf_counter()
+        clap_phase(results)
+        torch.cuda.empty_cache()
+        log(f"CLAP_SED phase {time.perf_counter() - t0:.1f} s")
+    if "htsat_stages" in phases:
+        t0 = time.perf_counter()
+        htsat_stages()
+        torch.cuda.empty_cache()
+        log(f"htsat_stages phase {time.perf_counter() - t0:.1f} s")
+    family = {"dasm_htsat_serve", "dasm_htsat_parity", "dasm_htsat_train", "clap", "htsat_stages"}
+    if phases & family:
+        log(f"the HTSAT half of DASM ({', '.join(p for p in PHASES if p in phases & family)}): "
+            f"{time.perf_counter() - t_family:.1f} s (limit {HTSAT_FAMILY_LIMIT_S} s for the five)")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all ({card})")
     if phases != set(PHASES):
         return 0

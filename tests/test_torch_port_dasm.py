@@ -12,8 +12,12 @@ one on ``config/dasm/open_vocab.yaml``'s projector network through
 ``OVDASMTrainer``'s step, all fed the draws JAX makes (the preprocess's, the per-query modality pick and the AT
 decoder's dropout masks, read out of the JAX step itself); validation and
 ``openset_evaluate`` on fixed scores against JAX's PSDS; the reference's
-faults under ``config/dasm/open_vocab.yaml``; and the port CLI's four
-AudioSet stages and serving with ``--query`` on a tiny config (port only).
+faults under ``config/dasm/open_vocab.yaml``; the port CLI's four
+AudioSet stages and serving with ``--query`` on a tiny config (port only);
+and the HTSAT half of DASM through the CLI (port only): ``clap_train`` then
+``openset_eval`` on a tiny CLAP_SED, ``dasm_train`` on a tiny DASM_HTSAT,
+``queries extract_audio`` from its student and ``serve --query`` on that
+bank.
 Everything is float32.
 
 The JAX programs compile once each at OPT0 in four worker processes started
@@ -46,7 +50,8 @@ from transformer4sed_tpu_torch.data.tsv import write_tsv
 from transformer4sed_tpu_torch.frontend import augment
 from transformer4sed_tpu_torch.models import dasm
 from transformer4sed_tpu_torch.models.sed_model import SEDOutput
-from transformer4sed_tpu_torch.recipes import audioset_strong, cli, dasm_recipe, infer, serve
+from transformer4sed_tpu_torch.recipes import audioset_strong, cli, dasm_recipe, infer, queries
+from transformer4sed_tpu_torch.recipes import serve
 from transformer4sed_tpu_torch.recipes import common as port_common
 from transformer4sed_tpu_torch.train import optim
 from transformer4sed_tpu_torch.utils.config import load_yaml_with_include
@@ -640,6 +645,94 @@ def test_serve_and_infer_with_queries(closed_run, mini_audioset, tmp_path, capsy
                        str(r / "val" / "v0.wav"), "--query", str(r / "audio.npy"),
                        "--query_type", "audio"]) == 0
     assert len(json.loads(capsys.readouterr().out)["weak"]) == 4
+
+
+# -- the HTSAT half of DASM through the CLI (tests/test_torch_port_htsat_family.py has
+# the rest)
+
+
+# a tiny HTSAT for the CLI's 1.2-s clips at the frontend's 64 mel bins: a
+# 128 x 128 image (121 frames fold into 256), 32 fine-grained frames, 32 wide
+HT_CLIP = dict(spec_size=128, patch_size=4, patch_stride=[4, 4], num_classes=7, embed_dim=16,
+               depths=[1, 1], num_heads=[2, 4], window_size=4, mel_bins=64)
+
+
+def _htsat_stage_yaml(root, tmp_path, shipped, name, frames, **init):
+    """A shipped config with ``model_name`` and its section set to ``name``,
+    the tiny HTSAT, the mini tree's paths, one epoch at B=4."""
+    config = load_yaml_with_include(str(ROOT / "config" / shipped))
+    section = config.pop(config["model_name"])
+    section["init_kwargs"].update(class_num=4, htsat_kwargs=HT_CLIP, **init)
+    config.update(model_name=name, **{name: section})
+    r = str(root)
+    config["generals"]["num_workers"] = 0
+    config["feature"].update(pred_len=frames, audio_max_len=1.2, net_subsample=120 / frames)
+    config["dataset"].update(
+        label_dict=f"{r}/labels.json", type_map=f"{r}/state.json", query_bank=f"{r}/text.npy",
+        text_query=f"{r}/text.npy", audio_query=f"{r}/audio32.npy", train_folder=f"{r}/train",
+        train_tsv=f"{r}/train.tsv", val_folder=f"{r}/val", val_tsv=f"{r}/val_base.tsv",
+        val_dur=f"{r}/val_dur.tsv", openset_label=f"{r}/novel.json",
+        openset_embedding=f"{r}/novel_text.npy", openset_tsv=f"{r}/val.tsv",
+        openset_dur=f"{r}/val_dur.tsv", openset_folder=f"{r}/val")
+    (root / "val_base.tsv").write_text("".join(
+        ln + "\n" for ln in (root / "val.tsv").read_text().splitlines()
+        if not any(n in ln for n in ("Audio logo", "Cart"))))
+    np.save(root / "audio32.npy", np.random.RandomState(8).randn(4, 32).astype(np.float32))
+    config["training"].update(batch_size=[4], batch_size_val=3, median_window=3)
+    config["training"].pop("samples_per_epoch", None)
+    config["training"]["scheduler"].update(n_epochs=1, n_epochs_cut=1, lr_warmup_epochs=0)
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(safe_dump(config))
+    return str(path)
+
+
+def test_clap_train_then_openset_eval_through_the_cli(mini_audioset, tmp_path):
+    """``clap_train`` on clap.yaml's tiny CLAP_SED (the common classes, the
+    bank's common rows, validation on the whole bank), then ``openset_eval``
+    with the novel labels after the bank."""
+    cfg = _htsat_stage_yaml(mini_audioset, tmp_path, "clap/clap.yaml", "CLAP_SED", 32,
+                            embed_dim=24, query_dim=6)
+    assert _run("clap_train", cfg, tmp_path / "clap") == 0
+    log = (tmp_path / "clap" / "log.txt").read_text()
+    assert "epoch 1: train {'loss_class_strong'" in log and "psds_common" in log
+    for name in ("best_student", "best_metric.json", "last_state"):
+        assert (tmp_path / "clap" / "best" / name).exists(), name
+    assert _run("openset_eval", cfg, tmp_path / "open", "--pretrained_ckpt",
+                  str(tmp_path / "clap" / "best" / "best_student")) == 0
+    assert "openset psds=" in (tmp_path / "open" / "log.txt").read_text()
+
+
+def test_dasm_htsat_stage_then_extract_audio_and_serve_its_bank(mini_audioset, tmp_path,
+                                                                capsys):
+    """``dasm_train`` on closed_set.yaml with ``model_name: DASM_HTSAT``, then
+    ``queries extract_audio`` from its student (the train split's per-class
+    frame means, [4, 32]), then ``serve --query`` on that bank through the
+    audio projector, equal to the engine's scores with it."""
+    cfg = _htsat_stage_yaml(mini_audioset, tmp_path, "dasm/closed_set.yaml", "DASM_HTSAT", 64,
+                            decoder_dim=32, num_heads=4, decoder_layer_num=1,
+                            decoder_pos_emd_len=80, at_decoder_layer=1, query_dim=[6, 32],
+                            backbone_upsample_ratio=2)
+    assert _run("dasm_train", cfg, tmp_path / "closed") == 0
+    assert "epoch 1: train {'loss_total'" in (tmp_path / "closed" / "log.txt").read_text()
+    ckpt, r = str(tmp_path / "closed" / "best" / "best_student"), mini_audioset
+    bank = tmp_path / "audio_bank.npy"
+    assert queries.main(["extract_audio", "--config_dir", cfg, "--ckpt", ckpt, "--tsv",
+                         str(r / "train.tsv"), "--wav_dir", str(r / "train"), "--out", str(bank),
+                         "--device", "cpu", "--num_workers", "0"]) == 0
+    extracted = np.load(bank)
+    assert extracted.shape == (4, 32) and np.isfinite(extracted).all() and np.abs(
+        extracted).sum(1).all()
+    assert serve.main(["--config_dir", cfg, "--ckpt", ckpt, "--device", "cpu", "--batch_size",
+                       "3", "--wav_dir", str(r / "val"), "--out_dir", str(tmp_path / "s"),
+                       "--query", str(bank), "--query_type", "audio"]) == 0
+    engine = cli.serving_engine(load_yaml_with_include(cfg), ckpt, torch.device("cpu"), 3,
+                                model_kwargs={"query": extracted, "query_type": "audio"})
+    (tmp_path / "e").mkdir()
+    lines = serve.score_directory(engine, str(r / "val"), str(tmp_path / "e"), 3, 0)
+    assert (tmp_path / "s" / "events.jsonl").read_text() == "".join(ln + "\n" for ln in lines)
+    for tsv in (tmp_path / "e").glob("*.tsv"):
+        assert (tmp_path / "s" / tsv.name).read_text() == tsv.read_text()
+    assert "wrote 4x32 audio query bank" in capsys.readouterr().out
 
 
 # -- against the JAX programs of the worker threads ---------------------------------------

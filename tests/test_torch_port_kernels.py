@@ -4,11 +4,16 @@ kernels run in interpret mode on the CPU.
 On the CPU the port's wrappers take their plain PyTorch versions (the
 CUDA kernels run only on the card; ``chip_smoke.py`` holds them against
 the same plain versions there). Inputs come from numpy with a seed and
-are compared in float32.
+are compared in float32. The slowest Pallas programs (the XL LSE forward
+and backward, the head-major XL family, the window kernels) run in four
+worker processes started with the module (``tests/torch_port_kernels_jax.py``,
+which imports no torch), while the tests before them run.
 """
 
+import concurrent.futures
 import functools
 import importlib
+import multiprocessing
 import re
 
 import jax
@@ -19,11 +24,15 @@ import torch
 
 from transformer4sed_tpu.kernels.flash_attention import _flash_nhd_forward
 from transformer4sed_tpu.kernels.xl_attention import _xl_nhd_forward
-from transformer4sed_tpu.models.htsat import _shift_attn_mask
 from transformer4sed_tpu_torch.kernels import flash_attention as port_flash
 from transformer4sed_tpu_torch.kernels import window_attention as port_window
 from transformer4sed_tpu_torch.kernels import xl_attention as port_xl
+from tests import torch_port_kernels_jax as kernels_jax
 from tests.torch_port_jax import interpret0, jit0
+from tests.torch_port_kernels_jax import HM_CASES, WINDOW_CASES, XL_LSE_CASES, window_cotangent
+from tests.torch_port_kernels_jax import hm_data as _hm_data
+from tests.torch_port_kernels_jax import window_data as _window_data
+from tests.torch_port_kernels_jax import xl_data as _xl_data
 
 # the modules themselves (the package re-exports functions of the same names)
 jax_flash = importlib.import_module("transformer4sed_tpu.kernels.flash_attention")
@@ -55,6 +64,22 @@ def one_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_side():
+    """The slowest Pallas programs in four worker processes started with the
+    module (their tracing would hold this process's GIL): the XL LSE forward
+    and backward, the head-major XL family in two shares, the window
+    kernels."""
+    pool = concurrent.futures.ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
+        "spawn"))
+    futures = {"xl": pool.submit(kernels_jax.xl_lse_backward),
+               "hm": [pool.submit(kernels_jax.head_major, HM_CASES[:3]),
+                      pool.submit(kernels_jax.head_major, HM_CASES[3:])],
+               "window": pool.submit(kernels_jax.window)}
+    yield futures
+    pool.shutdown(wait=True)
+
+
 def _qkv(b, t, c, seed):
     rng = np.random.RandomState(seed)
     return [rng.randn(b, t, c).astype(np.float32) for _ in range(3)]
@@ -70,16 +95,6 @@ def test_flash_plain_matches_pallas(t, h, d):
     ours = port_flash.flash_attention_nhd_reference(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), h, scale)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL)
-
-
-def _xl_data(b, t, h, d, seed=0):
-    rng = np.random.RandomState(seed)
-    c = h * d
-    q, k, v = (rng.randn(b, t, c).astype(np.float32) for _ in range(3))
-    bu = (rng.randn(h, d) * 0.1).astype(np.float32)
-    bv = (rng.randn(h, d) * 0.1).astype(np.float32)
-    p = (rng.randn(h, 2 * t - 1, d) * 0.1).astype(np.float32)
-    return q, k, v, bu, bv, p
 
 
 @pytest.mark.parametrize("band", [None, (6, 10)])
@@ -254,8 +269,8 @@ def test_flash_lse_and_backward_plain_match_pallas(t):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("t,band", [(100, None), (130, (6, 10))])
-def test_xl_lse_and_backward_plain_match_pallas(t, band):
+@pytest.mark.parametrize("t,band", XL_LSE_CASES)
+def test_xl_lse_and_backward_plain_match_pallas(jax_side, t, band):
     """The plain XL LSE forward and backward against ``_xl_nhd_forward_lse``
     / ``_xl_nhd_backward`` in interpret mode (tests/test_kernels.py:689-732):
     a ragged T, and a banded case (a band a head); all six cotangents. Two
@@ -265,15 +280,7 @@ def test_xl_lse_and_backward_plain_match_pallas(t, band):
     arrays = _xl_data(b, t, h, d, seed=3)
     g = np.random.RandomState(4).randn(b, t, h * d).astype(np.float32)
     scale = d ** -0.5
-    jarr = [jnp.asarray(a) for a in arrays]
-    kw = dict(num_heads=h, sm_scale=scale, block_q=32, group=8, band_widths=band)
-
-    def fwd_bwd(*args, interpret):  # both kernels in one program: one compile
-        *x, g_ = args
-        o, lse = jax_xl._xl_nhd_forward_lse(*x, interpret=interpret, **kw)
-        return o, lse, jax_xl._xl_nhd_backward(*x, o, lse, g_, interpret=interpret, **kw)
-
-    o, lse, grads = interpret0(fwd_bwd, *jarr, jnp.asarray(g))
+    o, lse, grads = jax_side["xl"].result()[(t, band)]
     tarr = _t(*arrays)
     ours_o, ours_lse = port_xl.flash_xl_attention_nhd_lse(*tarr, h, scale, band)
     np.testing.assert_allclose(ours_o.numpy(), np.asarray(o), atol=ATOL)
@@ -467,17 +474,8 @@ ATOL_HM_LSE = 1e-4
 ATOL_HM_GRAD = 5e-6
 
 
-def _hm_data(b, h, t, d, seed):
-    """qu, qv, k, v [B, H, T, d], p [H, 2T-1, d] and a cotangent g, as
-    tests/test_kernels.py makes them (scaled by 0.3)."""
-    rng = np.random.RandomState(seed)
-    f = lambda *shape: (rng.randn(*shape) * 0.3).astype(np.float32)  # noqa: E731
-    return [f(b, h, t, d) for _ in range(4)] + [f(h, 2 * t - 1, d), f(b, h, t, d)]
-
-
-@pytest.mark.parametrize("t,d,band", [(37, 16, None), (96, 16, (10, 20, 96)), (96, 32, None),
-                                      (130, 32, (9, 1, 260)), (130, 16, None)])
-def test_xl_head_major_plain_versions_match_pallas(t, d, band):
+@pytest.mark.parametrize("t,d,band", HM_CASES)
+def test_xl_head_major_plain_versions_match_pallas(jax_side, t, d, band):
     """The plain forward, LSE forward and backward of the head-major family
     against ``_xl_forward`` (its row body), ``_xl_forward_lse`` and
     ``_xl_backward`` in interpret mode at small blocks
@@ -485,16 +483,8 @@ def test_xl_head_major_plain_versions_match_pallas(t, d, band):
     backward fed the JAX forward's own o and lse; all five cotangents."""
     b, h = 2, 3
     *arrays, g = _hm_data(b, h, t, d, seed=t + d)
-    kw = dict(sm_scale=0.25, block_q=32, block_k=32, group=8, band_widths=band)
-    jarr = [jnp.asarray(a) for a in arrays]
-
-    def kernels(*args, interpret):  # the three kernels in one program: one compile
-        *x, g_ = args
-        o, lse = jax_xl._xl_forward_lse(*x, interpret=interpret, **kw)
-        return (jax_xl._xl_forward(*x, interpret=interpret, **kw), o, lse,
-                jax_xl._xl_backward(*x, o, lse, g_, interpret=interpret, **kw))
-
-    fwd, o, lse, grads = interpret0(kernels, *jarr, jnp.asarray(g))
+    share = jax_side["hm"][HM_CASES.index((t, d, band)) >= 3]
+    fwd, o, lse, grads = share.result()[(t, d, band)]
     tarr = _t(*arrays)
     ours = port_xl.flash_xl_attention(*tarr, 0.25, band)
     np.testing.assert_allclose(ours.numpy(), np.asarray(fwd), atol=ATOL)
@@ -607,51 +597,15 @@ def test_xl_head_major_takes_strided_views_without_a_copy():
 # -- Swin window attention (rows 14 and 15 of the kernel table) ------------------------
 
 
-def _window_data(bnw, n, h, d, n_windows, shifted, seed):
-    """q, k, v [bnw, n, h, d], bias [h, n, n] and the 0 / -100 shift mask of
-    a square grid of ``n_windows`` windows (zeros of a scalar when not
-    shifted), as tests/test_kernels.py:_data makes them."""
-    rng = np.random.RandomState(seed)
-    q, k, v = (rng.randn(bnw, n, h, d).astype(np.float32) for _ in range(3))
-    bias = (rng.randn(h, n, n) * 0.3).astype(np.float32)
-    shift = np.zeros((), np.float32)
-    if shifted:
-        w = int(np.sqrt(n))
-        grid = int(np.sqrt(n_windows)) * w
-        shift = _shift_attn_mask(grid, grid, w, w // 2)
-    return q, k, v, bias, shift
-
-
-WINDOW_CASES = [
-    (8, 64, 4, 24, 4, False),  # the card's window and head dim, plain
-    (8, 64, 4, 24, 4, True),   # shifted windows, two images
-    (6, 16, 2, 8, 1, False),   # the tiny test model's shapes
-    # the heads of a rank under tensor parallelism at stage 0 (two of four,
-    # one) over three images, an odd count of windows a position, and an
-    # odd head count: the kernels' walks over two heads and over one
-    (12, 64, 2, 24, 4, True), (12, 64, 1, 24, 4, True), (12, 64, 1, 24, 1, False),
-    (8, 64, 3, 24, 4, True),
-]
-
-
 @pytest.mark.parametrize("bnw,n,h,d,n_windows,shifted", WINDOW_CASES)
-def test_window_plain_versions_match_pallas(bnw, n, h, d, n_windows, shifted):
+def test_window_plain_versions_match_pallas(jax_side, bnw, n, h, d, n_windows, shifted):
     """The plain forward against ``_window_forward`` and the plain backward
     against ``_window_backward``, both in interpret mode, the backward fed
     the JAX forward's own output: dq, dk, dv, dbias and dshift."""
     q, k, v, bias, shift = _window_data(bnw, n, h, d, n_windows, shifted, seed=n + shifted)
-    g = (np.random.RandomState(3).randn(bnw, n, h, d) * 0.1).astype(np.float32)
+    g = window_cotangent(bnw, n, h, d)
     scale = d ** -0.5
-    jshift = jnp.asarray(shift) if shifted else None
-    jq, jk, jv, jbias, jg = map(jnp.asarray, (q, k, v, bias, g))
-    kw = dict(n_windows=n_windows, sm_scale=scale)
-
-    def fwd_bwd(q_, k_, v_, g_, b_, s_, interpret):  # both kernels in one program: one compile
-        o_ = jax_window._window_forward(q_, k_, v_, b_, s_, interpret=interpret, **kw)
-        return o_, jax_window._window_backward(q_, k_, v_, o_, g_, b_, s_, interpret=interpret,
-                                               **kw)
-
-    out, want = interpret0(fwd_bwd, jq, jk, jv, jg, jbias, jshift)
+    out, want = jax_side["window"].result()[(bnw, n, h, d, n_windows, shifted)]
     tq, tk, tv, tbias, tg, tout = _t(q, k, v, bias, g, out)
     tshift = torch.from_numpy(shift) if shifted else None
     ours = port_window.window_attention(tq, tk, tv, tbias, tshift, n_windows, scale)

@@ -17,10 +17,14 @@ the CPU.
 The JAX models are never initialised: the port model is seeded and its state
 dict goes through the JAX package's ``convert_torch_checkpoint``. Inputs come
 from numpy with a seed; everything compares in float32. Each JAX program is
-compiled once, at XLA's lowest backend optimization level (the bounds hold).
+compiled once, at XLA's lowest backend optimization level (the bounds hold);
+the two eval forwards' in a worker process started with the module
+(``tests/torch_port_options_jax.py``, which imports no torch), the training
+programs in a worker thread.
 """
 
 import concurrent.futures
+import multiprocessing
 import threading
 
 import jax
@@ -31,7 +35,6 @@ import torch
 
 from transformer4sed_tpu.core import losses as jax_losses
 from transformer4sed_tpu.models import slide as jax_slide
-from transformer4sed_tpu.models.passt_cnn import PaSST_CNN as JaxPaSSTCNN
 from transformer4sed_tpu.models.passt_sed import PaSST_SED as JaxSED
 from transformer4sed_tpu.models.xl import TransformerXLBlock as JaxXLBlock
 from transformer4sed_tpu.models.xl import TransformerXLDecoder as JaxXLDecoder
@@ -48,26 +51,11 @@ from transformer4sed_tpu_torch.models.xl import TransformerXLDecoder
 from transformer4sed_tpu_torch.train import mean_teacher as mt
 from transformer4sed_tpu_torch.train import optim
 from transformer4sed_tpu_torch.utils.weights import init_weights_, load_jax_params
+from tests import torch_port_options_jax as options_jax
 from tests.torch_port_jax import OPT0, jit0
+from tests.torch_port_options_jax import BANDS, TINY, TINY_FT2, TINY_PMAM, WIN
+from tests.torch_port_options_jax import mel as _mel
 
-# the tiny PaSST_SED of tests/test_torch_port_train.py: the backbone's nominal
-# time grid (11 patches) is the 121-frame clip's, so only the windows (5
-# patches) draw a time-embedding offset in training
-TINY = dict(
-    class_num=2, embed_dim=32, decoder_dim=32, backbone_depth=2, backbone_num_heads=4,
-    decoder_num_heads=4, passt_feature_layer=2, decoder_layer_num=1,
-    decoder_pos_emd_len=120, at_adapter=True, at_adapter_heads=4, backbone_img_size=(128, 120),
-)
-FRAMES = 121
-# windows of 64 frames at a step of 20: starts 0, 20, 40 (width 64) and 60
-# (a ragged 61), two width groups; offsets round(s * 120 / 121)
-WIN = dict(encoder_win=True, win_param=(64, 20), mix_rate=0.3)
-BANDS = (3, 8, 1, 300)  # decoder_win_len, one per head
-# PaSST_CNN of tests/test_torch_port_pmam.py's shape, with the windows
-TINY_CNN = dict(nb_filters=(4, 8), kernel_size=(3, 3), padding=(1, 1), stride=(1, 1),
-                pooling=((2, 8), (2, 16)), activation="cg", conv_dropout=0.0)
-TINY_PMAM = dict(TINY, class_num=3, embed_dim=48, f_pool="attention", cnn_name="base",
-                 cnn_param=TINY_CNN)
 # model outputs after a dozen f32 matmuls, summed in another order
 # (tests/test_torch_port_slice.py, tests/test_torch_port_pmam.py)
 ATOL_MODEL = 5e-5
@@ -86,10 +74,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
-
-
-def _mel(b, seed):
-    return (np.random.RandomState(seed).randn(b, 128, FRAMES) * 0.5).astype(np.float32)
 
 
 # held by every trace of this module's JAX programs: the recorder below
@@ -138,9 +122,8 @@ def _params(port, name, cfg):
 def tiny():
     """The finetune2 PaSST_SED (local attention, nearest interpolation): the
     seeded port model, its JAX variables and the JAX model."""
-    cfg = dict(TINY, decoder_win_len=list(BANDS), interpolate_mode="nearest")
-    port = _port(PaSST_SED, cfg)
-    return port, _params(port, "PaSST_SED", cfg), JaxSED(**cfg)
+    port = _port(PaSST_SED, TINY_FT2)
+    return port, _params(port, "PaSST_SED", TINY_FT2), JaxSED(**TINY_FT2)
 
 
 # -- models/slide.py ---------------------------------------------------------------------
@@ -169,41 +152,6 @@ def test_slide_window_encode_matches_jax_with_a_ragged_tail_group(emb_len):
         torch.from_numpy(mel), emb_len, 3, 2)
     assert groups == [0, 1]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_SLIDE)
-
-
-# -- the finetune2 forwards ---------------------------------------------------------------
-
-
-def test_passt_sed_finetune2_eval_matches_jax(tiny):
-    """Windows, local attention and nearest interpolation together, with a
-    padded tail, against JAX ``apply``."""
-    port, variables, jmodel = tiny
-    mel = _mel(2, seed=1)
-    pm = np.zeros((2, 120), bool)
-    pm[1, 70:] = True
-    want = _jit0(lambda v, m, p: jmodel.apply(v, m, pad_mask=p, temp_w=0.5, **WIN))(
-        variables, jnp.asarray(mel), jnp.asarray(pm))
-    with torch.no_grad():
-        got = port(torch.from_numpy(mel), pad_mask=torch.from_numpy(pm), temp_w=0.5, **WIN)
-    for key in ("strong", "weak", "at_out"):
-        np.testing.assert_allclose(getattr(got, key).numpy(), np.asarray(getattr(want, key)),
-                                   atol=ATOL_MODEL, err_msg=key)
-
-
-def test_passt_cnn_finetune2_eval_matches_jax():
-    """PaSST_CNN (PMAM's shape) with the windows: only the PaSST branch is
-    windowed."""
-    port = _port(PaSST_CNN, TINY_PMAM).eval()
-    variables = _params(port, "PaSST_CNN", TINY_PMAM)
-    jmodel = JaxPaSSTCNN(**TINY_PMAM)
-    mel = _mel(2, seed=2)
-    want = _jit0(lambda v, m: jmodel.apply(v, m, temp_w=0.5, **WIN))(variables,
-                                                                     jnp.asarray(mel))
-    with torch.no_grad():
-        got = port(torch.from_numpy(mel), temp_w=0.5, **WIN)
-    for key in ("strong", "weak", "at_out"):
-        np.testing.assert_allclose(getattr(got, key).numpy(), np.asarray(getattr(want, key)),
-                                   atol=ATOL_MODEL, err_msg=key)
 
 
 # -- the decoder's local attention and explicit masks ------------------------------------
@@ -451,4 +399,48 @@ def test_finetune2_train_step_losses_match_jax_with_its_offsets(recorded):
                 "loss_cons_strong", "loss_cons_weak", "loss_cons_at_specific", "w_cons",
                 "grad_norm"):
         np.testing.assert_allclose(float(got[key]), want[key], rtol=RTOL_LOSS, atol=ATOL_LOSS,
+                                   err_msg=key)
+
+
+# -- the finetune2 eval forwards (their JAX side in a worker process) ---------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def spawned(tiny):
+    """The two finetune2 eval forwards' JAX side in a worker process started
+    with the module (its tracing would hold this process's GIL, which the
+    worker thread of :func:`recorded` needs), importing only
+    ``tests/torch_port_options_jax.py``; the tests that read it come last."""
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    states = [{k: v.numpy() for k, v in port.state_dict().items()}
+              for port in (tiny[0], _port(PaSST_CNN, TINY_PMAM))]
+    future = pool.submit(options_jax.finetune2_evals, *states)
+    yield future
+    pool.shutdown(wait=True)
+
+
+def test_passt_sed_finetune2_eval_matches_jax(tiny, spawned):
+    """Windows, local attention and nearest interpolation together, with a
+    padded tail, against JAX ``apply``."""
+    port = tiny[0]
+    pm = options_jax.pad_mask()
+    want = spawned.result()["passt_sed"]
+    with torch.no_grad():
+        got = port(torch.from_numpy(_mel(2, seed=1)), pad_mask=torch.from_numpy(pm), temp_w=0.5,
+                   **WIN)
+    for key in ("strong", "weak", "at_out"):
+        np.testing.assert_allclose(getattr(got, key).numpy(), want[key], atol=ATOL_MODEL,
+                                   err_msg=key)
+
+
+def test_passt_cnn_finetune2_eval_matches_jax(spawned):
+    """PaSST_CNN (PMAM's shape) with the windows: only the PaSST branch is
+    windowed."""
+    port = _port(PaSST_CNN, TINY_PMAM).eval()
+    want = spawned.result()["passt_cnn"]
+    with torch.no_grad():
+        got = port(torch.from_numpy(_mel(2, seed=2)), temp_w=0.5, **WIN)
+    for key in ("strong", "weak", "at_out"):
+        np.testing.assert_allclose(getattr(got, key).numpy(), want[key], atol=ATOL_MODEL,
                                    err_msg=key)

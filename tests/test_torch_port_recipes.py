@@ -655,7 +655,7 @@ def test_test_stage_on_the_finetuned_state(two_epochs):
 def test_stages_run_on_the_card_unless_asked_for_the_cpu(mini_desed, tmp_path):
     """Without ``--device cpu`` on a host without a card the stage raises
     before it writes anything; an orbax directory is refused by name; the
-    JAX package's stage that is not ported yet raises naming its queue item."""
+    JAX package's model that is not ported yet raises naming its queue item."""
     cfg = write_config(tmp_path / "ft.yaml", finetune_config(mini_desed))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -664,9 +664,11 @@ def test_stages_run_on_the_card_unless_asked_for_the_cpu(mini_desed, tmp_path):
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="orbax"):
         run_stage("matsed_test", cfg, tmp_path / "y", "--pretrained_ckpt", str(tmp_path / "orbax"))
-    for stage, item in (("clap_train", 9),):
+    for model, item in (("PasstComplexCNN", 9),):
+        later = write_config(tmp_path / "later.yaml",
+                             dict(finetune_config(mini_desed), model_name=model))
         with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cli.main([stage, "--config_dir", cfg, "--save_folder", str(tmp_path / "z")])
+            run_stage("matsed_test", later, tmp_path / "z")
 
 
 def test_test_stage_with_jax_weights_matches_jax(jax_test_stage, tmp_path):

@@ -159,7 +159,170 @@ def multi_class_to_multi_label(mc: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(mc[:, :, :-1], dim1=1, dim2=2)
 
 
-class DASM(nn.Module):
+def as_query(q, device) -> torch.Tensor:
+    """A query bank (array or tensor; a tensor keeps its autograd graph) as
+    f32 on ``device``."""
+    q = q if torch.is_tensor(q) else torch.from_numpy(np.asarray(q, np.float32))
+    return q.to(device=device, dtype=torch.float32)
+
+
+def check_options(model: str, decoder: str, mlm_dict, out_type) -> None:
+    """Refuse what DASM and DASM_HTSAT take in the JAX package and the port
+    lacks, naming its ROADMAP.md queue 1 item."""
+    if decoder in ("gru", "conformer", "transformer"):
+        raise NotImplementedError(f"decoder={decoder!r} {_LATER_DECODERS}")
+    if decoder not in ("transformerXL", "no"):
+        raise ValueError(f"invalid decoder {decoder!r}")
+    if mlm_dict is not None:
+        raise NotImplementedError(f"{model}'s MLM mode (mlm_dict) is not ported yet: ROADMAP.md, "
+                                  "queue 1, item 14 (the MLM modes of DASM and DASM_HTSAT)")
+    if out_type not in ("logit", "sigmoid", None):
+        raise RuntimeError(f"unknown out_type {out_type!r}")
+
+
+class QueryDetector(nn.Module):
+    """The query system, the AT decoder and the SED head that DASM and
+    DASM_HTSAT share: :meth:`build_query_head` registers them (after the
+    subclass's ``sed_decoder``, in upstream's state-dict order) and
+    :meth:`detect` runs them on the SED decoder's input frames and the AT
+    branch's tokens."""
+
+    def build_query_head(self, class_num: int, decoder_dim: int, num_heads: int,
+                         decoder_expand_rate: float, at_decoder_layer: int, query_projector: bool,
+                         query_dim, out_type: Optional[str], dtype) -> None:
+        self.decoder_dim = decoder_dim
+        self.mask_embedding_layer = (MLP(decoder_dim, decoder_dim, decoder_dim, 3)
+                                     if out_type else None)
+        self.sed_head = Dense(decoder_dim, decoder_dim)
+        self.at_dropout = AT_DROPOUT  # the rate of the AT decoder's training draws
+        self.at_query = None
+        self.query_projector = None
+        if not query_projector:
+            self.at_query = nn.Parameter(torch.zeros(class_num, decoder_dim))
+        elif isinstance(query_dim, int):
+            # upstream's single Sequential(Linear, GELU): the GELU has no params
+            self.query_projector = nn.Sequential(Dense(query_dim, decoder_dim))
+        else:
+            self.query_projector = nn.ModuleList(nn.Sequential(Dense(d, decoder_dim))
+                                                 for d in query_dim)
+        self.at_decoder = QueryBasedAudioTaggingDecoder(
+            at_decoder_layer, decoder_dim, num_heads, int(decoder_dim * decoder_expand_rate),
+            dtype=dtype)
+        head_out = {"logit": class_num + 1, "sigmoid": 1}.get(out_type)
+        self.at_head = MLP(decoder_dim, decoder_dim, head_out, 2) if out_type else None
+
+    @property
+    def projectors(self) -> List[nn.Module]:
+        """The query projectors' Dense layers, one per modality."""
+        if self.query_projector is None:
+            return []
+        if isinstance(self.query_projector, nn.Sequential):
+            return [self.query_projector[0]]
+        return [seq[0] for seq in self.query_projector]
+
+    def project_queries(self, query=None, query_type: Optional[str] = None, train: bool = False,
+                        generator: Optional[torch.Generator] = None,
+                        query_pick: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The [Q, D] queries of a forward: ``at_query``; an external tensor
+        used as it is (a model without projectors); or the projected banks."""
+        dev = self.sed_head.weight.device
+        if query is None:
+            if self.query_projector is not None:
+                raise ValueError(
+                    "query_projector=True DASM needs external query tensors every call "
+                    "(dataset.text_query/audio_query banks); there is no learnable at_query to "
+                    "fall back to")
+            return self.at_query
+        if self.query_projector is None:
+            return as_query(query, dev)
+        projs = self.projectors
+        if isinstance(query, (list, tuple)):
+            stacked = torch.stack([fast_gelu(p(as_query(q, dev))) for p, q in zip(projs, query)],
+                                  dim=1)  # [Q, n_modal, D]
+            n_q, n_modal, _ = stacked.shape
+            if train and n_modal > 1:
+                if query_pick is None:
+                    if generator is None:
+                        raise ValueError("training with several query modalities draws one per "
+                                         "query: pass a torch.Generator")
+                    query_pick = torch.randint(0, n_modal, (n_q,), generator=generator,
+                                               device=generator.device)
+                pick = query_pick.to(stacked.device)
+            else:
+                pick = torch.zeros(n_q, dtype=torch.int64, device=stacked.device)
+            return stacked[torch.arange(n_q, device=stacked.device), pick]
+        if len(projs) > 1:
+            idx = {"text": 0, "audio": 1}.get(query_type)
+            if idx is None:
+                raise RuntimeError("query_type must be 'text' or 'audio' with multi-modal "
+                                   "projectors")
+            return fast_gelu(projs[idx](as_query(query, dev)))
+        return fast_gelu(projs[0](as_query(query, dev)))
+
+    def draw_dropout_masks(self, generator: torch.Generator, batch: int,
+                           n_queries: int) -> List[torch.Tensor]:
+        """The AT decoder's scaled keep masks of one training forward, drawn
+        on the model's device."""
+        dev = self.sed_head.weight.device
+        gen = device_generator(generator, dev)
+        masks = []
+        for layer in self.at_decoder.layers:
+            widths = (self.decoder_dim, self.decoder_dim, layer.linear1.out_features,
+                      self.decoder_dim)
+            masks += [draw_dropout(gen, (batch, n_queries, w), self.at_dropout, dev)
+                      for w in widths]
+        return masks
+
+    def detect(self, x: torch.Tensor, at_feat: torch.Tensor, temp_w: float,
+               pad_mask: Optional[torch.Tensor], query, query_type: Optional[str], tgt_mask,
+               train: bool, generator: Optional[torch.Generator],
+               query_pick: Optional[torch.Tensor],
+               dropout_masks: Optional[Sequence[torch.Tensor]],
+               pad_after_clamp: bool = False) -> SEDOutput:
+        """The AT branch on ``at_feat`` [B, N, D] (queries, the AT decoder
+        with its training dropout, the AT head), then the SED decoder on the
+        frames ``x`` [B, T, D], ``sed_head``, the f32 logits
+        ``einsum('bqc,btc->btq')``, ``sigmoid(logits / temp_w) * prior``,
+        the pad mask and the clamp to [1e-7, 1] (DASM masks, then clamps;
+        DASM_HTSAT clamps, then masks: ``pad_after_clamp``), linear-softmax
+        pooling."""
+        q = self.project_queries(query, query_type, train, generator, query_pick)
+        queries = q[None].expand(at_feat.shape[0], -1, -1)
+        if train and dropout_masks is None:
+            if generator is None:
+                raise ValueError("the AT decoder's dropout in training needs a torch.Generator")
+            dropout_masks = self.draw_dropout_masks(generator, at_feat.shape[0], q.shape[0])
+        blocked = None if tgt_mask is None else torch.as_tensor(tgt_mask, device=at_feat.device)
+        mask_feat = self.at_decoder(at_feat, queries, blocked, dropout_masks if train else None)
+        at_out = None
+        if self.at_head is not None:
+            at_out = self.at_head(mask_feat)  # [B, Q, C+1] or [B, Q, 1]
+            if at_out.shape[-1] == 1:
+                at_out = torch.sigmoid(at_out[..., 0])
+
+        if self.sed_decoder is not None:
+            x = self.sed_decoder(x)
+        frames = self.sed_head(x)
+        mask_embedding = (self.mask_embedding_layer(mask_feat)
+                          if self.mask_embedding_layer is not None else mask_feat)
+        logits = torch.einsum("bqc,btc->btq", mask_embedding.float(), frames.float())
+        if at_out is None:
+            prior = 1.0
+        elif at_out.ndim == 3:  # 'logit': the softmax diagonal as the clip prior
+            prior = multi_class_to_multi_label(torch.softmax(at_out.float(), dim=-1))[:, None, :]
+        else:
+            prior = at_out.float()[:, None, :]
+        sed = torch.sigmoid(logits / temp_w) * prior
+        if pad_mask is not None and not pad_after_clamp:
+            sed = torch.where(pad_mask[:, :, None], 0.0, sed)
+        sed = torch.clamp(sed, 1e-7, 1.0)
+        if pad_mask is not None and pad_after_clamp:
+            sed = torch.where(pad_mask[:, :, None], 0.0, sed)
+        return SEDOutput(strong=sed.transpose(1, 2), weak=linear_softmax_pool(sed, axis=1),
+                         at_out=at_out)
+
+
+class DASM(QueryDetector):
     def __init__(
         self,
         class_num: int = 10,
@@ -188,17 +351,8 @@ class DASM(nn.Module):
         device=None,
     ):
         super().__init__()
-        if decoder in ("gru", "conformer", "transformer"):
-            raise NotImplementedError(f"decoder={decoder!r} {_LATER_DECODERS}")
-        if decoder not in ("transformerXL", "no"):
-            raise ValueError(f"invalid decoder {decoder!r}")
-        if mlm_dict is not None:
-            raise NotImplementedError("DASM's MLM mode (mlm_dict) is not ported yet: ROADMAP.md, "
-                                      "queue 1, item 14")
-        if out_type not in ("logit", "sigmoid", None):
-            raise RuntimeError(f"unknown out_type {out_type!r}")
+        check_options("DASM", decoder, mlm_dict, out_type)
         device = resolve_device(device)
-        self.decoder_dim = decoder_dim
         self.passt_feature_layer = passt_feature_layer
         self.backbone_upsample_ratio = backbone_upsample_ratio
         self.backbone = PaSST(
@@ -220,35 +374,9 @@ class DASM(nn.Module):
                                  num_heads=num_heads, seq_len=decoder_pos_emd_len,
                                  mlp_ratio=decoder_expand_rate, dtype=dtype)
             if decoder == "transformerXL" else None)
-        self.mask_embedding_layer = (MLP(decoder_dim, decoder_dim, decoder_dim, 3)
-                                     if out_type else None)
-        self.sed_head = Dense(decoder_dim, decoder_dim)
-        self.at_dropout = AT_DROPOUT  # the rate of the AT decoder's training draws
-        self.at_query = None
-        self.query_projector = None
-        if not query_projector:
-            self.at_query = nn.Parameter(torch.zeros(class_num, decoder_dim))
-        elif isinstance(query_dim, int):
-            # upstream's single Sequential(Linear, GELU): the GELU has no params
-            self.query_projector = nn.Sequential(Dense(query_dim, decoder_dim))
-        else:
-            self.query_projector = nn.ModuleList(nn.Sequential(Dense(d, decoder_dim))
-                                                 for d in query_dim)
-        self.at_decoder = QueryBasedAudioTaggingDecoder(
-            at_decoder_layer, decoder_dim, num_heads, int(decoder_dim * decoder_expand_rate),
-            dtype=dtype)
-        head_out = {"logit": class_num + 1, "sigmoid": 1}.get(out_type)
-        self.at_head = MLP(decoder_dim, decoder_dim, head_out, 2) if out_type else None
+        self.build_query_head(class_num, decoder_dim, num_heads, decoder_expand_rate,
+                              at_decoder_layer, query_projector, query_dim, out_type, dtype)
         self.to(device)
-
-    @property
-    def projectors(self) -> List[nn.Module]:
-        """The query projectors' Dense layers, one per modality."""
-        if self.query_projector is None:
-            return []
-        if isinstance(self.query_projector, nn.Sequential):
-            return [self.query_projector[0]]
-        return [seq[0] for seq in self.query_projector]
 
     # -- pieces -----------------------------------------------------------------------
 
@@ -262,64 +390,6 @@ class DASM(nn.Module):
     def _encode_window(self, mel_win, train, generator):
         out = self.backbone(mel_win[:, None], train=train, generator=generator, upto_tap=True)
         return interpolate_time(self._f_pool(out), self.backbone_upsample_ratio, "linear")
-
-    def _as_query(self, q) -> torch.Tensor:
-        """A query bank (array or tensor; a tensor keeps its autograd graph) as
-        f32 on the model's device."""
-        q = q if torch.is_tensor(q) else torch.from_numpy(np.asarray(q, np.float32))
-        return q.to(device=self.sed_head.weight.device, dtype=torch.float32)
-
-    def project_queries(self, query=None, query_type: Optional[str] = None, train: bool = False,
-                        generator: Optional[torch.Generator] = None,
-                        query_pick: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The [Q, D] queries of a forward: ``at_query``; an external tensor
-        used as it is (a model without projectors); or the projected banks."""
-        if query is None:
-            if self.query_projector is not None:
-                raise ValueError(
-                    "query_projector=True DASM needs external query tensors every call "
-                    "(dataset.text_query/audio_query banks); there is no learnable at_query to "
-                    "fall back to")
-            return self.at_query
-        if self.query_projector is None:
-            return self._as_query(query)
-        projs = self.projectors
-        if isinstance(query, (list, tuple)):
-            stacked = torch.stack([fast_gelu(p(self._as_query(q))) for p, q in zip(projs, query)],
-                                  dim=1)  # [Q, n_modal, D]
-            n_q, n_modal, _ = stacked.shape
-            if train and n_modal > 1:
-                if query_pick is None:
-                    if generator is None:
-                        raise ValueError("training with several query modalities draws one per "
-                                         "query: pass a torch.Generator")
-                    query_pick = torch.randint(0, n_modal, (n_q,), generator=generator,
-                                               device=generator.device)
-                pick = query_pick.to(stacked.device)
-            else:
-                pick = torch.zeros(n_q, dtype=torch.int64, device=stacked.device)
-            return stacked[torch.arange(n_q, device=stacked.device), pick]
-        if len(projs) > 1:
-            idx = {"text": 0, "audio": 1}.get(query_type)
-            if idx is None:
-                raise RuntimeError("query_type must be 'text' or 'audio' with multi-modal "
-                                   "projectors")
-            return fast_gelu(projs[idx](self._as_query(query)))
-        return fast_gelu(projs[0](self._as_query(query)))
-
-    def draw_dropout_masks(self, generator: torch.Generator, batch: int,
-                           n_queries: int) -> List[torch.Tensor]:
-        """The AT decoder's scaled keep masks of one training forward, drawn
-        on the model's device."""
-        dev = self.sed_head.weight.device
-        gen = device_generator(generator, dev)
-        masks = []
-        for layer in self.at_decoder.layers:
-            widths = (self.decoder_dim, self.decoder_dim, layer.linear1.out_features,
-                      self.decoder_dim)
-            masks += [draw_dropout(gen, (batch, n_queries, w), self.at_dropout, dev)
-                      for w in widths]
-        return masks
 
     # -- forward -------------------------------------------------------------------------
 
@@ -370,35 +440,5 @@ class DASM(nn.Module):
 
         # the AT branch over the backbone's final-norm frame tokens
         at_feat = self.at_projector(backbone_out["frame"][:, 2:, :])
-        q = self.project_queries(query, query_type, train, generator, query_pick)
-        queries = q[None].expand(at_feat.shape[0], -1, -1)
-        if train and dropout_masks is None:
-            if generator is None:
-                raise ValueError("the AT decoder's dropout in training needs a torch.Generator")
-            dropout_masks = self.draw_dropout_masks(generator, at_feat.shape[0], q.shape[0])
-        blocked = None if tgt_mask is None else torch.as_tensor(tgt_mask, device=at_feat.device)
-        mask_feat = self.at_decoder(at_feat, queries, blocked, dropout_masks if train else None)
-        at_out = None
-        if self.at_head is not None:
-            at_out = self.at_head(mask_feat)  # [B, Q, C+1] or [B, Q, 1]
-            if at_out.shape[-1] == 1:
-                at_out = torch.sigmoid(at_out[..., 0])
-
-        if self.sed_decoder is not None:
-            x = self.sed_decoder(x)
-        frames = self.sed_head(x)
-        mask_embedding = (self.mask_embedding_layer(mask_feat)
-                          if self.mask_embedding_layer is not None else mask_feat)
-        logits = torch.einsum("bqc,btc->btq", mask_embedding.float(), frames.float())
-        if at_out is None:
-            prior = 1.0
-        elif at_out.ndim == 3:  # 'logit': the softmax diagonal as the clip prior
-            prior = multi_class_to_multi_label(torch.softmax(at_out.float(), dim=-1))[:, None, :]
-        else:
-            prior = at_out.float()[:, None, :]
-        sed = torch.sigmoid(logits / temp_w) * prior
-        if pad_mask is not None:
-            sed = torch.where(pad_mask[:, :, None], 0.0, sed)
-        sed = torch.clamp(sed, 1e-7, 1.0)
-        return SEDOutput(strong=sed.transpose(1, 2), weak=linear_softmax_pool(sed, axis=1),
-                         at_out=at_out)
+        return self.detect(x, at_feat, temp_w, pad_mask, query, query_type, tgt_mask, train,
+                           generator, query_pick, dropout_masks)

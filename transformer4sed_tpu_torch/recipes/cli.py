@@ -17,6 +17,9 @@
                    dataset.text_query / audio_query banks of a projector model)
   dasm_ov          open-vocabulary DASM (common classes only, common-first
                    validation; needs dataset.state_json or type_map)
+  clap_train       common-only CLAP-SED (the common slice of dataset.query_bank
+                   in training, the whole bank in validation; needs
+                   dataset.state_json or type_map)
   openset_eval     zero-shot evaluation of the extended vocabulary
                    (dataset.openset_label, openset_embedding, openset_tsv,
                    openset_dur, openset_folder; dataset.query_bank)
@@ -30,10 +33,10 @@ throughout; the GMM runs in full f32 on either (``pmam/gmm.py``). The
 tokenizer's draws (mask and frame offsets) come from a generator seeded by
 ``--random_seed``, where the JAX stages fold fixed keys. The AudioSet stages
 keep ``best/best_student``, ``best_metric.json`` and ``last_state`` each epoch
-(``--resume_ckpt auto``); ``openset_eval`` writes ``single_psds.json``. The
-JAX package's other stages (``clap_train``) and models (``CLAP_SED``,
-``DASM_HTSAT``, ``PasstComplexCNN``) are not ported yet and raise, naming
-their ROADMAP.md item; so do the AudioSet stages under several ranks.
+(``--resume_ckpt auto``); ``openset_eval`` writes ``single_psds.json``. DASM's
+stages take ``DASM`` or ``DASM_HTSAT``, ``openset_eval`` also ``CLAP_SED``. The
+JAX package's other model (``PasstComplexCNN``) is not ported yet and raises,
+naming its ROADMAP.md item; so do the AudioSet stages under several ranks.
 
 :func:`build_model` is the one model builder; :func:`serving_model` (a
 config and a checkpoint -> the model in eval mode, frontend, codec, median
@@ -56,10 +59,13 @@ from transformer4sed_tpu_torch.utils.device import resolve_device
 
 MATSED_STAGES = ("matsed_pretrain", "matsed_finetune", "matsed_test")
 PMAM_STAGES = ("pmam_extract", "pmam_gmm", "pmam_pseudo_labels", "pmam_train")
-AUDIOSET_STAGES = ("audioset_supervised", "dasm_train", "dasm_ov", "openset_eval")
-# the JAX package's other stages and models, by their ROADMAP.md queue 1 item
-_LATER_STAGES = {"clap_train": 9}
-_LATER_MODELS = {"PasstComplexCNN": 9, "CLAP_SED": 9, "DASM_HTSAT": 9}
+AUDIOSET_STAGES = ("audioset_supervised", "dasm_train", "dasm_ov", "clap_train",
+                   "openset_eval")
+# the JAX package's other models, by their ROADMAP.md queue 1 item
+_LATER_MODELS = {"PasstComplexCNN": 9}
+# the networks that take their queries from the caller (serve / infer --query)
+QUERY_MODELS = ("DASM", "DASM_HTSAT")
+HTSAT_MODELS = ("HTSAT_CNN", "CLAP_SED", "DASM_HTSAT")
 
 
 # upstream's spellings of the CNN branch's geometry (config/pmam/*.yaml)
@@ -83,7 +89,7 @@ def build_model(config, device: torch.device):
     from transformer4sed_tpu_torch.frontend.mel import PasstFrontend
     from transformer4sed_tpu_torch.models.dasm import DASM
     from transformer4sed_tpu_torch.models.htsat import HTSATFrontend
-    from transformer4sed_tpu_torch.models.htsat_heads import HTSAT_CNN
+    from transformer4sed_tpu_torch.models.htsat_heads import CLAP_SED, DASM_HTSAT, HTSAT_CNN
     from transformer4sed_tpu_torch.models.passt_cnn import PaSST_CNN
     from transformer4sed_tpu_torch.models.passt_sed import PaSST_SED
 
@@ -92,11 +98,11 @@ def build_model(config, device: torch.device):
         raise NotImplementedError(
             f"model {name!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_MODELS[name]}")
     model_cls = {"PaSST_SED": PaSST_SED, "PaSST_CNN": PaSST_CNN, "HTSAT_CNN": HTSAT_CNN,
-                 "DASM": DASM}[name]
+                 "DASM": DASM, "CLAP_SED": CLAP_SED, "DASM_HTSAT": DASM_HTSAT}[name]
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = model_cls(**_upstream_names(common.model_init_kwargs(config, name)), dtype=dtype,
                       device="cpu")
-    frontend = (HTSATFrontend(device=device) if name == "HTSAT_CNN"
+    frontend = (HTSATFrontend(device=device) if name in HTSAT_MODELS
                 else PasstFrontend(device=device))
     return model, frontend
 
@@ -194,11 +200,27 @@ def serving_model(config, ckpt: str, device: torch.device, lora_ckpt: Optional[s
                    dict(config.get(name, {}).get("test_kwargs", {})))
 
 
+def query_refusal(config) -> Optional[str]:
+    """Why ``--query`` cannot serve the config's network, or None: it serves
+    DASM and DASM_HTSAT. CLAP_SED has no ``query_type``, which the JAX
+    serve passes with every ``--query`` (a TypeError there; ROADMAP.md,
+    queue 3)."""
+    name = config.get("model_name", "PaSST_SED")
+    if name in QUERY_MODELS:
+        return None
+    if name == "CLAP_SED":
+        return ("--query with CLAP_SED: its forward takes no query_type, which the JAX serve "
+                "passes with every --query and fails on; serve its stored text_query, or "
+                "evaluate new labels with the openset_eval stage")
+    return f"--query serves an open-vocabulary DASM or DASM_HTSAT; the config builds {name}"
+
+
 def serving_engine(config, ckpt: str, device: torch.device, batch_size: int,
                    threshold: float = 0.5, lora_ckpt: Optional[str] = None,
                    labels: Optional[List[str]] = None, model_kwargs: Optional[Dict] = None):
     """``recipes.serve.InferenceEngine`` over :func:`serving_model`;
-    ``model_kwargs`` (an open-vocabulary DASM's ``query`` and ``query_type``)
+    ``model_kwargs`` (an open-vocabulary DASM's or DASM_HTSAT's ``query``
+    and ``query_type``)
     join the config's ``test_kwargs``."""
     from transformer4sed_tpu_torch.recipes.serve import InferenceEngine
 
@@ -267,9 +289,6 @@ def setup(argv) -> Stage:
     """Parse a stage's flags, load its config and build its warm-started
     model."""
     stage, rest = argv[0], argv[1:]
-    if stage in _LATER_STAGES:
-        raise NotImplementedError(
-            f"stage {stage!r} is not ported yet: ROADMAP.md, queue 1, item {_LATER_STAGES[stage]}")
     if stage not in MATSED_STAGES + PMAM_STAGES + AUDIOSET_STAGES:
         raise SystemExit(f"unknown stage {stage!r}")
     args = common.build_argparser().parse_args(rest)
@@ -452,8 +471,9 @@ def audioset_trainer(st: Stage):
     """The stage's trainer over the AudioSet-strong loaders:
     ``SupervisedTrainer`` (audioset_supervised), ``DASMTrainer`` with the
     ``dataset.text_query`` / ``audio_query`` banks of a projector model
-    (dasm_train), ``OVDASMTrainer`` with the common classes of the type map
-    and the ``dataset.query_bank`` (or ``text_query``) bank (dasm_ov)."""
+    (dasm_train), ``OVDASMTrainer`` (dasm_ov) and ``CommonOnlyClapTrainer``
+    (clap_train) with the common classes of the type map and the
+    ``dataset.query_bank`` (or ``text_query``) bank."""
     import numpy as np
 
     from transformer4sed_tpu_torch.recipes.audioset_strong import (
@@ -461,6 +481,7 @@ def audioset_trainer(st: Stage):
         audioset_dataset_setting,
         load_type_map,
     )
+    from transformer4sed_tpu_torch.recipes.clap import CommonOnlyClapTrainer
     from transformer4sed_tpu_torch.recipes.dasm_recipe import DASMTrainer, OVDASMTrainer
     from transformer4sed_tpu_torch.utils.config import resolve_meta_path
 
@@ -480,12 +501,13 @@ def audioset_trainer(st: Stage):
         raise SystemExit(f"{st.name} needs dataset.state_json (common/rare map)")
     common_mask = np.asarray([type_map.get(c) == "common" for c in st.codec.labels])
     bank_path = ds.get("query_bank") or ds.get("text_query")
-    return OVDASMTrainer(*loaders, type_map=type_map, common_mask=common_mask,
-                         query_bank=np.load(bank_path) if bank_path else None)
+    trainer = OVDASMTrainer if st.name == "dasm_ov" else CommonOnlyClapTrainer
+    return trainer(*loaders, type_map=type_map, common_mask=common_mask,
+                   query_bank=np.load(bank_path) if bank_path else None)
 
 
 def audioset_train(st: Stage) -> int:
-    """audioset_supervised, dasm_train, dasm_ov: epochs of training and
+    """audioset_supervised, dasm_train, dasm_ov, clap_train: epochs of training and
     validation (PSDS at alpha 0), the best student by ``psds``
     (``best/best_student``, ``best_metric.json``) and ``last_state`` each
     epoch; ``--resume_ckpt auto`` resumes from it."""

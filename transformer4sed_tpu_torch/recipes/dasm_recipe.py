@@ -26,7 +26,16 @@ training and zero-shot open-set evaluation (port of ``recipes/dasm_recipe.py``).
     novel classes' queries appended to the bank, the extended vocabulary
     detected zero-shot.
 
-Where the port departs from the JAX trainer: whether the open-vocabulary
+The step, the trainers and :func:`openset_evaluate` take DASM and DASM_HTSAT
+alike (``models/dasm.py:QueryDetector``'s names), and CLAP_SED in
+:func:`openset_evaluate`.
+
+Where the port departs from the JAX trainer: DASM_HTSAT's HTSAT frontend
+gives [B, 1, T, F], which the step turns to the augmentations' [B, F, T] and
+back, shifting its 320-frame labels by ``shift * 320 / T`` as the supervised
+step does; the JAX step hands the 4-d mel to them as it is, so its frame
+shift rolls the mel bins and filt_aug raises (ROADMAP.md, queue 3). The two
+agree where neither shift nor filt_aug runs. Whether the open-vocabulary
 step slices ``at_query`` in the loss is read from the model (no projectors:
 a learnable bank), where the JAX trainer reads the config's
 ``at_param.query_projector``, which ``config/dasm/open_vocab.yaml`` does not
@@ -51,8 +60,10 @@ from transformer4sed_tpu_torch.recipes.audioset_strong import (
     SupervisedTrainer,
     drop_absent_classes,
     draw_supervised,
+    from_feature_layout,
     psds_at_alpha_zero,
     split_psds_by_type,
+    to_feature_layout,
 )
 from transformer4sed_tpu_torch.train.mean_teacher import pool_strong_labels
 
@@ -166,16 +177,17 @@ class DASMStep(SupervisedStep):
             if common_idx is not None:
                 labels = labels.index_select(1, common_idx)
             fminmax = draw.fminmax if draw is not None else frontend.draw_fminmax(gen)
-            mel = frontend.normalize(frontend(wav, fminmax))
+            mel, was_4d = to_feature_layout(frontend.normalize(frontend(wav, fminmax)))
             if draw is None:
                 draw = draw_dasm(gen, cfg, mel.shape, fminmax)
-            mel, labels = augment.frame_shift(mel, draw.shifts, labels,
-                                              net_pooling=cfg.net_pooling)
+            # DASM_HTSAT's labels lie on a coarser grid than its mel frames
+            net_pooling = mel.shape[-1] / labels.shape[-1] if was_4d else cfg.net_pooling
+            mel, labels = augment.frame_shift(mel, draw.shifts, labels, net_pooling=net_pooling)
             if draw.do_mix:
                 mel, labels = augment.mixup(mel, draw.perm, draw.c, labels)
-            mel = augment.feature_transformation(
+            mel = from_feature_layout(augment.feature_transformation(
                 mel, draw.views, filter_minimum_bandwidth=cfg.filter_minimum_bandwidth,
-                filter_type=cfg.filter_type, norm_std=5.0)
+                filter_type=cfg.filter_type, norm_std=5.0), was_4d)
             labels_weak = pool_strong_labels(labels)
             kwargs = dict(cfg.model_kwargs)
             if self.query is not None:
@@ -319,9 +331,9 @@ def openset_evaluate(model, frontend, codec, loader, extra_query, ground_truth, 
     from transformer4sed_tpu_torch.eval.decode import batched_decode_preds
 
     device = next(model.parameters()).device
-    if query_bank is None and model.at_query is None:
-        raise ValueError("a query-projector DASM evaluates the open set on its bank: "
-                         "dataset.query_bank")
+    if query_bank is None and getattr(model, "at_query", None) is None:
+        raise ValueError("a model without a learnable at_query bank (a query-projector DASM, "
+                         "CLAP_SED) evaluates the open set on its bank: dataset.query_bank")
     bank = (_bank_on(query_bank, device) if query_bank is not None
             else model.at_query.detach())
     query = torch.cat([bank, _bank_on(extra_query, device)], dim=0)

@@ -8,8 +8,8 @@ forward, whose frame scores are overlap-added into segment scores
 (``eval/scores.py:segment_scores_overlap_add``, the reference's MAESTRO
 long-file path). Both run on the model's device; :func:`main` builds the
 model on the card unless ``--device cpu`` is given. An open-vocabulary DASM
-takes its queries as ``query`` (and ``query_type``; ``--query``,
-``--query_type``).
+or DASM_HTSAT takes its queries as ``query`` (and ``query_type``;
+``--query``, ``--query_type``).
 
 Usage:
   python -m transformer4sed_tpu_torch.recipes.infer \\
@@ -138,7 +138,7 @@ def main(argv=None) -> int:
     parser.add_argument("--wav", required=True)
     parser.add_argument("--threshold", type=float, default=0.5)
     parser.add_argument("--query", default=None, help=".npy query embeddings (open-vocabulary "
-                        "DASM)")
+                        "DASM or DASM_HTSAT)")
     parser.add_argument("--query_type", default=None, choices=[None, "text", "audio"])
     parser.add_argument("--long", action="store_true",
                         help="arbitrary-length audio via sliding windows + overlap-add")
@@ -147,8 +147,12 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
+    config = load_yaml_with_include(args.config_dir)
+    refusal = cli.query_refusal(config) if args.query else None
+    if refusal:
+        parser.error(f"{args.config_dir}: {refusal}")
     device = resolve_device(args.device)
-    s = cli.serving_model(load_yaml_with_include(args.config_dir), args.ckpt, device)
+    s = cli.serving_model(config, args.ckpt, device)
     wav = load_audio(args.wav, s.codec.sr)
     query = (None if args.query is None
              else torch.from_numpy(np.load(args.query).astype(np.float32)).to(device))

@@ -13,10 +13,11 @@ clip's filtered scores into ``(label, onset, offset)`` events.
 sed_scores_eval layout (``onset offset <labels>``) and ``events.jsonl``,
 from a config and a checkpoint (a port checkpoint or an upstream ``.pt``
 state dict) or from a ``recipes.export`` artifact (``--exported``). An
-open-vocabulary DASM serves the queries of ``--query`` (an ``.npy`` bank, one
-row a class, through the projector of ``--query_type``), and
-``--query_names`` (one event name a row) becomes the output class list; a
-learnable-query DASM serves its own bank without ``--query``. It runs
+open-vocabulary DASM or DASM_HTSAT serves the queries of ``--query`` (an
+``.npy`` bank, one row a class, through the projector of ``--query_type``),
+and ``--query_names`` (one event name a row) becomes the output class list;
+a learnable-query one serves its own bank without ``--query``. CLAP_SED with
+``--query`` is refused when the flags are read (``recipes.cli.query_refusal``). It runs
 on the card unless ``--device cpu`` is given. Under a process group of
 several ranks each rank scores a strided share of the clips and writes
 their TSVs, and rank 0 writes the one ``events.jsonl`` in the clips' order:
@@ -243,7 +244,8 @@ def main(argv=None) -> int:
     parser.add_argument("--threshold", type=float, default=0.5)
     parser.add_argument("--lora_ckpt", choices=("merged", "unmerged"), default=None)
     parser.add_argument("--query", default=None,
-                        help=".npy of external query embeddings (open-vocabulary DASM)")
+                        help=".npy of external query embeddings (open-vocabulary DASM or "
+                             "DASM_HTSAT)")
     parser.add_argument("--query_type", default="text", choices=["text", "audio"])
     parser.add_argument("--query_names", default=None,
                         help="text file, one event name per query row; becomes the output "
@@ -270,9 +272,9 @@ def main(argv=None) -> int:
             labels = [ln.strip() for ln in f if ln.strip()]
     extra = {}
     if args.query:
-        if config.get("model_name", "PaSST_SED") != "DASM":
-            parser.error(f"--query serves an open-vocabulary DASM; {args.config_dir} builds "
-                         f"{config.get('model_name', 'PaSST_SED')}")
+        refusal = cli.query_refusal(config)
+        if refusal:
+            parser.error(f"{args.config_dir}: {refusal}")
         # the rows are checked against the class list before the model is built
         query = np.load(args.query)
         n_classes = len(labels) if labels is not None else len(

@@ -1,13 +1,13 @@
 """Weights across the two packages, and a seeded init.
 
 :func:`load_jax_params` fills a port model (:class:`PaSST_SED`,
-:class:`PaSST_CNN`, :class:`HTSAT_CNN`, :class:`DASM`) from the JAX
-package's variables, given as nested dicts of arrays (numpy, or anything
-``np.asarray`` takes): a param tree,
+:class:`PaSST_CNN`, :class:`HTSAT_CNN`, :class:`DASM`, :class:`CLAP_SED`,
+:class:`DASM_HTSAT`) from the JAX package's variables, given as nested
+dicts of arrays (numpy, or anything ``np.asarray`` takes): a param tree,
 or ``{'params': ..., 'batch_stats': ...}`` for a model with BatchNorm. It
 is the inverse of the JAX package's ``utils/torch_import.py``
 (``convert_passt_sed``, ``convert_passt_cnn``, ``convert_htsat_cnn``,
-``convert_dasm``):
+``convert_dasm``, ``convert_clap_sed``):
 
   * Dense ``kernel [in, out]`` -> ``weight [out, in]``;
   * Conv ``kernel`` HWIO -> ``weight`` OIHW;
@@ -15,17 +15,20 @@ is the inverse of the JAX package's ``utils/torch_import.py``
   * flax MHA ``query/key/value.kernel [D, H, hd]`` -> ``in_proj_weight
     [3D, D]`` and ``out.kernel [H, hd, D]`` -> ``out_proj.weight`` (the
     f-pool's ``frequency_att``, DASM's ``multihead_attn`` and ``self_attn``);
-  * DASM: ``at_decoder/layers_1`` -> ``at_decoder.decoder.layers.1``,
-    ``query_projector`` -> ``query_projector.0``, ``query_projector_1`` ->
-    ``query_projector.1.0``, ``mask_embedding_layer/layers_0`` ->
-    ``mask_embedding_layer.layers.0``, and its ``at_head`` MLP keeps its name;
+  * DASM and DASM_HTSAT: ``at_decoder/layers_1`` ->
+    ``at_decoder.decoder.layers.1``, ``query_projector`` ->
+    ``query_projector.0``, ``query_projector_1`` -> ``query_projector.1.0``,
+    ``mask_embedding_layer/layers_0`` -> ``mask_embedding_layer.layers.0``,
+    and its ``at_head`` MLP keeps its name; CLAP_SED's
+    ``audio_projector/layers_0`` -> ``audio_projector.layers.0`` (and
+    ``text_projector``), ``text_query`` as it is;
   * ``blocks_3`` -> ``blocks.3``; ``decoder_module`` -> ``decoder``;
     ``at_pool``/``at_head`` -> ``at_adpater.0``/``at_adpater.1``;
     ``mlm_fc1``/``mlm_fc2`` -> ``mlm_mlp.0``/``mlm_mlp.2``;
-  * HTSAT: ``layers_1_blocks_0`` -> ``layers.1.blocks.0``,
-    ``layers_1_downsample`` -> ``layers.1.downsample``,
+  * HTSAT (HTSAT_CNN, CLAP_SED, DASM_HTSAT): ``layers_1_blocks_0`` ->
+    ``layers.1.blocks.0``, ``layers_1_downsample`` -> ``layers.1.downsample``,
     ``patch_embed_proj``/``patch_embed_norm`` -> ``patch_embed.proj``/
-    ``patch_embed.norm``;
+    ``patch_embed.norm``, and ``bn0``'s ``batch_stats``;
   * the CNN branch: ``cnn/conv0`` -> ``cnn.cnn.conv0``, ``cnn/norm0`` ->
     ``cnn.cnn.batchnorm0`` (or ``layernorm0``), ``cnn/act0`` ->
     ``cnn.cnn.cg0`` (or ``glu0``), whichever the model has;
